@@ -1,0 +1,69 @@
+"""Carry the JAX package's weights into the port.
+
+The port names its submodules after the flax paths (``detector.backbone_net.
+sa1.mlp_module.layer0``, ``blip_model.text_decoder.bert.encoder.layer_3.
+crossattention.self.query``), so the mapping is a walk over the flax tree:
+
+- Dense ``kernel`` (in, out) -> ``weight`` (out, in);
+- Conv ``kernel`` (kh, kw, in, out) -> ``weight`` (out, in, kh, kw);
+- LayerNorm / BatchNorm ``scale`` -> ``weight``; ``bias`` -> ``bias``;
+- BatchNorm statistics ``mean`` / ``var`` -> ``running_mean`` / ``running_var``;
+- Embed ``embedding`` -> ``weight``;
+- every other leaf (``cls_token``, ``pos_embed``, ``bilinear_fusion_*``,
+  ``a_2``, ``b_2``, the LM head ``bias``) keeps its name and layout.
+
+A reference checkpoint reaches the port through
+``bridgeqa_tpu.utils.bridgeqa_checkpoint.convert_scanqa`` and then
+``load_jax_variables``, where JAX is installed; this module itself imports
+no JAX.
+"""
+
+import numpy as np
+import torch
+from torch import nn
+
+_RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+           "mean": "running_mean", "var": "running_var"}
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict) or hasattr(tree, "items"):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (str(k),))
+    else:
+        yield prefix, tree
+
+
+def _to_torch_layout(name: str, value: np.ndarray) -> np.ndarray:
+    if name == "kernel" and value.ndim == 2:
+        return value.T
+    if name == "kernel" and value.ndim == 4:
+        return value.transpose(3, 2, 0, 1)
+    return value
+
+
+@torch.no_grad()
+def load_jax_variables(model: nn.Module, variables) -> nn.Module:
+    """Fill ``model``'s parameters and buffers from a flax ``{"params",
+    "batch_stats"}`` tree of arrays. Every value is copied (no view of the
+    caller's buffers survives). Raises on a missing, unknown or mis-shaped
+    entry, so a load is all or nothing."""
+    state = model.state_dict(keep_vars=True)
+    filled = set()
+    for collection in ("params", "batch_stats"):
+        for path, value in _leaves(variables.get(collection, {})):
+            leaf = path[-1]
+            key = ".".join(path[:-1] + (_RENAME.get(leaf, leaf),))
+            if key not in state:
+                raise KeyError(f"{collection}/{'/'.join(path)} has no counterpart {key!r} in the port")
+            arr = np.array(_to_torch_layout(leaf, np.asarray(value, dtype=np.float32)), copy=True)
+            target = state[key]
+            if tuple(arr.shape) != tuple(target.shape):
+                raise ValueError(f"{key}: port shape {tuple(target.shape)}, JAX {arr.shape}")
+            target.copy_(torch.from_numpy(arr))
+            filled.add(key)
+    missing = sorted(set(state) - filled)
+    if missing:
+        raise KeyError(f"port entries with no JAX value: {missing[:10]}"
+                       f"{' ...' if len(missing) > 10 else ''}")
+    return model
