@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bridgeqa_tpu.data.scannet_config import MEAN_SIZE_ARR  # numpy only, no JAX
+from bridgeqa_tpu_torch.data.scannet_config import MEAN_SIZE_ARR
 from bridgeqa_tpu_torch.models.blip_vqa3d import BLIPVQA3D, BlipVQA3DConfig
 from bridgeqa_tpu_torch.models.detector import VoteNetDetector
 from bridgeqa_tpu_torch.models.layers import Dense, add_indexed, gelu
@@ -81,10 +81,16 @@ class MlpHead(nn.Module):
 
 
 class BridgeQA(nn.Module):
-    def __init__(self, cfg: BridgeQAConfig, mean_size_arr: np.ndarray = MEAN_SIZE_ARR):
+    def __init__(self, cfg: BridgeQAConfig, mean_size_arr: np.ndarray = MEAN_SIZE_ARR,
+                 device: torch.device | str = "cuda"):
         """``mean_size_arr`` (num_size_cluster, 3): the size-cluster means,
-        ScanNet's by default."""
+        ScanNet's by default. The model is built on ``device``: the card
+        unless the caller asks for the CPU (``device="cpu"``)."""
         super().__init__()
+        with torch.device(device):
+            self._build(cfg, mean_size_arr)
+
+    def _build(self, cfg: BridgeQAConfig, mean_size_arr: np.ndarray) -> None:
         c = self.cfg = cfg
         if c.stage != "VQA" or not c.use_blip or not c.use_text_decoder:
             raise NotImplementedError("the port runs the BLIP rank path (stage='VQA', use_blip, "

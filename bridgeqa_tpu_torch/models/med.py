@@ -1,10 +1,14 @@
 """med-BERT, BLIP's mixture of encoder and decoder, with BridgeQA's twin
-encoder (counterpart of ``bridgeqa_tpu/models/med.py``, module path).
+encoder (counterpart of ``bridgeqa_tpu/models/med.py``).
 
-Attention is written out: einsum for the scores, softmax in f32, einsum for
-the context, as the JAX module does. The JAX package's large-batch VPU
-branch computes the same thing and has no counterpart here. Inference only:
-no dropout, no KV-cache decode (generation is a later part of the port).
+Module path: attention is written out, einsum for the scores, softmax in
+f32, einsum for the context, as the JAX module does. The JAX package's
+large-batch VPU branch computes the same thing and has no counterpart here.
+The answer-scoring call of ``BertLMHeadModel`` takes the fused path instead
+where ``MedConfig.fused_scoring`` lets it (``_fused_scoring_loss``):
+``ops/scoring_layer.py`` and ``ops/vocab_loss.py``, hand-written kernels on
+the card. Inference only: no dropout, no KV-cache decode (generation is a
+later part of the port).
 """
 
 import dataclasses
@@ -14,6 +18,8 @@ import torch
 from torch import nn
 
 from bridgeqa_tpu_torch.models.layers import Dense, Embed, LayerNorm, add_indexed, gelu
+from bridgeqa_tpu_torch.ops.scoring_layer import fused_scoring_capable, scoring_decoder_body
+from bridgeqa_tpu_torch.ops.vocab_loss import label_smoothed_loss_streaming
 
 NEG_INF = -10000.0  # HF additive-mask constant
 IGNORE_INDEX = -100
@@ -23,9 +29,14 @@ IGNORE_INDEX = -100
 class MedConfig:
     """configs/med_config.json values; the JAX ``MedConfig``'s fields and
     defaults. The port reads the model widths, ``layer_norm_eps``,
-    ``add_cross_attention`` and ``parallel_layernorms``; dropout, remat and
-    ``fused_scoring`` (the module path is the only one so far) are kept so a
-    JAX config carries over unchanged."""
+    ``add_cross_attention``, ``parallel_layernorms`` and ``fused_scoring``;
+    dropout and remat are kept so a JAX config carries over unchanged.
+
+    ``fused_scoring`` routes the answer-scoring call (labels, a grouped
+    batch): "auto" takes the fused kernels on a CUDA tensor and the module
+    path on the CPU (the JAX package's "TPU only"); "force" takes the fused
+    path on the CPU too, through the kernels' plain versions (the JAX
+    package's interpret mode); "off" always takes the module path."""
 
     vocab_size: int = 30524
     hidden_size: int = 768
@@ -290,6 +301,7 @@ class BertLMHeadModel(nn.Module):
 
     def __init__(self, c: MedConfig):
         super().__init__()
+        self.config = c
         self.bert = BertModel(c)
         self.cls = BertLMPredictionHead(c)
 
@@ -298,9 +310,15 @@ class BertLMHeadModel(nn.Module):
                 layernorm_idx: int = 0):
         """Returns (logits | None, per-sequence loss | None).
 
-        With labels and ``loss_chunk_size`` below the batch, the vocabulary
-        projection and the loss run one chunk of sequences at a time, so the
-        (B, L, vocab) logits never exist at once; logits come back None."""
+        The fused scoring path is tried first (``_fused_scoring_loss``);
+        where it runs, logits come back None. Otherwise, with labels and
+        ``loss_chunk_size`` below the batch, the vocabulary projection and
+        the loss run one chunk of sequences at a time, so the (B, L, vocab)
+        logits never exist at once; logits come back None."""
+        fused = self._fused_scoring_loss(input_ids, encoder_hidden_states, encoder_attention_mask,
+                                         labels, layernorm_idx)
+        if fused is not None:
+            return None, fused
         sequence_output = self.bert(input_ids, attention_mask, encoder_hidden_states,
                                     encoder_attention_mask, is_decoder=True,
                                     layernorm_idx=layernorm_idx)
@@ -318,3 +336,37 @@ class BertLMHeadModel(nn.Module):
         logits = self.cls(sequence_output, word_embed)
         loss = label_smoothed_lm_loss(logits, labels) if labels is not None else None
         return logits, loss
+
+    def _fused_scoring_loss(self, input_ids, encoder_hidden_states, encoder_attention_mask,
+                            labels, layernorm_idx: int = 0):
+        """Answer-scoring fast path (JAX ``med.py:595-644``): the decoder
+        stack through ``scoring_decoder_body`` and the loss through the
+        streaming vocabulary reductions. Returns the per-sequence loss, or
+        None where the module path should run.
+
+        It runs for a call with labels and encoder states over a grouped
+        batch (``fused_scoring_capable``), as ``fused_scoring`` allows. It
+        drops the answer padding mask (equivalent for right-padded answers)
+        and projects the vocabulary in f32 where the module path rounds the
+        logits to the working type."""
+        c = self.config
+        if c.fused_scoring not in ("auto", "force", "off"):
+            raise ValueError(f"fused_scoring must be 'auto', 'force' or 'off', got "
+                             f"{c.fused_scoring!r}")
+        if labels is None or encoder_hidden_states is None or c.fused_scoring == "off":
+            return None
+        if c.fused_scoring == "auto" and input_ids.device.type != "cuda":
+            return None
+        word_embed = self.bert.embeddings.word_embeddings
+        (batch, la), (enc_batch, lk) = input_ids.shape, encoder_hidden_states.shape[:2]
+        if not fused_scoring_capable(c, batch, enc_batch, la, lk, word_embed.weight.dtype):
+            return None
+        if encoder_attention_mask is None:
+            encoder_attention_mask = torch.ones((enc_batch, lk), dtype=torch.int32,
+                                                device=input_ids.device)
+        x = scoring_decoder_body(self.bert.encoder, self.bert.embeddings(input_ids),
+                                 encoder_hidden_states, encoder_attention_mask, config=c,
+                                 layernorm_idx=layernorm_idx)
+        h_t = self.cls.transform(x)[:, :-1]
+        return label_smoothed_loss_streaming(h_t, labels[:, 1:], word_embed.weight.to(h_t.dtype),
+                                             self.cls.bias)

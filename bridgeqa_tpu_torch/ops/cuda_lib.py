@@ -2,10 +2,12 @@
 
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into an
 object, all of them at once, and the objects are linked into one shared
-library with a plain C interface, loaded with ``ctypes``. The build runs at
-the first CUDA use and lands in ``build/kernels/`` at the repository root
-(listed in ``.gitignore``), under a name derived from the sources and flags,
-so an unchanged tree reuses it.
+library with a plain C interface, loaded with ``ctypes``. The point kernels
+(``BITWISE_SOURCES``) are built without FMA contraction, which their
+bitwise parity with the plain versions needs; the scoring kernels keep it.
+The build runs at the first CUDA use and lands in ``build/kernels/`` at the
+repository root (listed in ``.gitignore``), under a name derived from the
+sources and flags, so an unchanged tree reuses it.
 
 Nothing here runs when the module is imported: the CPU tests import every
 module, and a machine without ``nvcc`` never builds.
@@ -32,6 +34,18 @@ NVCC_FLAGS = [
     "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
+# sources held bitwise to their plain versions; the others are held to a
+# tolerance and are built with FMA contraction
+BITWISE_SOURCES = {"fps.cu", "ball_query_stripes.cu"}
+
+
+def source_flags(src: Path) -> list[str]:
+    """nvcc flags of one source: ``NVCC_FLAGS``, less ``-fmad=false`` for a
+    source outside ``BITWISE_SOURCES``."""
+    if src.name in BITWISE_SOURCES:
+        return NVCC_FLAGS
+    return [f for f in NVCC_FLAGS if f != "-fmad=false"]
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +53,11 @@ _SIGNATURES = {
     "bq_fps": [_P, _P, _P, _P, _I, _I, _I, _P],
     "bq_ball_query_stripes": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               ctypes.c_float, _P],
+    "bq_scoring_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "bq_scoring_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             ctypes.c_float, _I, _P],
+    "bq_scoring_layernorm": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
+    "bq_vocab_reductions": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -57,9 +76,11 @@ def _nvcc() -> str:
 def _build() -> Path:
     global build_log, build_seconds
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
     for src in sources:
-        digest.update(src.name.encode() + src.read_bytes())
+        digest.update(" ".join([src.name, *source_flags(src)]).encode() + src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
     tag = digest.hexdigest()[:16]
     out = BUILD_DIR / f"libbridgeqa_kernels-{tag}.so"
     if out.exists():
@@ -70,7 +91,7 @@ def _build() -> Path:
     t0 = time.perf_counter()
     objs = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in sources]
     # one nvcc per source, all started together
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+    procs = [subprocess.Popen([nvcc, *source_flags(src), "-c", str(src), "-o", str(obj)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for src, obj in zip(sources, objs)]
     logs, failed = [], []

@@ -7,20 +7,52 @@ Phases, each of which must pass (any failure exits non-zero before a
 result is printed):
 
 1. device: a CUDA card is required (there is no CPU path); print its name
-   and ``nvidia-smi``'s name and power limit; the port imports no JAX.
+   and ``nvidia-smi``'s name and power limit; the port imports nothing of
+   JAX and nothing of the JAX package (``bridgeqa_tpu``).
 2. build: compile every ``bridgeqa_tpu_torch/csrc/*.cu`` for sm_90a.
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at every shape the main path gives it, batch 8, with padding
-   points, duplicate points, empty balls and clouds whose length is no
-   multiple of the stripe quantum. Both must agree bitwise; median times of
-   both are printed.
+   the card, at every shape the main path gives it, batch 8.
+   - FPS and the stripe ball query, with padding points, duplicate points,
+     empty balls and clouds whose length is no multiple of the stripe
+     quantum: both must agree bitwise.
+   - The scoring kernels (GEMM at the layer's six shapes, self and cross
+     attention, residual + LayerNorm, the vocabulary reductions at
+     22528 x 30524) in bf16, and their f32 instantiations. f32: max abs
+     error <= 1e-3 (both sides accumulate in f32, in another order). bf16
+     outputs: <= 2^-6 of the largest output, about two steps of bf16 (both
+     round once from f32, and a sum in another order can flip a rounding).
+     Biases and LayerNorm scale and shift are drawn well away from 0 and
+     (1, 0), so a kernel that drops one fails. The vocabulary reductions
+     come out in f32 from exact products: each output (lse, sum of logits,
+     target logit) within 1e-3 of its own largest value; also at 1000 rows
+     and a 203-word vocabulary, mostly padding in its last tile. Then a
+     whole 12-layer decoder pass and its loss, kernels against plain
+     versions in bf16, every bias and LayerNorm parameter perturbed:
+     per-sequence losses within 1% relative (rounding points match,
+     summation order does not).
+   Median times of kernel, plain version and, where one PyTorch call
+   computes the same function, that call (``library_ms``; the port never
+   calls it) are printed, with the bound of each (below).
 4. reference: a tiny rank forward on the card (kernels, f32) against the
-   same weights on the CPU (plain versions, f32).
+   same weights on the CPU (plain versions, f32), hidden 128 and 2 heads so
+   that the fused scoring path runs (``fused_scoring="force"`` on both
+   sides); the scoring kernels must launch on the card.
 5. main path: full-width rank inference (``BridgeQAConfig(num_answers=4500,
    input_feature_dim=1)``: 40k-point scenes, ViT-B/16 at 480 px, 12-layer
    twin encoder and decoders, k_test 256) at batch 8 in bf16, random
-   weights from a seed. Launch counts are zeroed just before the forward
-   and read just after; outputs must be finite and well formed.
+   weights from a seed, ``fused_scoring="auto"``. Launch counts are zeroed
+   just before the forward and read just after, and must equal the counts
+   derived from the config; outputs must be finite and well formed. Stage
+   times (CUDA events around each stage's modules) follow, then one forward
+   under ``torch.profiler``: the card's busy share, and the table by kernel
+   in ``build/profile_main_path.txt``.
+
+Bounds: the least time the card could take for a kernel's work, the larger
+of the bytes it must move (each input read once, each output written once)
+over 3.35 TB/s and its operations over the peak rate for their type
+(989 TFLOP/s bf16 tensor-core, 67 TFLOP/s f32), NVIDIA's H100 SXM data
+sheet. Work that depends on the data (the ball query's scan, masked keys,
+causal prefixes) is counted for this run's data.
 
 Matrix products run in full f32 where f32 is used: TF32 is switched off
 for both cuBLAS and cuDNN, and the patch embedding is a matrix product.
@@ -34,9 +66,11 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 BATCH = 8
 NUM_POINTS = 40000
@@ -53,6 +87,21 @@ FPS_SHAPES = [("sa1", NUM_POINTS, 2048), ("sa2", 2048, 1024), ("sa3", 1024, 512)
 BQ_SHAPES = [("sa1", NUM_POINTS, 2048, 64, 0.2, 1), ("sa2", 2048, 1024, 32, 0.4, 0),
              ("sa3", 1024, 512, 16, 0.8, 0), ("sa4", 512, 256, 16, 1.2, 0),
              ("votes", 1024, 256, 16, 0.3, 0)]
+# the scoring decoders: hidden 768, 12 heads, FFN 3072, vocabulary 30524
+HIDDEN, HEADS, FFN, VOCAB = 768, 12, 3072, 30524
+DECODER_ROWS = BATCH * K_TEST * ANSWER_LEN  # answer tokens a scoring pass runs
+VOCAB_ROWS = BATCH * K_TEST * (ANSWER_LEN - 1)  # tokens whose next token is scored
+# (name, K, N, GELU) of the six products of one decoder layer
+GEMM_SHAPES = [("qkv", HIDDEN, 3 * HIDDEN, False), ("attention out", HIDDEN, HIDDEN, False),
+               ("cross query", HIDDEN, HIDDEN, False), ("cross out", HIDDEN, HIDDEN, False),
+               ("ffn in", HIDDEN, FFN, True), ("ffn out", FFN, HIDDEN, False)]
+SCORING_PASSES = 2  # the 2D and the 3D decoder
+
+# H100 SXM peaks (NVIDIA's data sheet, dense) for the bounds
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+HBM_BYTES_PER_S = 3.35e12
+OUT_DIR = Path(__file__).resolve().parent / "build"  # listed in .gitignore
 
 
 def log(msg: str) -> None:
@@ -74,6 +123,17 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
+    """(ms, "operations" or "bytes"): the least time for ``flops`` at
+    ``peak`` and ``nbytes`` at the HBM rate, and which of the two it is."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
 def make_cloud(rng: np.random.RandomState, b: int, n: int) -> np.ndarray:
     """Scene-sized cloud (6 m cube) with padding points and duplicates."""
     xyz = ((rng.rand(b, n, 3) - 0.5) * 6.0).astype(np.float32)
@@ -89,8 +149,10 @@ def phase_device():
         raise RuntimeError("no CUDA device: the port's kernels run only on the card")
     import bridgeqa_tpu_torch.models.bridgeqa  # noqa: F401  (fails outside the repository)
 
-    if "jax" in sys.modules:
-        raise RuntimeError("the port imported jax")
+    foreign = sorted(m for m in sys.modules if m in ("jax", "bridgeqa_tpu")
+                     or m.startswith(("jax.", "bridgeqa_tpu.")))
+    if foreign:
+        raise RuntimeError(f"the port imported {foreign[:5]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -111,10 +173,37 @@ def phase_build():
             log(f"  {line.strip()}")
 
 
+def stripe_scan_tests(radius: float, nsample: int, xyz, ctr) -> int:
+    """Distance tests the stripe scan needs on these inputs: in each
+    (centre, stripe), the points up to its first qualifier, or all of the
+    stripe's real points when none qualifies; with two picks, also the
+    points from the stripe's end back to its last qualifier."""
+    from bridgeqa_tpu_torch.ops import grouping
+
+    b, n, _ = xyz.shape
+    picks, np_padded = grouping.stripe_plan(n, nsample)
+    stripes = nsample // picks
+    w = np_padded // stripes
+    xyz_p = torch.cat([xyz, xyz.new_full((b, np_padded - n, 3), 1e9)], dim=1)
+    r2 = float(np.float32(radius * radius))
+    lidx = torch.arange(w, device=xyz.device)
+    real = (n - torch.arange(stripes, device=xyz.device) * w).clamp(0, w)
+    total = 0
+    for s in range(0, ctr.shape[1], 256):
+        mask = (grouping.pairwise_sqdist(ctr[:, s:s + 256], xyz_p) < r2).reshape(b, -1, stripes, w)
+        found = mask.any(-1)
+        tests = torch.where(found, torch.where(mask, lidx, w).amin(-1) + 1, real)
+        if picks == 2:
+            tests = tests + torch.where(found, real - torch.where(mask, lidx, -1).amax(-1), 0)
+        total += int(tests.sum())
+    return total
+
+
 def phase_kernels(device, batch: int = BATCH, fps_shapes=FPS_SHAPES, bq_shapes=BQ_SHAPES,
                   reps: int = 5):
-    """Each kernel against its plain version; returns the per-kernel
-    records of the kernels line (without launch counts)."""
+    """FPS and the ball query against their plain versions; returns their
+    records of the kernels line (without launch counts). No single PyTorch
+    call computes either, so neither has a ``library_ms``."""
     from bridgeqa_tpu_torch.ops import grouping, sampling
 
     rng = np.random.RandomState(1)
@@ -128,10 +217,14 @@ def phase_kernels(device, batch: int = BATCH, fps_shapes=FPS_SHAPES, bq_shapes=B
         err = float((coords - pcoords).abs().max())
         ms = time_ms(lambda: sampling.furthest_point_sample_with_xyz(xyz, npoint), reps)
         plain_ms = time_ms(lambda: sampling.fps_plain(xyz, npoint), max(1, reps // 2))
-        fps_rows.append(dict(shape=f"{name}: ({batch}, {n}, 3) -> {npoint}", bitwise=same,
-                             max_abs_err=err, ms=ms, plain_ms=plain_ms))
+        # each pick updates every point: 3 sub, 3 mul, 2 add, a min and an argmax compare
+        bound_ms, bound_by = bound(batch * (npoint - 1) * n * 10.0,
+                                   batch * (n * 12 + npoint * 16), PEAK_F32)
+        fps_rows.append(dict(shape=f"{name}: ({batch}, {n}, 3) -> {npoint}", calls=1,
+                             bitwise=same, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
         log(f"fps {name}: ({batch}, {n}) -> {npoint}: bitwise {same}, kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms")
+            f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
     for name, n, m, ns, radius, nf in bq_shapes:
         xyz_np = make_cloud(rng, batch, n)
         centres = xyz_np[:, rng.permutation(n)[:m]].copy()
@@ -149,12 +242,18 @@ def phase_kernels(device, batch: int = BATCH, fps_shapes=FPS_SHAPES, bq_shapes=B
         plain_ms = time_ms(lambda: grouping.ball_query_stripes_plain(radius, ns, xyz, ctr, feats),
                            max(1, reps // 2))
         picks, np_padded = grouping.stripe_plan(n, ns)
+        # a distance test: 3 sub, 3 mul, 2 add, a compare
+        tests = stripe_scan_tests(radius, ns, xyz, ctr)
+        bound_ms, bound_by = bound(tests * 9.0, batch * (n * (12 + 4 * nf) + m * 12
+                                                         + m * ns * (4 + 12 + 4 * nf)), PEAK_F32)
         bq_rows.append(dict(shape=f"{name}: N={n} padded to {np_padded}, {picks} pick(s), "
                                   f"M={m}, nsample={ns}, r={radius}, nf={nf}, batch {batch}",
-                            bitwise=same and empty, max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                            calls=1, bitwise=same and empty, max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                            bound_by=bound_by, distance_tests=tests))
         log(f"ball query {name}: N={n} (padded {np_padded}, {picks} pick(s)), M={m}, ns={ns}, "
             f"r={radius}, nf={nf}: bitwise {same}, empty balls {empty}, kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms")
+            f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {tests} tests)")
     bad = [r for r in fps_rows + bq_rows if not r["bitwise"]]
     if bad:
         raise AssertionError(f"kernel and plain version disagree: {bad}")
@@ -165,6 +264,234 @@ def phase_kernels(device, batch: int = BATCH, fps_shapes=FPS_SHAPES, bq_shapes=B
              source="bridgeqa_tpu_torch/csrc/ball_query_stripes.cu",
              replaces="bridgeqa_tpu/ops/grouping.py:194", rows=bq_rows),
     ]
+
+
+def _bf16_tol(want) -> float:
+    return 2.0**-6 * max(1.0, float(want.float().abs().max()))
+
+
+def phase_scoring_kernels(device, layers: int, reps: int = 10):
+    """The scoring kernels against their plain versions at the main-path
+    shapes, bf16, and their f32 instantiations; returns their records of the
+    kernels line. ``calls`` is how often one forward makes each call:
+    ``layers`` decoder layers in each of the two scoring passes."""
+    from bridgeqa_tpu_torch.ops import scoring_layer as sl
+    from bridgeqa_tpu_torch.ops import vocab_loss as vl
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    bf16 = torch.bfloat16
+    per_layer = layers * SCORING_PASSES
+    failures = []
+
+    def randn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(*shape, generator=gen, device=device) * scale).to(dtype)
+
+    def record(rows, name, shape, checks, ms, plain_ms, library_ms, flops, nbytes, peak, calls,
+               note=""):
+        """``checks``: {output: (bf16 error, its tolerance, f32 error, its
+        tolerance)}, one entry for each output the kernel writes."""
+        bound_ms, bound_by = bound(flops, nbytes, peak)
+        checks = {k: dict(zip(("max_abs_err", "tolerance", "f32_max_abs_err", "f32_tolerance"), v))
+                  for k, v in checks.items()}
+        for out, c in checks.items():
+            if not (c["max_abs_err"] <= c["tolerance"] and c["f32_max_abs_err"] <= c["f32_tolerance"]):
+                failures.append(f"{name} {shape} {out}: {c}")
+        rows.append(dict(shape=shape, calls=calls,
+                         max_abs_err=max(c["max_abs_err"] for c in checks.values()), checks=checks,
+                         ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, note=note))
+        lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
+        errs = "; ".join(f"{out} err {c['max_abs_err']:.3g} (tol {c['tolerance']:.3g}), f32 err "
+                         f"{c['f32_max_abs_err']:.3g} (tol {c['f32_tolerance']:.3g})"
+                         for out, c in checks.items())
+        log(f"{name} {shape}: {errs}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib}, "
+            f"bound {bound_ms:.4f} ms ({bound_by})")
+
+    def one_output(err, want, f32_err):
+        return {"out": (err, _bf16_tol(want), f32_err, 1e-3)}
+
+    rows_n, h, hd, la = DECODER_ROWS, HIDDEN, HIDDEN // HEADS, ANSWER_LEN
+    gemm_rows = []
+    for name, k, n, gelu in GEMM_SHAPES:
+        x = randn(rows_n, k)
+        w = randn(n, k, scale=0.02)
+        # biases as large as the products (std ~0.55), so a dropped bias
+        # exceeds the bf16 tolerance
+        b = randn(n, scale=0.5, dtype=torch.float32)
+        got, want = sl.scoring_gemm(x, w, b, gelu), sl.scoring_gemm_plain(x, w, b, gelu)
+        x32, w32 = x.float(), w.float()
+        f32_err = max_err(sl.scoring_gemm(x32, w32, b, gelu), sl.scoring_gemm_plain(x32, w32, b, gelu))
+        b16 = b.to(bf16)
+        record(gemm_rows, "scoring_gemm", f"{name}: ({rows_n}, {k}) x ({n}, {k})^T"
+               + (" + GELU" if gelu else ""), one_output(max_err(got, want), want, f32_err),
+               time_ms(lambda: sl.scoring_gemm(x, w, b, gelu), reps),
+               time_ms(lambda: sl.scoring_gemm_plain(x, w, b, gelu), 3),
+               time_ms(lambda: F.linear(x, w, b16), reps), 2.0 * rows_n * n * k,
+               2 * (rows_n * k + n * k + rows_n * n) + 4 * n, PEAK_BF16, per_layer,
+               "library: F.linear, without the GELU" if gelu else "library: F.linear")
+        del x, w, got, want, x32, w32
+
+    attn_rows = []
+    qkv = randn(rows_n, 3 * h)
+    seqs = rows_n // la
+    got = sl.self_attention(qkv, la=la, heads=HEADS)
+    want = sl.self_attention_plain(qkv, la=la, heads=HEADS)
+    qkv32 = qkv.float()
+    f32_err = max_err(sl.self_attention(qkv32, la=la, heads=HEADS),
+                      sl.self_attention_plain(qkv32, la=la, heads=HEADS))
+    q, k, v = qkv.view(seqs, la, 3, HEADS, hd).permute(2, 0, 3, 1, 4)
+    record(attn_rows, "scoring_attention", f"self: ({rows_n}, {3 * h}), {seqs} answers of {la}",
+           one_output(max_err(got, want), want, f32_err),
+           time_ms(lambda: sl.self_attention(qkv, la=la, heads=HEADS), reps),
+           time_ms(lambda: sl.self_attention_plain(qkv, la=la, heads=HEADS), 3),
+           time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), reps),
+           4.0 * HEADS * seqs * (la * (la + 1) // 2) * hd, 2 * (rows_n * 3 * h + rows_n * h),
+           PEAK_BF16, per_layer, "library: scaled_dot_product_attention, causal")
+    del qkv, qkv32, q, k, v, got, want
+
+    rows_q = rows_n // BATCH
+    qc = randn(rows_n, h)
+    ck, cv = randn(BATCH, QUESTION_LEN, h), randn(BATCH, QUESTION_LEN, h)
+    valid = QUESTION_LEN - 4 * torch.arange(BATCH, device=device)  # padded questions
+    keep = torch.arange(QUESTION_LEN, device=device)[None, :] < valid[:, None]
+    cbias = torch.where(keep, 0.0, sl.NEG).float()
+    got = sl.cross_attention(qc, ck, cv, cbias, heads=HEADS)
+    want = sl.cross_attention_plain(qc, ck, cv, cbias, heads=HEADS)
+    f32_err = max_err(sl.cross_attention(qc.float(), ck.float(), cv.float(), cbias, heads=HEADS),
+                      sl.cross_attention_plain(qc.float(), ck.float(), cv.float(), cbias,
+                                               heads=HEADS))
+    qh = qc.view(BATCH, rows_q, HEADS, hd).transpose(1, 2)
+    kh = ck.view(BATCH, QUESTION_LEN, HEADS, hd).transpose(1, 2)
+    vh = cv.view(BATCH, QUESTION_LEN, HEADS, hd).transpose(1, 2)
+    mask16 = cbias[:, None, None, :].to(bf16)
+    record(attn_rows, "scoring_attention",
+           f"cross: ({rows_n}, {h}) against ({BATCH}, {QUESTION_LEN}, {h}), "
+           f"{int(valid.sum())} valid keys", one_output(max_err(got, want), want, f32_err),
+           time_ms(lambda: sl.cross_attention(qc, ck, cv, cbias, heads=HEADS), reps),
+           time_ms(lambda: sl.cross_attention_plain(qc, ck, cv, cbias, heads=HEADS), 3),
+           time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask16), reps),
+           4.0 * rows_q * h * float(valid.sum()),
+           2 * (2 * rows_n * h + 2 * BATCH * QUESTION_LEN * h) + 4 * BATCH * QUESTION_LEN,
+           PEAK_BF16, per_layer, "library: scaled_dot_product_attention, additive mask")
+    del qc, ck, cv, qh, kh, vh, got, want
+
+    ln_rows = []
+    a, r = randn(rows_n, h), randn(rows_n, h)
+    # scale and shift well away from (1, 0), so a dropped affine exceeds
+    # the bf16 tolerance
+    scale = randn(h, scale=0.5, dtype=torch.float32) + 1.0
+    shift = randn(h, scale=0.5, dtype=torch.float32)
+    eps = 1e-12
+    got = sl.add_layernorm(a, r, scale, shift, eps)
+    want = sl.add_layernorm_plain(a, r, scale, shift, eps)
+    f32_err = max_err(sl.add_layernorm(a.float(), r.float(), scale, shift, eps),
+                      sl.add_layernorm_plain(a.float(), r.float(), scale, shift, eps))
+    s16, b16 = scale.to(bf16), shift.to(bf16)
+    record(ln_rows, "scoring_layernorm", f"({rows_n}, {h}) + ({rows_n}, {h})",
+           one_output(max_err(got, want), want, f32_err),
+           time_ms(lambda: sl.add_layernorm(a, r, scale, shift, eps), reps),
+           time_ms(lambda: sl.add_layernorm_plain(a, r, scale, shift, eps), 3),
+           time_ms(lambda: F.layer_norm(a + r, (h,), s16, b16, eps), reps),
+           10.0 * rows_n * h, 2 * 3 * rows_n * h + 8 * h, PEAK_F32, 3 * per_layer,
+           "library: F.layer_norm after the add (two calls)")
+    del a, r, got, want
+
+    vocab_rows = []
+    # the main path's pass, then a check only (no calls on the main path):
+    # rows that fill no block and a vocabulary whose last tile is mostly
+    # padding, so padded columns that leak into a sum show
+    for rows_v, vocab, calls in ((VOCAB_ROWS, VOCAB, SCORING_PASSES), (1000, 203, 0)):
+        hv = randn(rows_v, h)
+        table = randn(vocab, h, scale=0.02)
+        vbias = randn(vocab, scale=0.5, dtype=torch.float32)  # a dropped bias shows
+        labels = torch.randint(0, vocab, (rows_v,), generator=gen, device=device,
+                               dtype=torch.int32)
+        got = vl.lm_vocab_reductions(hv, table, vbias, labels)
+        want = vl.lm_vocab_reductions_plain(hv, table, vbias, labels)
+        got32 = vl.lm_vocab_reductions(hv.float(), table.float(), vbias, labels)
+        # each output is f32 from exact products, summed in another order on
+        # each side: <= 1e-3 of that output's largest value; the f32
+        # instantiation <= 1e-3, as every f32 instantiation
+        checks = {out: (max_err(a_, b_), 1e-3 * max(1.0, float(b_.abs().max())),
+                        max_err(a32, b_), 1e-3)
+                  for out, a_, a32, b_ in zip(("lse", "sum_logits", "target_logit"), got, got32,
+                                               want)}
+        record(vocab_rows, "vocab_loss", f"({rows_v}, {h}) x ({vocab}, {h})^T", checks,
+               time_ms(lambda: vl.lm_vocab_reductions(hv, table, vbias, labels), reps),
+               time_ms(lambda: vl.lm_vocab_reductions_plain(hv, table, vbias, labels), 3), None,
+               2.0 * rows_v * vocab * h, 2 * (rows_v * h + vocab * h) + 4 * vocab
+               + 4 * rows_v + 12 * rows_v, PEAK_BF16, calls,
+               "no single PyTorch call: it takes a product and a logsumexp")
+        del hv, table, got, want, got32
+
+    if failures:
+        raise AssertionError(f"scoring kernels and plain versions disagree: {failures}")
+    src = "bridgeqa_tpu_torch/csrc/"
+    layer_kernel = "bridgeqa_tpu/ops/scoring_layer.py:67"
+    return [
+        dict(name="scoring_gemm", route="cuda", source=src + "scoring_gemm.cu",
+             replaces=layer_kernel, rows=gemm_rows),
+        dict(name="scoring_attention", route="cuda", source=src + "scoring_attention.cu",
+             replaces=layer_kernel, rows=attn_rows),
+        dict(name="scoring_layernorm", route="cuda", source=src + "scoring_layernorm.cu",
+             replaces=layer_kernel, rows=ln_rows),
+        dict(name="vocab_loss", route="cuda", source=src + "vocab_loss.cu",
+             replaces="bridgeqa_tpu/ops/vocab_loss.py:37", rows=vocab_rows),
+    ]
+
+
+def perturb_affine(module, gen, scale: float = 0.5):
+    """Add noise of ``scale`` to every bias and LayerNorm parameter of
+    ``module``, which ``init_weights`` sets to 0 and (1, 0), so that a
+    kernel that drops a bias or an affine changes the result."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("bias") or "LayerNorm" in name:
+                p.add_(torch.randn(p.shape, generator=gen, device=p.device) * scale)
+    return module
+
+
+def phase_decoder_pass(device, seed: int = 6):
+    """A whole 12-layer full-width decoder and its loss over the main
+    path's 2048 answers, kernels against plain versions in bf16, biases and
+    LayerNorm parameters perturbed: per-sequence losses within 1% relative."""
+    from bridgeqa_tpu_torch.models.layers import init_weights, set_compute_dtype
+    from bridgeqa_tpu_torch.models.med import BertLMHeadModel, MedConfig
+    from bridgeqa_tpu_torch.ops import scoring_layer as sl
+    from bridgeqa_tpu_torch.ops import vocab_loss as vl
+
+    cfg = MedConfig()
+    with torch.device(device):
+        dec = BertLMHeadModel(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dec = set_compute_dtype(perturb_affine(init_weights(dec, gen), gen), torch.bfloat16).eval()
+    rng = np.random.RandomState(seed)
+    n = BATCH * K_TEST
+    ids = rng.randint(1, 30000, (n, ANSWER_LEN))
+    lens = rng.randint(2, ANSWER_LEN + 1, n)
+    ids = np.where(np.arange(ANSWER_LEN)[None, :] < lens[:, None], ids, 0)  # right-padded
+    ids = torch.from_numpy(ids).to(device)
+    labels = torch.where(ids == 0, -100, ids)
+    qs = torch.randn(BATCH, QUESTION_LEN, cfg.hidden_size, generator=gen, device=device).to(torch.bfloat16)
+    qmask = (torch.arange(QUESTION_LEN, device=device)[None, :]
+             < (QUESTION_LEN - 5 * torch.arange(BATCH, device=device))[:, None]).to(torch.int32)
+    table = dec.bert.embeddings.word_embeddings.weight
+
+    def loss(layer, reductions):
+        x = sl.scoring_decoder_body(dec.bert.encoder, dec.bert.embeddings(ids), qs, qmask,
+                                    config=cfg, layer=layer)
+        h_t = dec.cls.transform(x)[:, :-1]
+        return vl.label_smoothed_loss_streaming(h_t, labels[:, 1:], table, dec.cls.bias,
+                                                reductions=reductions)
+
+    with torch.inference_mode():
+        got = loss(sl.scoring_layer, vl.lm_vocab_reductions)
+        want = loss(sl.scoring_layer_plain, vl.lm_vocab_reductions_plain)
+    rel = float(((got - want).abs() / want.abs()).max())
+    log(f"decoder pass (12 layers, bf16, {n} answers, right-padded): per-sequence loss max rel "
+        f"err {rel:.3g} (tol 0.01), mean loss {float(want.mean()):.3f}")
+    if not (rel <= 0.01 and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"decoder pass: kernels and plain versions differ by {rel} relative")
 
 
 def make_batch(cfg, batch: int, num_points: int, image_size: int, question_len: int,
@@ -195,8 +522,7 @@ def build_model(cfg, device, seed: int = 0):
     from bridgeqa_tpu_torch.models.bridgeqa import BridgeQA
     from bridgeqa_tpu_torch.models.layers import init_weights
 
-    with torch.device(device):
-        model = BridgeQA(cfg)  # ScanNet's size clusters
+    model = BridgeQA(cfg, device=device)  # ScanNet's size clusters
     gen = torch.Generator(device=device).manual_seed(seed)
     return init_weights(model, gen).eval()
 
@@ -206,27 +532,56 @@ def tiny_config():
     from bridgeqa_tpu_torch.models.bridgeqa import BridgeQAConfig
     from bridgeqa_tpu_torch.models.med import MedConfig
 
-    med = MedConfig(vocab_size=200, hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
-                    intermediate_size=128, max_position_embeddings=128, encoder_width=64)
+    med = MedConfig(vocab_size=200, hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                    intermediate_size=256, max_position_embeddings=128, encoder_width=128,
+                    fused_scoring="force")
     blip = BlipVQA3DConfig(med=med, image_size=64, num_answers=30, vit="custom",
-                           vit_custom_embed_dim=64, vit_custom_depth=2, vit_custom_heads=4,
+                           vit_custom_embed_dim=128, vit_custom_depth=2, vit_custom_heads=2,
                            bos_token_id=110)
     return BridgeQAConfig(num_answers=30, num_proposal=32, hidden_size=32, blip=blip,
                           mcan_num_layers=1, input_feature_dim=1)
 
 
+def reset_launches() -> None:
+    from bridgeqa_tpu_torch.ops import grouping, sampling, scoring_layer, vocab_loss
+
+    sampling.launches = grouping.launches = vocab_loss.launches = 0
+    for name in scoring_layer.launches:
+        scoring_layer.launches[name] = 0
+
+
+def read_launches() -> dict:
+    from bridgeqa_tpu_torch.ops import grouping, sampling, scoring_layer, vocab_loss
+
+    return {"fps": sampling.launches, "ball_query_stripes": grouping.launches,
+            **scoring_layer.launches, "vocab_loss": vocab_loss.launches}
+
+
 def phase_reference(device):
     """A tiny rank forward through the kernels on the card against the
-    plain versions on the CPU, same weights, f32. Every answer is scored
-    (k_test = the list length), so no top-k tie can split the two runs.
-    Tolerance 1e-3: the two devices sum matrix products in another order."""
+    plain versions on the CPU, same weights, f32, the fused scoring path
+    forced on both sides. Every answer is scored (k_test = the list length),
+    so no top-k tie can split the two runs. The decoders' biases and
+    LayerNorm parameters are perturbed. Tolerance 1e-3: the two devices sum
+    matrix products in another order."""
     cfg = tiny_config()
     cpu_model = build_model(cfg, torch.device("cpu"), seed=3)
+    blip = cpu_model.blip_model
+    gen = torch.Generator().manual_seed(3)
+    perturb_affine(blip.text_decoder, gen)
+    if blip._decoder_scene() is not blip.text_decoder:
+        perturb_affine(blip._decoder_scene(), gen)
     card_model = copy.deepcopy(cpu_model).to(device)
     batch = make_batch(cfg, 2, 4096, 64, 20, 6, torch.device("cpu"), seed=4)
     with torch.inference_mode():
         want = cpu_model(batch, k_test=cfg.num_answers)
+        reset_launches()
         got = card_model({k: v.to(device) for k, v in batch.items()}, k_test=cfg.num_answers)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    idle = [k for k, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"reference: kernels not launched on the card: {idle}")
     for key in ("sa1_inds", "sa2_inds", "fp2_inds"):
         if not torch.equal(got[key].cpu(), want[key]):
             raise AssertionError(f"reference: {key} differs between the card and the CPU")
@@ -237,31 +592,93 @@ def phase_reference(device):
         worst[key] = err
         if not err <= 1e-3:
             raise AssertionError(f"reference: {key} differs by {err}")
-    log(f"reference (tiny config, f32, card vs CPU): max abs err {json.dumps(worst)}")
+    log(f"reference (tiny config, f32, fused scoring forced, card vs CPU): max abs err "
+        f"{json.dumps(worst)}; card launches {json.dumps(launches)}")
 
 
-def phase_main_path(device, reps: int = 3):
+STAGES = ("detector", "vit", "twin encoder", "decoder 2D", "decoder 3D")
+
+
+def stage_times(model, run, reps: int = 3) -> dict:
+    """ms of each stage in a ``run()``: CUDA events before and after each
+    stage's module calls, summed over its calls in a run (a decoder runs
+    twice, the first-token pass and the scoring pass), median of ``reps``
+    runs."""
+    blip = model.blip_model
+    modules = dict(zip(STAGES, (model.detector, blip.visual_encoder, blip.text_encoder,
+                                blip.text_decoder, blip._decoder_scene())))
+    spans = {}
+    handles = []
+    for name, mod in modules.items():
+        def pre(_m, _args, name=name):
+            spans[name].append([torch.cuda.Event(enable_timing=True),
+                                torch.cuda.Event(enable_timing=True)])
+            spans[name][-1][0].record()
+
+        def post(_m, _args, _out, name=name):
+            spans[name][-1][1].record()
+
+        handles += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
+    runs = []
+    try:
+        for _ in range(reps):
+            spans.update({name: [] for name in STAGES})
+            run()
+            torch.cuda.synchronize()
+            runs.append({name: sum(a.elapsed_time(b) for a, b in spans[name]) for name in STAGES})
+    finally:
+        for handle in handles:
+            handle.remove()
+    return {name: statistics.median(r[name] for r in runs) for name in STAGES}
+
+
+def expected_launches(cfg) -> dict:
+    """Kernel launches of one rank forward, from the config: one FPS and one
+    ball query per main-path shape; each scoring pass runs every decoder
+    layer (``LAUNCHES_PER_LAYER`` launches each) and one vocabulary pass."""
+    from bridgeqa_tpu_torch.ops.scoring_layer import LAUNCHES_PER_LAYER
+
+    layers = decoder_layers(cfg)
+    return {"fps": len(FPS_SHAPES), "ball_query_stripes": len(BQ_SHAPES),
+            **{k: n * layers * SCORING_PASSES for k, n in LAUNCHES_PER_LAYER.items()},
+            "vocab_loss": SCORING_PASSES}
+
+
+def main_config():
     from bridgeqa_tpu_torch.models.bridgeqa import BridgeQAConfig
-    from bridgeqa_tpu_torch.models.layers import set_compute_dtype
-    from bridgeqa_tpu_torch.ops import grouping, sampling
 
-    cfg = BridgeQAConfig(num_answers=NUM_ANSWERS, input_feature_dim=1)
+    return BridgeQAConfig(num_answers=NUM_ANSWERS, input_feature_dim=1)
+
+
+def decoder_layers(cfg) -> int:
+    return cfg.blip.decoder_layers or cfg.blip.med.num_hidden_layers
+
+
+def phase_main_path(device, reps: int = 5):
+    from bridgeqa_tpu_torch.models.layers import set_compute_dtype
+
+    cfg = main_config()
+    if cfg.blip.med.fused_scoring != "auto":
+        raise AssertionError("the main path runs with fused_scoring='auto'")
     t0 = time.perf_counter()
     model = set_compute_dtype(build_model(cfg, device), torch.bfloat16)
     batch = make_batch(cfg, BATCH, NUM_POINTS, IMAGE_SIZE, QUESTION_LEN, ANSWER_LEN, device)
     torch.cuda.synchronize()
     log(f"main path: model built and weights drawn in {time.perf_counter() - t0:.1f} s, "
         f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters")
+    expected = expected_launches(cfg)
+
+    def forward():
+        return model(batch, inference="rank", k_test=K_TEST)
 
     with torch.inference_mode():
-        sampling.launches = 0
-        grouping.launches = 0
+        reset_launches()
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
-        out = model(batch, inference="rank", k_test=K_TEST)
+        out = forward()
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        launches = {"fps": sampling.launches, "ball_query_stripes": grouping.launches}
+        launches = read_launches()
         peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
 
         scores = out["answer_scores"]
@@ -277,11 +694,10 @@ def phase_main_path(device, reps: int = 3):
                 for k in ("answer_scores_2d", "answer_scores_scene")),
             "log-prob sums < 0": all(bool((out[k][out[k] != -1e4] < 0).all())
                                      for k in ("answer_scores_2d", "answer_scores_scene")),
-            "5 FPS launches": launches["fps"] == 5,
-            "5 ball-query launches": launches["ball_query_stripes"] == 5,
+            **{f"{n} {k} launches": launches[k] == n for k, n in expected.items()},
         }
         log(f"main path: first forward {first_s:.3f} s, peak memory {peak_gb:.2f} GB, "
-            f"launches {json.dumps(launches)}")
+            f"launches {json.dumps(launches)}, expected {json.dumps(expected)}")
         failed = [k for k, ok in checks.items() if not ok]
         if failed:
             raise AssertionError(f"main path checks failed: {failed}")
@@ -290,30 +706,61 @@ def phase_main_path(device, reps: int = 3):
         for _ in range(reps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            model(batch, inference="rank", k_test=K_TEST)
+            forward()
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+        stages = stage_times(model, forward)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels run on one stream, so their durations add up to the busy time
+    busy_ms = sum(e.device_time_total for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "profile_main_path.txt").write_text(table)
+    log("\n".join(table.splitlines()[:25]))
+    log(f"profiled forward: {busy_ms:.1f} ms of device time in {wall_ms:.1f} ms of wall time "
+        f"(busy {busy_ms / wall_ms:.0%})")
     latency = statistics.median(times)
     log(f"main path: rank forward at batch {BATCH}, bf16: median {latency * 1e3:.1f} ms over "
         f"{reps} runs ({', '.join(f'{t * 1e3:.1f}' for t in times)}), "
         f"{BATCH / latency:.2f} QA pairs/s")
+    log(f"main path stages (ms of one forward, median of 3): "
+        f"{json.dumps({k: round(v, 2) for k, v in stages.items()})}, sum {sum(stages.values()):.1f}")
     return launches
+
+
+def summarize(kernel, launches: int) -> dict:
+    """One kernel's record of the kernels line: its times and bound over
+    the calls of one forward (each shape's median times its ``calls``)."""
+    rows = kernel.pop("rows")
+
+    def total(key):
+        if any(r[key] is None for r in rows):
+            return None
+        return sum(r[key] * r["calls"] for r in rows)
+
+    by = {}
+    for r in rows:
+        by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"] * r["calls"]
+    return dict(kernel, launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+                bound_by=max(by, key=by.get), library_ms=total("library_ms"),
+                per="one rank forward: each shape's median times the calls it gets", shapes=rows)
 
 
 def main() -> int:
     device = phase_device()
     phase_build()
-    kernels = phase_kernels(device)
+    kernels = phase_kernels(device) + phase_scoring_kernels(device, decoder_layers(main_config()))
+    phase_decoder_pass(device)
     phase_reference(device)
     launches = phase_main_path(device)
-    records = []
-    for k in kernels:
-        rows = k.pop("rows")
-        records.append(dict(k, launches=launches[k["name"]],
-                            max_abs_err=max(r["max_abs_err"] for r in rows),
-                            bitwise=all(r["bitwise"] for r in rows),
-                            ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
-                            shapes=rows))
+    records = [summarize(k, launches[k["name"]]) for k in kernels]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

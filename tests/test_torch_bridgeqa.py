@@ -158,7 +158,7 @@ def slice_outputs():
     tcfg = _port_cfg(bridgeqa.BridgeQAConfig, jcfg,
                      blip=_port_cfg(blip_vqa3d.BlipVQA3DConfig, TINY_BLIP,
                                     med=_port_cfg(med.MedConfig, TINY_MED)))
-    model = load_jax_variables(bridgeqa.BridgeQA(tcfg, mean_size), variables)
+    model = load_jax_variables(bridgeqa.BridgeQA(tcfg, mean_size, device="cpu"), variables)
     with torch.no_grad():
         out = model({k: _t(v) for k, v in batch.items()}, inference="rank", k_test=8)
     return out, {k: np.asarray(v) for k, v in jout.items()}

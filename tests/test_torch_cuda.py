@@ -5,17 +5,28 @@ These need a CUDA card and ``nvcc`` and skip without them. On the card:
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda.py
 
 (``--noconftest``: the suite's conftest imports JAX, which the card's
-machine does not have; this file imports none.) The kernels must agree
-with the plain versions bitwise, on the edge cases ``chip_smoke.py`` does
-not draw: NaN coordinates, an all-padding cloud, 4 feature channels, both
-stripe plans, clouds shorter than one stripe quantum.
+machine does not have; this file imports none.) On the edge cases
+``chip_smoke.py`` does not draw:
+
+- the point kernels must agree with their plain versions bitwise: NaN
+  coordinates, an all-padding cloud, 4 feature channels, both stripe plans,
+  clouds shorter than one stripe quantum;
+- the scoring kernels (GEMM, both attentions, LayerNorm, vocabulary
+  reductions) must agree with theirs within a tolerance, in f32 and bf16:
+  rows and vocabularies that are no tile multiple, 7, 80 and 130 question
+  keys, all but one key masked, and attention shapes that take the
+  tensor-core kernel (bf16, head width 64) and the CUDA-core one. f32: 1e-3 absolute (both sides accumulate
+  in f32, in another order). bf16 outputs: 2^-6 of the largest output,
+  about two steps of bf16 (both round once from f32, and a sum taken in
+  another order can flip a rounding, or the rounding of an exp before the
+  product with V).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from bridgeqa_tpu_torch.ops import grouping, sampling
+from bridgeqa_tpu_torch.ops import grouping, sampling, scoring_layer, vocab_loss
 
 pytestmark = pytest.mark.cuda
 
@@ -81,3 +92,127 @@ def test_wrappers_refuse_bad_inputs(card):
         grouping.ball_query_stripes(0.2, 8, xyz, xyz.cpu())
     with pytest.raises(ValueError):
         sampling.furthest_point_sample_with_xyz(xyz[..., :2], 4)
+
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _randn(rng, *shape, scale=1.0, dtype=torch.float32, device="cpu"):
+    return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(device, dtype)
+
+
+def _assert_close(got, want, what):
+    err = float((got.float() - want.float()).abs().max())
+    if got.dtype == torch.bfloat16:
+        tol = 2.0**-6 * max(1.0, float(want.float().abs().max()))
+    else:
+        tol = 1e-3
+    assert err <= tol, f"{what}: max abs err {err} > {tol}"
+
+
+def _counted(name, fn):
+    before = dict(scoring_layer.launches)
+    out = fn()
+    assert scoring_layer.launches[name] == before[name] + 1
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,n,k,gelu", [(300, 200, 72, False), (257, 136, 768, True),
+                                        (1000, 768, 3072, False), (5, 8, 8, True)])
+def test_scoring_gemm_matches_plain(card, dtype, m, n, k, gelu):
+    rng = np.random.RandomState(m + n + k)
+    x = _randn(rng, m, k, dtype=dtype, device=card)
+    w = _randn(rng, n, k, scale=0.05, dtype=dtype, device=card)
+    b = _randn(rng, n, scale=0.1, device=card)
+    got = _counted("scoring_gemm", lambda: scoring_layer.scoring_gemm(x, w, b, gelu))
+    _assert_close(got, scoring_layer.scoring_gemm_plain(x, w, b, gelu), "gemm")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("la,seqs,heads,hd", [(12, 37, 12, 64), (5, 3, 2, 64), (1, 9, 2, 16),
+                                              (128, 2, 2, 64), (12, 11, 3, 34)])
+def test_self_attention_matches_plain(card, dtype, la, seqs, heads, hd):
+    rng = np.random.RandomState(la * seqs)
+    qkv = _randn(rng, la * seqs, 3 * heads * hd, dtype=dtype, device=card)
+    got = _counted("scoring_attention",
+                   lambda: scoring_layer.self_attention(qkv, la=la, heads=heads))
+    _assert_close(got, scoring_layer.self_attention_plain(qkv, la=la, heads=heads), "self")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lk", [7, 80, 130])
+def test_cross_attention_matches_plain(card, dtype, lk):
+    """Three questions of 240 rows each (no multiple of the 128-row tile):
+    all keys valid, all but one masked, half masked."""
+    rng = np.random.RandomState(lk)
+    nq, rows_per_q, heads, hd = 3, 240, 12, 64
+    h = heads * hd
+    qc = _randn(rng, nq * rows_per_q, h, dtype=dtype, device=card)
+    ck = _randn(rng, nq, lk, h, dtype=dtype, device=card)
+    cv = _randn(rng, nq, lk, h, dtype=dtype, device=card)
+    mask = np.ones((nq, lk), bool)
+    mask[1, 1:] = False
+    mask[2, lk // 2:] = False
+    cbias = torch.from_numpy(np.where(mask, 0.0, scoring_layer.NEG).astype(np.float32)).to(card)
+    got = _counted("scoring_attention",
+                   lambda: scoring_layer.cross_attention(qc, ck, cv, cbias, heads=heads))
+    want = scoring_layer.cross_attention_plain(qc, ck, cv, cbias, heads=heads)
+    _assert_close(got, want, f"cross, lk {lk}")
+    # the question with one valid key copies that key's value
+    _assert_close(got[rows_per_q:2 * rows_per_q], cv[1, :1].expand(rows_per_q, h), "one key")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,cols", [(1001, 768), (3, 130)])
+def test_add_layernorm_matches_plain(card, dtype, rows, cols):
+    rng = np.random.RandomState(rows + cols)
+    a = _randn(rng, rows, cols, dtype=dtype, device=card)
+    r = _randn(rng, rows, cols, scale=2.0, dtype=dtype, device=card)
+    scale = _randn(rng, cols, device=card) + 1.0
+    bias = _randn(rng, cols, scale=0.1, device=card)
+    got = _counted("scoring_layernorm",
+                   lambda: scoring_layer.add_layernorm(a, r, scale, bias, 1e-12))
+    _assert_close(got, scoring_layer.add_layernorm_plain(a, r, scale, bias, 1e-12), "layernorm")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,vocab,hdim", [(1000, 203, 64), (300, 30524, 768), (7, 5, 8)])
+def test_vocab_reductions_match_plain(card, dtype, rows, vocab, hdim):
+    rng = np.random.RandomState(rows + vocab)
+    h = _randn(rng, rows, hdim, dtype=dtype, device=card)
+    table = _randn(rng, vocab, hdim, scale=0.05, dtype=dtype, device=card)
+    bias = _randn(rng, vocab, scale=0.1, device=card)
+    labels = torch.from_numpy(rng.randint(0, vocab, rows).astype(np.int32)).to(card)
+    before = vocab_loss.launches
+    got = vocab_loss.lm_vocab_reductions(h, table, bias, labels)
+    assert vocab_loss.launches == before + 1
+    want = vocab_loss.lm_vocab_reductions_plain(h, table, bias, labels)
+    for name, a, b in zip(("lse", "sum_logits", "target_logit"), got, want):
+        err = float((a - b).abs().max())
+        assert err <= 1e-3 * max(1.0, float(b.abs().max())), f"{name}: {err}"
+
+
+def test_scoring_wrappers_refuse_bad_inputs(card):
+    x = torch.zeros(16, 64, device=card)
+    w = torch.zeros(32, 64, device=card)
+    b = torch.zeros(32, device=card)
+    with pytest.raises(ValueError):  # mixed devices
+        scoring_layer.scoring_gemm(x, w.cpu(), b)
+    with pytest.raises(ValueError):  # not contiguous
+        scoring_layer.scoring_gemm(x, torch.zeros(64, 32, device=card).T, b)
+    with pytest.raises(ValueError):  # no kernel for float16
+        scoring_layer.scoring_gemm(x.half(), w.half(), b)
+    with pytest.raises(ValueError):  # bf16 needs widths that are multiples of 8
+        scoring_layer.scoring_gemm(x[:, :60].bfloat16().contiguous(),
+                                   w[:, :60].bfloat16().contiguous(), b)
+    with pytest.raises(ValueError):
+        scoring_layer.self_attention(torch.zeros(3 * 64, 12, device=card).T, la=12, heads=2)
+    with pytest.raises(ValueError):
+        scoring_layer.cross_attention(torch.zeros(8, 64, device=card), torch.zeros(2, 5, 64),
+                                      torch.zeros(2, 5, 64), torch.zeros(2, 5), heads=2)
+    with pytest.raises(ValueError):
+        scoring_layer.add_layernorm(x, x, torch.ones(64, device=card).bfloat16(),
+                                    torch.zeros(64, device=card), 1e-12)
+    with pytest.raises(ValueError):
+        vocab_loss.lm_vocab_reductions(x, w, b, torch.zeros(16, dtype=torch.int64, device=card))
