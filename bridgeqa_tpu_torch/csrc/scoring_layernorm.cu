@@ -1,11 +1,16 @@
-// Residual add and LayerNorm of the fused scoring decoder layer, for Hopper
-// (sm_90a).
+// Residual add and LayerNorm of the fused scoring decoder layer and of the
+// fused ViT block, for Hopper (sm_90a).
 //
 // Replaces the three `ln(y + x)` steps inside the Pallas kernel
-// bridgeqa_tpu/ops/scoring_layer.py::_layer_kernel, with its numerics: the
-// residual sum is taken in the working type (rounded once), then cast to f32;
-// mu = mean(y), var = mean(y * y) - mu * mu (one pass, as the TPU kernel),
-// out = (y - mu) * rsqrt(var + eps) * scale + bias, rounded once.
+// bridgeqa_tpu/ops/scoring_layer.py::_layer_kernel and the two `ln(.)` steps
+// inside bridgeqa_tpu/ops/vit_block.py::_block_kernel, with their numerics:
+// the residual sum is taken in the working type (rounded once), then cast to
+// f32; mu = mean(y), var = mean(y * y) - mu * mu (one pass, as the TPU
+// kernels), out = (y - mu) * rsqrt(var + eps) * scale + bias, rounded once.
+// Three modes: LayerNorm(a + r) (the decoder), LayerNorm(a) with no residual
+// (the ViT's LN1 and its final norm), and LayerNorm(a + r) that also writes
+// the rounded sum (the ViT's x1 = x + attn, both LN2's input and the block's
+// residual).
 //
 // What bounds it on this card: memory. At the main-path shapes it reads two
 // (24576, 768) bf16 blocks and writes one (113 MB, 34 us at 3.35 TB/s) and
@@ -43,9 +48,12 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+// a + r in the working type, or a where r is null
 template <typename T>
 __device__ __forceinline__ float2 residual(const T* a, const T* r, int i) {
-  const float2 x = load2(a + i), y = load2(r + i);
+  const float2 x = load2(a + i);
+  if (!r) return x;
+  const float2 y = load2(r + i);
   return round2(make_float2(x.x + y.x, x.y + y.y), a);
 }
 
@@ -53,14 +61,17 @@ template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 add_layernorm_kernel(const T* __restrict__ a, const T* __restrict__ r,
                      const float* __restrict__ scale, const float* __restrict__ bias,
-                     T* __restrict__ out, int rows, int cols, float eps) {
+                     T* __restrict__ out, T* __restrict__ sum_out, int rows, int cols,
+                     float eps) {
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;  // uniform over the warp
   const size_t base = static_cast<size_t>(row) * cols;
+  const T* rrow = r ? r + base : nullptr;
   float sum = 0.0f, sq = 0.0f;
   for (int i = 2 * lane; i < cols; i += 64) {
-    const float2 y = residual(a + base, r + base, i);
+    const float2 y = residual(a + base, rrow, i);
+    if (sum_out) store2(sum_out + base + i, y.x, y.y);  // exact: y is already rounded
     sum += y.x + y.y;
     sq += y.x * y.x + y.y * y.y;
   }
@@ -72,7 +83,7 @@ add_layernorm_kernel(const T* __restrict__ a, const T* __restrict__ r,
   const float mu = sum / cols;
   const float inv = rsqrtf(sq / cols - mu * mu + eps);
   for (int i = 2 * lane; i < cols; i += 64) {
-    const float2 y = residual(a + base, r + base, i);
+    const float2 y = residual(a + base, rrow, i);
     const float2 s = load2(scale + i), b = load2(bias + i);
     store2(out + base + i, (y.x - mu) * inv * s.x + b.x, (y.y - mu) * inv * s.y + b.y);
   }
@@ -80,22 +91,23 @@ add_layernorm_kernel(const T* __restrict__ a, const T* __restrict__ r,
 
 }  // namespace
 
-// out (rows, cols) = LayerNorm(a + r) with f32 scale and bias (cols,);
-// cols even. dtype 1: bf16 a, r, out; 0: f32. Returns cudaGetLastError()
-// after the launch.
+// out (rows, cols) = LayerNorm(a + r) with f32 scale and bias (cols,), or
+// LayerNorm(a) where r is null; where sum_out is not null it receives a + r.
+// cols even. dtype 1: bf16 a, r, out, sum_out; 0: f32. Returns
+// cudaGetLastError() after the launch.
 extern "C" int bq_scoring_layernorm(const void* a, const void* r, const float* scale,
-                                    const float* bias, void* out, int rows, int cols, float eps,
-                                    int dtype, void* stream) {
+                                    const float* bias, void* out, void* sum_out, int rows,
+                                    int cols, float eps, int dtype, void* stream) {
   if (cols % 2) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (rows + kWarps - 1) / kWarps;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     add_layernorm_kernel<bf16><<<blocks, kWarps * 32, 0, s>>>(
         static_cast<const bf16*>(a), static_cast<const bf16*>(r), scale, bias,
-        static_cast<bf16*>(out), rows, cols, eps);
+        static_cast<bf16*>(out), static_cast<bf16*>(sum_out), rows, cols, eps);
   else
     add_layernorm_kernel<float><<<blocks, kWarps * 32, 0, s>>>(
         static_cast<const float*>(a), static_cast<const float*>(r), scale, bias,
-        static_cast<float*>(out), rows, cols, eps);
+        static_cast<float*>(out), static_cast<float*>(sum_out), rows, cols, eps);
   return static_cast<int>(cudaGetLastError());
 }

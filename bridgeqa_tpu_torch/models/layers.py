@@ -4,11 +4,13 @@
 Every layer keeps its parameters under the flax names' counterparts
 (``convert.py`` maps flax ``kernel`` to ``weight`` and so on) and runs in
 the dtype of its weights: ``set_compute_dtype`` casts the matrix weights
-(``Dense``, ``Embed``, ``PatchEmbed``) to the compute dtype, as flax casts
-its f32 parameters at each call, and leaves norms and their statistics in
-f32. ``init_weights`` fills every parameter from a ``torch.Generator`` with
-the JAX package's initialisers. Inference only: no dropout, no batch
-statistics updates.
+(``Dense``, ``Embed``, ``PatchEmbed``) to the compute dtype and leaves every
+other parameter in f32. Biases stay f32 parameters, as flax keeps them: the
+module path adds a compute-dtype copy made once by ``set_compute_dtype``
+(flax casts at each call), and the fused paths read the f32 parameter.
+``init_weights`` fills every parameter from a ``torch.Generator`` with the
+JAX package's initialisers. Inference only: no dropout, no batch statistics
+updates.
 """
 
 import math
@@ -35,9 +37,12 @@ class Dense(nn.Linear):
                  init: str = "normal"):
         super().__init__(in_features, out_features, bias=bias)
         self.init = init
+        # the bias in the compute dtype (``set_compute_dtype``), None while it
+        # is the weight's dtype
+        self.register_buffer("bias_cast", None, persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        return F.linear(x.to(self.weight.dtype), self.weight, _call_bias(self))
 
     @torch.no_grad()
     def init_weights_(self, generator: torch.Generator) -> None:
@@ -162,12 +167,25 @@ def add_indexed(parent: nn.Module, prefix: str, modules) -> list:
     return modules
 
 
+def _call_bias(m: nn.Module):
+    """The bias a module-path product adds: the compute-dtype copy where
+    ``set_compute_dtype`` made one, else the parameter."""
+    return m.bias if m.bias_cast is None else m.bias_cast
+
+
 def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast the matrix weights to the compute dtype; norms, BN statistics
-    and free parameters stay f32 and are cast where they are used."""
-    for m in model.modules():
-        if isinstance(m, (Dense, Embed, PatchEmbed)):
-            m.to(dtype)
+    """Cast the matrix weights to the compute dtype. Biases, norms, BN
+    statistics and free parameters stay f32; each ``Dense`` and
+    ``PatchEmbed`` keeps a copy of its bias in the compute dtype for the
+    module path, made here once so that no call adds a cast. Run it after the
+    weights are loaded or drawn: a later change of a bias does not reach the
+    copy."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (Dense, Embed, PatchEmbed)):
+                m.weight.data = m.weight.data.to(dtype)
+            if isinstance(m, (Dense, PatchEmbed)) and m.bias is not None:
+                m.bias_cast = None if dtype == m.bias.dtype else m.bias.detach().to(dtype)
     return model
 
 
@@ -196,6 +214,7 @@ class PatchEmbed(nn.Module):
         self.patch = patch
         self.weight = nn.Parameter(torch.empty(embed_dim, in_chans, patch, patch))
         self.bias = nn.Parameter(torch.zeros(embed_dim))
+        self.register_buffer("bias_cast", None, persistent=False)  # as ``Dense``'s
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, H, W, C) -> (B, H/p * W/p, embed_dim), patches row-major."""
@@ -203,7 +222,7 @@ class PatchEmbed(nn.Module):
         p = self.patch
         x = x.to(self.weight.dtype).reshape(b, h // p, p, w // p, p, c)
         x = x.permute(0, 1, 3, 5, 2, 4).reshape(b, (h // p) * (w // p), c * p * p)
-        return F.linear(x, self.weight.reshape(self.weight.shape[0], -1), self.bias)
+        return F.linear(x, self.weight.reshape(self.weight.shape[0], -1), _call_bias(self))
 
     @torch.no_grad()
     def init_weights_(self, generator: torch.Generator) -> None:

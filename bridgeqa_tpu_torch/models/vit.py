@@ -1,8 +1,12 @@
-"""Vision Transformer, BLIP's ViT-B/16 (counterpart of the module path of
+"""Vision Transformer, BLIP's ViT-B/16 (counterpart of
 ``bridgeqa_tpu/models/vit.py``): patch embedding, CLS token, learned
 position embedding, pre-LN blocks (LayerNorm eps 1e-6, exact GELU), final
 LayerNorm. A 480 px image gives 901 tokens. Inference only: no dropout or
-stochastic depth."""
+stochastic depth.
+
+As in the JAX model, the blocks run either as a module loop or through the
+fused block (``ops/vit_block.py``), as ``vit_block.FUSED_MODE`` allows: by
+default the fused kernels on the card and the module loop on the CPU."""
 
 import torch
 from torch import nn
@@ -15,6 +19,8 @@ from bridgeqa_tpu_torch.models.layers import (
     add_indexed,
     gelu,
 )
+from bridgeqa_tpu_torch.ops import vit_block as vb
+from bridgeqa_tpu_torch.ops.scoring_layer import add_layernorm
 
 
 class Mlp(nn.Module):
@@ -72,13 +78,26 @@ class VisionTransformer(nn.Module):
                                                      for _ in range(depth)))
         self.norm = LayerNorm(embed_dim, 1e-6)
 
-    def forward(self, x):
-        """x (B, H, W, 3) channel-last image -> (B, 1 + N, embed_dim)."""
+    def embed(self, x):
+        """x (B, H, W, 3) channel-last image -> the tokens the first block
+        takes, (B, 1 + N, embed_dim): patches, CLS token, position."""
         x = self.patch_embed_proj(x)
         b = x.shape[0]
         cls = self.cls_token.to(x.dtype).expand(b, 1, self.embed_dim)
         x = torch.cat([cls, x], dim=1)
-        x = x + self.pos_embed[:, : x.shape[1]].to(x.dtype)
+        return x + self.pos_embed[:, : x.shape[1]].to(x.dtype)
+
+    def forward(self, x):
+        """x (B, H, W, 3) channel-last image -> (B, 1 + N, embed_dim)."""
+        x = self.embed(x)
+        attn = self.blocks[0].attn
+        # the fused block reads a QKV bias, as the JAX one does
+        if attn.qkv.bias is not None and vb.use_fused(
+                self.embed_dim, attn.num_heads, self.blocks[0].mlp.fc1.out_features, x.device):
+            x = vb.fused_vit_blocks(self, x)
+            n = self.norm
+            return add_layernorm(x.reshape(-1, self.embed_dim), None, n.weight.float(),
+                                 n.bias.float(), n.eps).reshape(x.shape)
         for blk in self.blocks:
             x = blk(x)
         return self.norm(x)

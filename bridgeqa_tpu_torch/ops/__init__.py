@@ -1,7 +1,9 @@
 """Point ops of the port: FPS and the stripe ball query (hand-written CUDA
 kernels with plain PyTorch versions beside them), grouping and
-three-NN interpolation."""
+three-NN interpolation, and the row gather. The fused transformer paths
+live in ``scoring_layer``, ``vocab_loss`` and ``vit_block``."""
 
+from bridgeqa_tpu_torch.ops.gather import gather_rows
 from bridgeqa_tpu_torch.ops.grouping import (
     ball_query_stripes,
     group_all,
@@ -20,6 +22,7 @@ __all__ = [
     "furthest_point_sample",
     "furthest_point_sample_with_xyz",
     "gather_points",
+    "gather_rows",
     "group_all",
     "group_points",
     "query_and_group",

@@ -53,11 +53,13 @@ _SIGNATURES = {
     "bq_fps": [_P, _P, _P, _P, _I, _I, _I, _P],
     "bq_ball_query_stripes": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               ctypes.c_float, _P],
-    "bq_scoring_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "bq_scoring_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bq_scoring_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                              ctypes.c_float, _I, _P],
-    "bq_scoring_layernorm": [_P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
+    "bq_scoring_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
     "bq_vocab_reductions": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "bq_vit_attention": [_P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+    "bq_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
@@ -130,6 +132,25 @@ def check(rc: int, name: str) -> None:
     """Raise when a C entry reported a CUDA error for its launch."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+# the working types the kernels are instantiated for, as their C entries number them
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is contiguous and on the first one's CUDA
+    device, and ``dtype`` (the call's working type) is one the kernels take."""
+    device = tensors[0].device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    if dtype not in DTYPE_CODES:
+        raise ValueError(f"{name}: the kernel takes float32 or bfloat16, got {dtype}")
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"{name}: tensors on {t.device} and {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel needs contiguous tensors")
 
 
 def stream_handle(device: torch.device) -> ctypes.c_void_p:

@@ -7,12 +7,14 @@ so here the layer is eleven launches of three hand-written kernels:
 
 - ``scoring_gemm`` (``csrc/scoring_gemm.cu``): the six products, QKV,
   attention output, cross query, cross output, FFN in (with exact GELU) and
-  FFN out;
+  FFN out (the fused ViT block, ``ops/vit_block.py``, runs its four products
+  here too, the last with a residual);
 - ``self_attention`` and ``cross_attention`` (``csrc/scoring_attention.cu``):
   causal attention inside each answer, and each answer's attention to its
   question's pre-projected keys and values;
 - ``add_layernorm`` (``csrc/scoring_layernorm.cu``): the three residual adds
-  and LayerNorms.
+  and LayerNorms (and the ViT block's LayerNorms: without a residual, or
+  keeping the sum).
 
 On a CUDA tensor each wrapper launches its kernel and counts the launch in
 ``launches``; on a CPU tensor it runs its ``*_plain`` version. There is no
@@ -36,7 +38,6 @@ as everywhere in the port.
 import math
 
 import torch
-import torch.nn.functional as F
 
 from bridgeqa_tpu_torch.ops import cuda_lib
 
@@ -45,27 +46,11 @@ NEG = -1e9
 MAX_ANSWER_LEN = 128
 # shared memory one block of the attention kernel may use on Hopper
 _MAX_SMEM = 232448
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset (chip_smoke.py reads and resets them)
 launches = {"scoring_gemm": 0, "scoring_attention": 0, "scoring_layernorm": 0}
 # launches of each kernel that one ``scoring_layer`` call makes
 LAUNCHES_PER_LAYER = {"scoring_gemm": 6, "scoring_attention": 2, "scoring_layernorm": 3}
-
-
-def _check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is contiguous, on the first one's CUDA
-    device, in ``dtype`` (a kernel's working type or f32)."""
-    device = tensors[0].device
-    if device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {device}")
-    if dtype not in _DTYPE_CODES:
-        raise ValueError(f"{name}: the kernel takes float32 or bfloat16, got {dtype}")
-    for t in tensors:
-        if t.device != device:
-            raise ValueError(f"{name}: tensors on {t.device} and {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: the kernel needs contiguous tensors")
 
 
 def _check_f32(name: str, *tensors: torch.Tensor) -> None:
@@ -82,41 +67,50 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------ products
 
-def scoring_gemm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 gelu: bool = False) -> torch.Tensor:
+def scoring_gemm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gelu: bool = False,
+                 residual: torch.Tensor | None = None) -> torch.Tensor:
     """``epilogue(x @ w.T + b)``: x (M, K) and w (N, K) in the working type,
-    b (N,) f32, epilogue exact GELU or none. Returns (M, N) in the working
-    type."""
-    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1] or b.shape != (w.shape[0],):
+    b (N,) f32, epilogue exact GELU or none, rounded to the working type;
+    then ``residual + that`` where a residual (M, N) in the working type is
+    given, rounded again. Returns (M, N) in the working type."""
+    if (x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1] or b.shape != (w.shape[0],)
+            or (residual is not None and residual.shape != (x.shape[0], w.shape[0]))):
         raise ValueError(f"scoring_gemm: shapes {tuple(x.shape)}, {tuple(w.shape)}, "
-                         f"{tuple(b.shape)}")
+                         f"{tuple(b.shape)}"
+                         + ("" if residual is None else f", {tuple(residual.shape)}"))
     if x.device.type == "cpu":
-        return scoring_gemm_plain(x, w, b, gelu)
-    _check_cuda("scoring_gemm", x.dtype, x, w, b)
+        return scoring_gemm_plain(x, w, b, gelu, residual)
+    res = () if residual is None else (residual,)
+    cuda_lib.check_cuda("scoring_gemm", x.dtype, x, w, b, *res)
     _check_f32("scoring_gemm", b)
-    if w.dtype != x.dtype:
-        raise ValueError(f"scoring_gemm: x is {x.dtype}, w is {w.dtype}")
+    if w.dtype != x.dtype or (residual is not None and residual.dtype != x.dtype):
+        raise ValueError(f"scoring_gemm: x is {x.dtype}, w is {w.dtype}"
+                         + ("" if residual is None else f", residual is {residual.dtype}"))
     m, k = x.shape
     n = w.shape[0]
-    if x.dtype == torch.bfloat16 and (k % 8 or n % 8 or x.data_ptr() % 16 or w.data_ptr() % 16):
-        raise ValueError(f"scoring_gemm: bf16 needs K and N multiples of 8 and 16-byte aligned "
-                         f"x and w, got {k}, {n}")
+    if x.dtype == torch.bfloat16 and (k % 8 or n % 8 or x.data_ptr() % 16 or w.data_ptr() % 16
+                                      or (residual is not None and residual.data_ptr() % 4)):
+        raise ValueError(f"scoring_gemm: bf16 needs K and N multiples of 8, 16-byte aligned "
+                         f"x and w and a 4-byte aligned residual, got {k}, {n}")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    rc = cuda_lib.lib().bq_scoring_gemm(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                                        m, n, k, int(gelu), _DTYPE_CODES[x.dtype],
-                                        cuda_lib.stream_handle(x.device))
+    rc = cuda_lib.lib().bq_scoring_gemm(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), None if residual is None else residual.data_ptr(),
+        y.data_ptr(), m, n, k, int(gelu), cuda_lib.DTYPE_CODES[x.dtype],
+        cuda_lib.stream_handle(x.device))
     cuda_lib.check(rc, "bq_scoring_gemm")
     launches["scoring_gemm"] += 1
     return y
 
 
-def scoring_gemm_plain(x, w, b, gelu: bool = False):
+def scoring_gemm_plain(x, w, b, gelu: bool = False, residual=None):
     """Plain PyTorch ``scoring_gemm``: the product of the up-cast inputs in
-    f32, the f32 bias, the epilogue, one rounding."""
+    f32, the f32 bias, the epilogue, one rounding; the residual added in the
+    working type."""
     y = x.float() @ w.float().T + b.float()
     if gelu:
         y = gelu_exact(y)
-    return y.to(x.dtype)
+    y = y.to(x.dtype)
+    return y if residual is None else residual + y
 
 
 # ---------------------------------------------------------------- attentions
@@ -138,7 +132,7 @@ def self_attention(qkv: torch.Tensor, *, la: int, heads: int) -> torch.Tensor:
         raise ValueError(f"self_attention: qkv {tuple(qkv.shape)}, la {la}, heads {heads}")
     if qkv.device.type == "cpu":
         return self_attention_plain(qkv, la=la, heads=heads)
-    _check_cuda("self_attention", qkv.dtype, qkv)
+    cuda_lib.check_cuda("self_attention", qkv.dtype, qkv)
     hd = h // heads
     if hd % 2 or la > MAX_ANSWER_LEN:
         raise ValueError(f"self_attention: needs an even head width and la <= {MAX_ANSWER_LEN}, "
@@ -147,7 +141,8 @@ def self_attention(qkv: torch.Tensor, *, la: int, heads: int) -> torch.Tensor:
     base, step = qkv.data_ptr(), h * qkv.element_size()
     rc = cuda_lib.lib().bq_scoring_attention(
         base, base + step, base + 2 * step, None, out.data_ptr(), r, heads, hd, h3, h3, h, la, 0,
-        0, 0, 1.0 / math.sqrt(hd), _DTYPE_CODES[qkv.dtype], cuda_lib.stream_handle(qkv.device))
+        0, 0, 1.0 / math.sqrt(hd), cuda_lib.DTYPE_CODES[qkv.dtype],
+        cuda_lib.stream_handle(qkv.device))
     cuda_lib.check(rc, "bq_scoring_attention")
     launches["scoring_attention"] += 1
     return out
@@ -185,7 +180,7 @@ def cross_attention(qc: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, cbias:
                          f"{tuple(cv.shape)}, {tuple(cbias.shape)}")
     if qc.device.type == "cpu":
         return cross_attention_plain(qc, ck, cv, cbias, heads=heads)
-    _check_cuda("cross_attention", qc.dtype, qc, ck, cv, cbias)
+    cuda_lib.check_cuda("cross_attention", qc.dtype, qc, ck, cv, cbias)
     _check_f32("cross_attention", cbias)
     if ck.dtype != qc.dtype or cv.dtype != qc.dtype:
         raise ValueError("cross_attention: queries, keys and values need one dtype")
@@ -196,7 +191,7 @@ def cross_attention(qc: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, cbias:
     out = torch.empty_like(qc)
     rc = cuda_lib.lib().bq_scoring_attention(
         qc.data_ptr(), ck.data_ptr(), cv.data_ptr(), cbias.data_ptr(), out.data_ptr(), r, heads,
-        hd, h, h, h, 1, r // nq, lk, 1, 1.0 / math.sqrt(hd), _DTYPE_CODES[qc.dtype],
+        hd, h, h, h, 1, r // nq, lk, 1, 1.0 / math.sqrt(hd), cuda_lib.DTYPE_CODES[qc.dtype],
         cuda_lib.stream_handle(qc.device))
     cuda_lib.check(rc, "bq_scoring_attention")
     launches["scoring_attention"] += 1
@@ -217,35 +212,42 @@ def cross_attention_plain(qc, ck, cv, cbias, *, heads: int):
 
 # ---------------------------------------------------------------- LayerNorm
 
-def add_layernorm(a: torch.Tensor, r: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                  eps: float) -> torch.Tensor:
-    """LayerNorm(a + r): the sum in the working type, statistics in f32;
-    a, r (R, H); scale, bias (H,) f32."""
-    if a.shape != r.shape or a.dim() != 2 or scale.shape != (a.shape[1],) or \
-            bias.shape != scale.shape:
-        raise ValueError(f"add_layernorm: shapes {tuple(a.shape)}, {tuple(r.shape)}, "
-                         f"{tuple(scale.shape)}, {tuple(bias.shape)}")
+def add_layernorm(a: torch.Tensor, r: torch.Tensor | None, scale: torch.Tensor,
+                  bias: torch.Tensor, eps: float, keep_sum: bool = False):
+    """LayerNorm(a + r), or LayerNorm(a) where r is None: the sum in the
+    working type, statistics in f32; a, r (R, H); scale, bias (H,) f32.
+    Returns the normalised rows, or ``(a + r, normalised)`` with
+    ``keep_sum``."""
+    if (a.dim() != 2 or (r is not None and r.shape != a.shape) or scale.shape != (a.shape[1],)
+            or bias.shape != scale.shape):
+        raise ValueError(f"add_layernorm: shapes {tuple(a.shape)}, "
+                         f"{None if r is None else tuple(r.shape)}, {tuple(scale.shape)}, "
+                         f"{tuple(bias.shape)}")
     if a.device.type == "cpu":
-        return add_layernorm_plain(a, r, scale, bias, eps)
-    _check_cuda("add_layernorm", a.dtype, a, r, scale, bias)
+        return add_layernorm_plain(a, r, scale, bias, eps, keep_sum)
+    res = () if r is None else (r,)
+    cuda_lib.check_cuda("add_layernorm", a.dtype, a, *res, scale, bias)
     _check_f32("add_layernorm", scale, bias)
-    if r.dtype != a.dtype or a.shape[1] % 2:
+    if (r is not None and r.dtype != a.dtype) or a.shape[1] % 2:
         raise ValueError("add_layernorm: a and r need one dtype and an even width")
     out = torch.empty_like(a)
-    rc = cuda_lib.lib().bq_scoring_layernorm(a.data_ptr(), r.data_ptr(), scale.data_ptr(),
-                                             bias.data_ptr(), out.data_ptr(), a.shape[0],
-                                             a.shape[1], eps, _DTYPE_CODES[a.dtype],
-                                             cuda_lib.stream_handle(a.device))
+    total = torch.empty_like(a) if keep_sum else None
+    rc = cuda_lib.lib().bq_scoring_layernorm(
+        a.data_ptr(), None if r is None else r.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), None if total is None else total.data_ptr(), a.shape[0], a.shape[1], eps,
+        cuda_lib.DTYPE_CODES[a.dtype], cuda_lib.stream_handle(a.device))
     cuda_lib.check(rc, "bq_scoring_layernorm")
     launches["scoring_layernorm"] += 1
-    return out
+    return (total, out) if keep_sum else out
 
 
-def add_layernorm_plain(a, r, scale, bias, eps: float):
-    y = (a + r).float()
+def add_layernorm_plain(a, r, scale, bias, eps: float, keep_sum: bool = False):
+    total = a if r is None else a + r
+    y = total.float()
     mu = y.mean(dim=-1, keepdim=True)
     var = (y * y).mean(dim=-1, keepdim=True) - mu * mu
-    return ((y - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()).to(a.dtype)
+    out = ((y - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()).to(a.dtype)
+    return (total, out) if keep_sum else out
 
 
 # --------------------------------------------------------------- the layer
@@ -341,8 +343,8 @@ def scoring_decoder_body(encoder, emb, question_states, question_mask, *, config
         wqkv = torch.cat([w(a.query), w(a.key), w(a.value)])
         bqkv = torch.cat([f32(a.query.bias), f32(a.key.bias), f32(a.value.bias)])
         # cross K/V once per question per layer, shared by its g answers
-        ck = F.linear(qs, w(ca.key), ca.key.bias.to(dt))
-        cv = F.linear(qs, w(ca.value), ca.value.bias.to(dt))
+        # (module-path products: the bias in the working type, as JAX's)
+        ck, cv = ca.key(qs), ca.value(qs)
         x = layer(x, wqkv, bqkv, w(ao.dense), f32(ao.dense.bias),
                   f32(ao.LayerNorm.weight), f32(ao.LayerNorm.bias),
                   w(ca.query), f32(ca.query.bias), w(cao.dense), f32(cao.dense.bias),

@@ -30,22 +30,42 @@ result is printed):
      versions in bf16, every bias and LayerNorm parameter perturbed:
      per-sequence losses within 1% relative (rounding points match,
      summation order does not).
-   Median times of kernel, plain version and, where one PyTorch call
-   computes the same function, that call (``library_ms``; the port never
-   calls it) are printed, with the bound of each (below).
+   - The ViT block's kernels at its shapes (8 images of 901 tokens): the
+     GEMM's four products (the last with its residual epilogue), the
+     attention over 901 tokens (``csrc/vit_attention.cu``), LayerNorm without
+     a residual and keeping the sum (whose sum must be bitwise), with the
+     tolerances above; the attention also within 1% relative L2 error for
+     each image and head, and again at 833 tokens, whose last key tile is
+     mostly padding. Then a whole 12-block ViT-B/16 with its final norm,
+     kernels against plain versions in bf16, every bias and LayerNorm
+     parameter perturbed: each image's relative L2 error within 1%.
+   - The row gather (no path calls it), bitwise against ``torch.gather`` at
+     the SA1 and SA2 grouping shapes, f32 and bf16.
+   Kernel, plain version and, where one PyTorch call computes the same
+   function, that call (``library_ms``; the port never calls it) are timed
+   as loops of back-to-back calls between two CUDA events (ms per call,
+   median of three loops), so the wrappers' host time overlaps the card's
+   work instead of adding to it; each is printed with its bound (below).
+   The LayerNorms take the card less time than their wrappers take the
+   host, so their three times are the card time of such a loop, read from
+   ``torch.profiler``. The gather's wrapper waits for the card in its index
+   check; its loop time is printed beside its card time.
 4. reference: a tiny rank forward on the card (kernels, f32) against the
    same weights on the CPU (plain versions, f32), hidden 128 and 2 heads so
-   that the fused scoring path runs (``fused_scoring="force"`` on both
-   sides); the scoring kernels must launch on the card.
+   that the fused scoring path and the fused ViT run (``fused_scoring=
+   "force"`` on both sides; ``vit_block.FUSED_MODE`` "force" on the CPU and
+   "auto" on the card); the scoring and ViT kernels must launch on the card.
 5. main path: full-width rank inference (``BridgeQAConfig(num_answers=4500,
    input_feature_dim=1)``: 40k-point scenes, ViT-B/16 at 480 px, 12-layer
    twin encoder and decoders, k_test 256) at batch 8 in bf16, random
-   weights from a seed, ``fused_scoring="auto"``. Launch counts are zeroed
-   just before the forward and read just after, and must equal the counts
-   derived from the config; outputs must be finite and well formed. Stage
-   times (CUDA events around each stage's modules) follow, then one forward
-   under ``torch.profiler``: the card's busy share, and the table by kernel
-   in ``build/profile_main_path.txt``.
+   weights from a seed, ``fused_scoring="auto"`` and ``vit_block.FUSED_MODE
+   = "auto"``. Launch counts are zeroed just before the forward and read
+   just after, and must equal the counts derived from the config (the ViT's
+   included); outputs must be finite and well formed. Stage times (CUDA
+   events around each stage's modules, the ViT's among them, and the host's
+   time to issue each stage) follow, then
+   one forward under ``torch.profiler``: the card's busy share, and the
+   table by kernel in ``build/profile_main_path.txt``.
 
 Bounds: the least time the card could take for a kernel's work, the larger
 of the bytes it must move (each input read once, each output written once)
@@ -96,6 +116,18 @@ GEMM_SHAPES = [("qkv", HIDDEN, 3 * HIDDEN, False), ("attention out", HIDDEN, HID
                ("cross query", HIDDEN, HIDDEN, False), ("cross out", HIDDEN, HIDDEN, False),
                ("ffn in", HIDDEN, FFN, True), ("ffn out", FFN, HIDDEN, False)]
 SCORING_PASSES = 2  # the 2D and the 3D decoder
+# the ViT-B/16 at 480 px: 901 tokens of 8 images, 12 heads of 64, MLP 3072
+VIT_TOKENS = (IMAGE_SIZE // 16) ** 2 + 1
+VIT_ROWS = BATCH * VIT_TOKENS
+VIT_HEADS = 12
+# (name, K, N, GELU, residual) of the four products of one ViT block
+VIT_GEMM_SHAPES = [("vit qkv", HIDDEN, 3 * HIDDEN, False, False),
+                   ("vit attention out", HIDDEN, HIDDEN, False, False),
+                   ("vit mlp in", HIDDEN, FFN, True, False),
+                   ("vit mlp out", FFN, HIDDEN, False, True)]
+# (name, table rows, channels, gathered rows) of the gather's checks: the
+# shapes of the SA1 and SA2 groupings, batch 8
+GATHER_SHAPES = [("sa1-like", NUM_POINTS, 4, 2048 * 64), ("sa2-like", 2048, 131, 1024 * 32)]
 
 # H100 SXM peaks (NVIDIA's data sheet, dense) for the bounds
 PEAK_BF16 = 989e12
@@ -108,19 +140,44 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median device time of ``fn`` over ``reps`` runs after one warm-up,
-    each run between two CUDA events."""
+def time_ms(fn, reps: int, loops: int = 3) -> float:
+    """ms per call of ``fn``: after one warm-up call, ``loops`` loops of
+    ``reps`` back-to-back calls, each loop between two CUDA events; the
+    median of the loops. Back to back, the host enqueues a call while the
+    card runs the one before, so the wrapper's host time stays out of the
+    reading wherever a call takes the card longer than the host."""
     fn()
     times = []
-    for _ in range(reps):
+    for _ in range(loops):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int) -> float:
+    """ms of card time per call of ``fn``: the durations of every kernel
+    (and copy) that a loop of ``reps`` back-to-back calls runs, read from
+    ``torch.profiler``, over ``reps``. For kernels that take the card less
+    time than their wrapper takes the host, where ``time_ms`` reads the
+    host. A trace that lost the card's records (fewer than one a call) is
+    taken again, up to three times."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        work = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(work) >= reps:
+            return sum(e.device_time_total for e in work) / 1e3 / reps
+    raise RuntimeError("device_ms: torch.profiler recorded no card time")
 
 
 def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
@@ -267,7 +324,37 @@ def phase_kernels(device, batch: int = BATCH, fps_shapes=FPS_SHAPES, bq_shapes=B
 
 
 def _bf16_tol(want) -> float:
-    return 2.0**-6 * max(1.0, float(want.float().abs().max()))
+    return 2.0**-6 * float(want.float().abs().max())
+
+
+def check_row(rows, failures, name, shape, checks, ms, plain_ms, library_ms, flops, nbytes, peak,
+              calls, note=""):
+    """Append one shape's row to ``rows`` and log it. ``checks``: {output:
+    (bf16 error, its tolerance, f32 error, its tolerance)}, one entry for
+    each output the kernel writes; a check outside its tolerance is added to
+    ``failures``."""
+    bound_ms, bound_by = bound(flops, nbytes, peak)
+    checks = {k: dict(zip(("max_abs_err", "tolerance", "f32_max_abs_err", "f32_tolerance"), v))
+              for k, v in checks.items()}
+    for out, c in checks.items():
+        if not (c["max_abs_err"] <= c["tolerance"] and c["f32_max_abs_err"] <= c["f32_tolerance"]):
+            failures.append(f"{name} {shape} {out}: {c}")
+    rows.append(dict(shape=shape, calls=calls,
+                     max_abs_err=max(c["max_abs_err"] for c in checks.values()), checks=checks,
+                     ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, note=note))
+    lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
+    errs = "; ".join(f"{out} err {c['max_abs_err']:.3g} (tol {c['tolerance']:.3g}), f32 err "
+                     f"{c['f32_max_abs_err']:.3g} (tol {c['f32_tolerance']:.3g})"
+                     for out, c in checks.items())
+    log(f"{name} {shape}: {errs}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib}, "
+        f"bound {bound_ms:.4f} ms ({bound_by})")
+
+
+def one_output(err, want, f32_err):
+    """The checks of a kernel with one output: bf16 within 2^-6 of the
+    largest output, f32 within 1e-3."""
+    return {"out": (err, _bf16_tol(want), f32_err, 1e-3)}
 
 
 def phase_scoring_kernels(device, layers: int, reps: int = 10):
@@ -286,30 +373,6 @@ def phase_scoring_kernels(device, layers: int, reps: int = 10):
     def randn(*shape, scale=1.0, dtype=bf16):
         return (torch.randn(*shape, generator=gen, device=device) * scale).to(dtype)
 
-    def record(rows, name, shape, checks, ms, plain_ms, library_ms, flops, nbytes, peak, calls,
-               note=""):
-        """``checks``: {output: (bf16 error, its tolerance, f32 error, its
-        tolerance)}, one entry for each output the kernel writes."""
-        bound_ms, bound_by = bound(flops, nbytes, peak)
-        checks = {k: dict(zip(("max_abs_err", "tolerance", "f32_max_abs_err", "f32_tolerance"), v))
-                  for k, v in checks.items()}
-        for out, c in checks.items():
-            if not (c["max_abs_err"] <= c["tolerance"] and c["f32_max_abs_err"] <= c["f32_tolerance"]):
-                failures.append(f"{name} {shape} {out}: {c}")
-        rows.append(dict(shape=shape, calls=calls,
-                         max_abs_err=max(c["max_abs_err"] for c in checks.values()), checks=checks,
-                         ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, note=note))
-        lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
-        errs = "; ".join(f"{out} err {c['max_abs_err']:.3g} (tol {c['tolerance']:.3g}), f32 err "
-                         f"{c['f32_max_abs_err']:.3g} (tol {c['f32_tolerance']:.3g})"
-                         for out, c in checks.items())
-        log(f"{name} {shape}: {errs}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib}, "
-            f"bound {bound_ms:.4f} ms ({bound_by})")
-
-    def one_output(err, want, f32_err):
-        return {"out": (err, _bf16_tol(want), f32_err, 1e-3)}
-
     rows_n, h, hd, la = DECODER_ROWS, HIDDEN, HIDDEN // HEADS, ANSWER_LEN
     gemm_rows = []
     for name, k, n, gelu in GEMM_SHAPES:
@@ -320,15 +383,16 @@ def phase_scoring_kernels(device, layers: int, reps: int = 10):
         b = randn(n, scale=0.5, dtype=torch.float32)
         got, want = sl.scoring_gemm(x, w, b, gelu), sl.scoring_gemm_plain(x, w, b, gelu)
         x32, w32 = x.float(), w.float()
-        f32_err = max_err(sl.scoring_gemm(x32, w32, b, gelu), sl.scoring_gemm_plain(x32, w32, b, gelu))
+        f32_err = max_err(sl.scoring_gemm(x32, w32, b, gelu),
+                          sl.scoring_gemm_plain(x32, w32, b, gelu))
         b16 = b.to(bf16)
-        record(gemm_rows, "scoring_gemm", f"{name}: ({rows_n}, {k}) x ({n}, {k})^T"
-               + (" + GELU" if gelu else ""), one_output(max_err(got, want), want, f32_err),
-               time_ms(lambda: sl.scoring_gemm(x, w, b, gelu), reps),
-               time_ms(lambda: sl.scoring_gemm_plain(x, w, b, gelu), 3),
-               time_ms(lambda: F.linear(x, w, b16), reps), 2.0 * rows_n * n * k,
-               2 * (rows_n * k + n * k + rows_n * n) + 4 * n, PEAK_BF16, per_layer,
-               "library: F.linear, without the GELU" if gelu else "library: F.linear")
+        check_row(gemm_rows, failures, "scoring_gemm", f"{name}: ({rows_n}, {k}) x ({n}, {k})^T"
+                  + (" + GELU" if gelu else ""), one_output(max_err(got, want), want, f32_err),
+                  time_ms(lambda: sl.scoring_gemm(x, w, b, gelu), reps),
+                  time_ms(lambda: sl.scoring_gemm_plain(x, w, b, gelu), 3),
+                  time_ms(lambda: F.linear(x, w, b16), reps), 2.0 * rows_n * n * k,
+                  2 * (rows_n * k + n * k + rows_n * n) + 4 * n, PEAK_BF16, per_layer,
+                  "library: F.linear, without the GELU" if gelu else "library: F.linear")
         del x, w, got, want, x32, w32
 
     attn_rows = []
@@ -340,13 +404,14 @@ def phase_scoring_kernels(device, layers: int, reps: int = 10):
     f32_err = max_err(sl.self_attention(qkv32, la=la, heads=HEADS),
                       sl.self_attention_plain(qkv32, la=la, heads=HEADS))
     q, k, v = qkv.view(seqs, la, 3, HEADS, hd).permute(2, 0, 3, 1, 4)
-    record(attn_rows, "scoring_attention", f"self: ({rows_n}, {3 * h}), {seqs} answers of {la}",
-           one_output(max_err(got, want), want, f32_err),
-           time_ms(lambda: sl.self_attention(qkv, la=la, heads=HEADS), reps),
-           time_ms(lambda: sl.self_attention_plain(qkv, la=la, heads=HEADS), 3),
-           time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), reps),
-           4.0 * HEADS * seqs * (la * (la + 1) // 2) * hd, 2 * (rows_n * 3 * h + rows_n * h),
-           PEAK_BF16, per_layer, "library: scaled_dot_product_attention, causal")
+    check_row(attn_rows, failures, "scoring_attention",
+              f"self: ({rows_n}, {3 * h}), {seqs} answers of {la}",
+              one_output(max_err(got, want), want, f32_err),
+              time_ms(lambda: sl.self_attention(qkv, la=la, heads=HEADS), reps),
+              time_ms(lambda: sl.self_attention_plain(qkv, la=la, heads=HEADS), 3),
+              time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), reps),
+              4.0 * HEADS * seqs * (la * (la + 1) // 2) * hd, 2 * (rows_n * 3 * h + rows_n * h),
+              PEAK_BF16, per_layer, "library: scaled_dot_product_attention, causal")
     del qkv, qkv32, q, k, v, got, want
 
     rows_q = rows_n // BATCH
@@ -364,15 +429,15 @@ def phase_scoring_kernels(device, layers: int, reps: int = 10):
     kh = ck.view(BATCH, QUESTION_LEN, HEADS, hd).transpose(1, 2)
     vh = cv.view(BATCH, QUESTION_LEN, HEADS, hd).transpose(1, 2)
     mask16 = cbias[:, None, None, :].to(bf16)
-    record(attn_rows, "scoring_attention",
-           f"cross: ({rows_n}, {h}) against ({BATCH}, {QUESTION_LEN}, {h}), "
-           f"{int(valid.sum())} valid keys", one_output(max_err(got, want), want, f32_err),
-           time_ms(lambda: sl.cross_attention(qc, ck, cv, cbias, heads=HEADS), reps),
-           time_ms(lambda: sl.cross_attention_plain(qc, ck, cv, cbias, heads=HEADS), 3),
-           time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask16), reps),
-           4.0 * rows_q * h * float(valid.sum()),
-           2 * (2 * rows_n * h + 2 * BATCH * QUESTION_LEN * h) + 4 * BATCH * QUESTION_LEN,
-           PEAK_BF16, per_layer, "library: scaled_dot_product_attention, additive mask")
+    check_row(attn_rows, failures, "scoring_attention",
+              f"cross: ({rows_n}, {h}) against ({BATCH}, {QUESTION_LEN}, {h}), "
+              f"{int(valid.sum())} valid keys", one_output(max_err(got, want), want, f32_err),
+              time_ms(lambda: sl.cross_attention(qc, ck, cv, cbias, heads=HEADS), reps),
+              time_ms(lambda: sl.cross_attention_plain(qc, ck, cv, cbias, heads=HEADS), 3),
+              time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask16), reps),
+              4.0 * rows_q * h * float(valid.sum()),
+              2 * (2 * rows_n * h + 2 * BATCH * QUESTION_LEN * h) + 4 * BATCH * QUESTION_LEN,
+              PEAK_BF16, per_layer, "library: scaled_dot_product_attention, additive mask")
     del qc, ck, cv, qh, kh, vh, got, want
 
     ln_rows = []
@@ -387,13 +452,13 @@ def phase_scoring_kernels(device, layers: int, reps: int = 10):
     f32_err = max_err(sl.add_layernorm(a.float(), r.float(), scale, shift, eps),
                       sl.add_layernorm_plain(a.float(), r.float(), scale, shift, eps))
     s16, b16 = scale.to(bf16), shift.to(bf16)
-    record(ln_rows, "scoring_layernorm", f"({rows_n}, {h}) + ({rows_n}, {h})",
-           one_output(max_err(got, want), want, f32_err),
-           time_ms(lambda: sl.add_layernorm(a, r, scale, shift, eps), reps),
-           time_ms(lambda: sl.add_layernorm_plain(a, r, scale, shift, eps), 3),
-           time_ms(lambda: F.layer_norm(a + r, (h,), s16, b16, eps), reps),
-           10.0 * rows_n * h, 2 * 3 * rows_n * h + 8 * h, PEAK_F32, 3 * per_layer,
-           "library: F.layer_norm after the add (two calls)")
+    check_row(ln_rows, failures, "scoring_layernorm", f"({rows_n}, {h}) + ({rows_n}, {h})",
+              one_output(max_err(got, want), want, f32_err),
+              device_ms(lambda: sl.add_layernorm(a, r, scale, shift, eps), reps),
+              device_ms(lambda: sl.add_layernorm_plain(a, r, scale, shift, eps), 3),
+              device_ms(lambda: F.layer_norm(a + r, (h,), s16, b16, eps), reps),
+              10.0 * rows_n * h, 2 * 3 * rows_n * h + 8 * h, PEAK_F32, 3 * per_layer,
+              "library: F.layer_norm after the add (two calls)")
     del a, r, got, want
 
     vocab_rows = []
@@ -416,12 +481,12 @@ def phase_scoring_kernels(device, layers: int, reps: int = 10):
                         max_err(a32, b_), 1e-3)
                   for out, a_, a32, b_ in zip(("lse", "sum_logits", "target_logit"), got, got32,
                                                want)}
-        record(vocab_rows, "vocab_loss", f"({rows_v}, {h}) x ({vocab}, {h})^T", checks,
-               time_ms(lambda: vl.lm_vocab_reductions(hv, table, vbias, labels), reps),
-               time_ms(lambda: vl.lm_vocab_reductions_plain(hv, table, vbias, labels), 3), None,
-               2.0 * rows_v * vocab * h, 2 * (rows_v * h + vocab * h) + 4 * vocab
-               + 4 * rows_v + 12 * rows_v, PEAK_BF16, calls,
-               "no single PyTorch call: it takes a product and a logsumexp")
+        check_row(vocab_rows, failures, "vocab_loss", f"({rows_v}, {h}) x ({vocab}, {h})^T", checks,
+                  time_ms(lambda: vl.lm_vocab_reductions(hv, table, vbias, labels), reps),
+                  time_ms(lambda: vl.lm_vocab_reductions_plain(hv, table, vbias, labels), 3), None,
+                  2.0 * rows_v * vocab * h, 2 * (rows_v * h + vocab * h) + 4 * vocab
+                  + 4 * rows_v + 12 * rows_v, PEAK_BF16, calls,
+                  "no single PyTorch call: it takes a product and a logsumexp")
         del hv, table, got, want, got32
 
     if failures:
@@ -440,14 +505,217 @@ def phase_scoring_kernels(device, layers: int, reps: int = 10):
     ]
 
 
+def phase_vit_kernels(device, kernels: dict, depth: int, reps: int = 10):
+    """The ViT block's kernels against their plain versions at the main-path
+    shapes (8 images of 901 tokens), bf16 and f32, and the row gather.
+    The products and LayerNorms are the scoring kernels': their rows join
+    those records in ``kernels`` (``calls``: ``depth`` blocks, and the final
+    LayerNorm). Returns the records of the ViT attention and the gather."""
+    from bridgeqa_tpu_torch.ops import gather
+    from bridgeqa_tpu_torch.ops import scoring_layer as sl
+    from bridgeqa_tpu_torch.ops import vit_block as vb
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    bf16 = torch.bfloat16
+    failures = []
+    vit_kernel = "bridgeqa_tpu/ops/vit_block.py:39"
+
+    def randn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(*shape, generator=gen, device=device) * scale).to(dtype)
+
+    rows_n, h, hd = VIT_ROWS, HIDDEN, HIDDEN // VIT_HEADS
+    gemm_rows = kernels["scoring_gemm"]["rows"]
+    for name, k, n, gelu, with_res in VIT_GEMM_SHAPES:
+        x = randn(rows_n, k)
+        w = randn(n, k, scale=0.02)
+        b = randn(n, scale=0.5, dtype=torch.float32)  # a dropped bias shows
+        res = randn(rows_n, n, scale=2.0) if with_res else None
+        got, want = sl.scoring_gemm(x, w, b, gelu, res), sl.scoring_gemm_plain(x, w, b, gelu, res)
+        x32, w32 = x.float(), w.float()
+        res32 = None if res is None else res.float()
+        f32_err = max_err(sl.scoring_gemm(x32, w32, b, gelu, res32),
+                          sl.scoring_gemm_plain(x32, w32, b, gelu, res32))
+        b16 = b.to(bf16)
+        check_row(gemm_rows, failures, "scoring_gemm",
+                  f"{name}: ({rows_n}, {k}) x ({n}, {k})^T" + (" + GELU" if gelu else "")
+                  + (" + residual" if with_res else ""),
+                  one_output(max_err(got, want), want, f32_err),
+                  time_ms(lambda: sl.scoring_gemm(x, w, b, gelu, res), reps),
+                  time_ms(lambda: sl.scoring_gemm_plain(x, w, b, gelu, res), 3),
+                  time_ms(lambda: F.linear(x, w, b16), reps), 2.0 * rows_n * n * k,
+                  2 * (rows_n * k + n * k + rows_n * n * (2 if with_res else 1)) + 4 * n,
+                  PEAK_BF16, depth,
+                  "library: F.linear" + (", without the GELU" if gelu else "")
+                  + (", without the residual" if with_res else ""))
+        del x, w, got, want, x32, w32, res, res32
+
+    attn_rows = []
+    # the main path's 901 tokens (the last 64-key tile holds 5 keys), then a
+    # check only: 833 tokens, one key in the last tile and 63 of padding.
+    # A padded key that leaked into a row's sum would add exp(0 - max) to it
+    # and shrink the whole row: some percent over 59 or 63 keys, which the
+    # relative L2 error of each (image, head) shows
+    for tokens, calls in ((VIT_TOKENS, depth), (833, 0)):
+        qkv = randn(BATCH, tokens, 3 * h)
+        got = vb.vit_attention(qkv, heads=VIT_HEADS)
+        want = vb.vit_attention_plain(qkv, heads=VIT_HEADS)
+        qkv32 = qkv.float()
+        f32_err = max_err(vb.vit_attention(qkv32, heads=VIT_HEADS),
+                          vb.vit_attention_plain(qkv32, heads=VIT_HEADS))
+        q, k, v = qkv.view(BATCH, tokens, 3, VIT_HEADS, hd).permute(2, 0, 3, 1, 4)
+        check_row(attn_rows, failures, "vit_attention",
+                  f"({BATCH}, {tokens}, {3 * h}), {VIT_HEADS} heads of {hd}",
+                  one_output(max_err(got, want), want, f32_err),
+                  time_ms(lambda: vb.vit_attention(qkv, heads=VIT_HEADS), reps),
+                  time_ms(lambda: vb.vit_attention_plain(qkv, heads=VIT_HEADS), 3),
+                  time_ms(lambda: F.scaled_dot_product_attention(q, k, v), reps),
+                  4.0 * BATCH * VIT_HEADS * tokens * tokens * hd,
+                  2 * BATCH * tokens * 4 * h, PEAK_BF16, calls,
+                  f"library: scaled_dot_product_attention on ({BATCH}, {VIT_HEADS}, {tokens}, "
+                  f"{hd}) views")
+        # and the relative L2 error of each (image, head): within 1%
+        rel = head_rel_l2(got, want, VIT_HEADS)
+        attn_rows[-1]["rel_l2_per_image_head"] = rel
+        log(f"vit_attention ({BATCH}, {tokens}): max relative L2 error per image and head "
+            f"{rel:.3g} (tol 0.01)")
+        if not rel <= 0.01:
+            failures.append(f"vit_attention {tokens} tokens: relative L2 error {rel} per head")
+        del qkv, qkv32, q, k, v, got, want
+
+    ln_rows = kernels["scoring_layernorm"]["rows"]
+    a, r = randn(rows_n, h), randn(rows_n, h, scale=2.0)
+    scale = randn(h, scale=0.5, dtype=torch.float32) + 1.0
+    shift = randn(h, scale=0.5, dtype=torch.float32)
+    s16, b16 = scale.to(bf16), shift.to(bf16)
+    eps = 1e-6
+    # LN1 of every block and the final norm: no residual
+    got = sl.add_layernorm(a, None, scale, shift, eps)
+    want = sl.add_layernorm_plain(a, None, scale, shift, eps)
+    f32_err = max_err(sl.add_layernorm(a.float(), None, scale, shift, eps),
+                      sl.add_layernorm_plain(a.float(), None, scale, shift, eps))
+    check_row(ln_rows, failures, "scoring_layernorm", f"vit LN1 and final norm: ({rows_n}, {h})",
+              one_output(max_err(got, want), want, f32_err),
+              device_ms(lambda: sl.add_layernorm(a, None, scale, shift, eps), reps),
+              device_ms(lambda: sl.add_layernorm_plain(a, None, scale, shift, eps), 3),
+              device_ms(lambda: F.layer_norm(a, (h,), s16, b16, eps), reps),
+              8.0 * rows_n * h, 2 * 2 * rows_n * h + 8 * h, PEAK_F32, depth + 1,
+              "library: F.layer_norm")
+    # LN2 after the attention's residual, keeping the sum
+    (gsum, got), (wsum, want) = (sl.add_layernorm(a, r, scale, shift, eps, keep_sum=True),
+                                 sl.add_layernorm_plain(a, r, scale, shift, eps, keep_sum=True))
+    f32_got = sl.add_layernorm(a.float(), r.float(), scale, shift, eps, keep_sum=True)
+    f32_want = sl.add_layernorm_plain(a.float(), r.float(), scale, shift, eps, keep_sum=True)
+    checks = {"out": (max_err(got, want), _bf16_tol(want), max_err(f32_got[1], f32_want[1]),
+                      1e-3),
+              # the sum is one rounding of a + r on both sides: bitwise
+              "sum": (max_err(gsum, wsum), 0.0, max_err(f32_got[0], f32_want[0]), 0.0)}
+    check_row(ln_rows, failures, "scoring_layernorm",
+              f"vit LN2 keeping the sum: ({rows_n}, {h}) + ({rows_n}, {h})", checks,
+              device_ms(lambda: sl.add_layernorm(a, r, scale, shift, eps, keep_sum=True), reps),
+              device_ms(lambda: sl.add_layernorm_plain(a, r, scale, shift, eps, keep_sum=True), 3),
+              device_ms(lambda: F.layer_norm(a + r, (h,), s16, b16, eps), reps),
+              10.0 * rows_n * h, 2 * 4 * rows_n * h + 8 * h, PEAK_F32, depth,
+              "library: F.layer_norm after the add (two calls)")
+    del a, r, got, want, gsum, wsum, f32_got, f32_want
+    for name in ("scoring_gemm", "scoring_layernorm"):
+        kernels[name]["replaces"] += ", " + vit_kernel
+
+    # the gather: bitwise against torch.gather (also the library call); not
+    # on the main path, so one call of each shape
+    gather_rows = []
+    rng = np.random.RandomState(9)
+    for name, n, c, r in GATHER_SHAPES:
+        idx = torch.from_numpy(rng.randint(0, n, (BATCH, r)).astype(np.int32)).to(device)
+        # rows the indices pick: each read once
+        picked = sum(int(torch.unique(idx[i]).numel()) for i in range(BATCH))
+        for dtype in (torch.float32, bf16):
+            table = randn(BATCH, n, c, dtype=dtype)
+            got, want = gather.gather_rows(table, idx), gather.gather_rows_plain(table, idx)
+            same = torch.equal(got, want)
+            if not same:
+                failures.append(f"gather_rows {name} {dtype}: not bitwise equal")
+            es = table.element_size()
+            # the wrapper, whose host-side index check waits for the card
+            # every call; and the card time of a call (the check's
+            # reduction and the copy)
+            ms = time_ms(lambda: gather.gather_rows(table, idx), reps)
+            card_ms = device_ms(lambda: gather.gather_rows(table, idx), reps)
+            plain_ms = time_ms(lambda: gather.gather_rows_plain(table, idx), reps)
+            bound_ms, bound_by = bound(0.0, BATCH * r * 4 + (picked + BATCH * r) * c * es,
+                                       PEAK_F32)
+            gather_rows.append(dict(shape=f"{name} {str(dtype)[6:]}: ({BATCH}, {n}, {c}) at "
+                                          f"({BATCH}, {r}), {picked} rows picked",
+                                    calls=1, bitwise=same, max_abs_err=max_err(got, want), ms=ms,
+                                    card_ms=card_ms, plain_ms=plain_ms, library_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by,
+                                    note="library: torch.gather, the plain version itself"))
+            log(f"gather_rows {name} {dtype}: ({BATCH}, {n}, {c}) at ({BATCH}, {r}): bitwise "
+                f"{same}, wrapper {ms:.4f} ms (card time {card_ms:.4f} ms), "
+                f"torch.gather {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            del table, got, want
+    if failures:
+        raise AssertionError(f"ViT kernels and plain versions disagree: {failures}")
+    return [
+        dict(name="vit_attention", route="cuda", source="bridgeqa_tpu_torch/csrc/vit_attention.cu",
+             replaces=vit_kernel, rows=attn_rows),
+        dict(name="gather_rows", route="cuda", source="bridgeqa_tpu_torch/csrc/gather_rows.cu",
+             replaces="bridgeqa_tpu/ops/gather.py:29, bridgeqa_tpu/ops/gather.py:73",
+             rows=gather_rows, per="one call at each checked shape: no path calls the gather"),
+    ]
+
+
+def head_rel_l2(got, want, heads: int) -> float:
+    """The largest relative L2 error of one (image, head) slice of (B, N,
+    H) outputs."""
+    b, n, h = want.shape
+    d = (got.float() - want.float()).view(b, n, heads, h // heads)
+    w = want.float().view(b, n, heads, h // heads)
+    return float((d.pow(2).sum((1, 3)).sqrt() / w.pow(2).sum((1, 3)).sqrt()).max())
+
+
+def phase_vit_pass(device, seed: int = 7):
+    """A whole 12-block ViT-B/16 at 480 px over 8 random images, the fused
+    blocks and the final LayerNorm, kernels against plain versions in bf16,
+    every bias and LayerNorm parameter perturbed: the relative L2 error of
+    each image's (901, 768) output within 1% (rounding points match,
+    summation order does not)."""
+    from bridgeqa_tpu_torch.models.layers import init_weights, set_compute_dtype
+    from bridgeqa_tpu_torch.models.vit import create_vit
+    from bridgeqa_tpu_torch.ops import scoring_layer as sl
+    from bridgeqa_tpu_torch.ops import vit_block as vb
+
+    with torch.device(device):
+        vit, width = create_vit("base", IMAGE_SIZE)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    vit = set_compute_dtype(perturb_affine(init_weights(vit, gen), gen), torch.bfloat16).eval()
+    images = torch.rand(BATCH, IMAGE_SIZE, IMAGE_SIZE, 3, generator=gen, device=device)
+    norm = vit.norm
+
+    def encode(block, layernorm):
+        x = vb.fused_vit_blocks(vit, vit.embed(images), block=block)
+        return layernorm(x.reshape(-1, width), None, norm.weight, norm.bias, norm.eps)
+
+    with torch.inference_mode():
+        got = encode(vb.vit_block, sl.add_layernorm).float().reshape(BATCH, -1)
+        want = encode(vb.vit_block_plain, sl.add_layernorm_plain).float().reshape(BATCH, -1)
+    rel = float(((got - want).norm(dim=1) / want.norm(dim=1)).max())
+    log(f"ViT pass (12 blocks + final norm, bf16, {BATCH} images of {VIT_TOKENS} tokens): "
+        f"max relative L2 error per image {rel:.3g} (tol 0.01)")
+    if not (rel <= 0.01 and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"ViT pass: kernels and plain versions differ by {rel} relative")
+
+
 def perturb_affine(module, gen, scale: float = 0.5):
     """Add noise of ``scale`` to every bias and LayerNorm parameter of
     ``module``, which ``init_weights`` sets to 0 and (1, 0), so that a
     kernel that drops a bias or an affine changes the result."""
+    from bridgeqa_tpu_torch.models.layers import LayerNorm
+
     with torch.no_grad():
-        for name, p in module.named_parameters():
-            if name.endswith("bias") or "LayerNorm" in name:
-                p.add_(torch.randn(p.shape, generator=gen, device=p.device) * scale)
+        for m in module.modules():
+            for name, p in m.named_parameters(recurse=False):
+                if name == "bias" or isinstance(m, LayerNorm):
+                    p.add_(torch.randn(p.shape, generator=gen, device=p.device) * scale)
     return module
 
 
@@ -543,27 +811,38 @@ def tiny_config():
 
 
 def reset_launches() -> None:
-    from bridgeqa_tpu_torch.ops import grouping, sampling, scoring_layer, vocab_loss
+    from bridgeqa_tpu_torch.ops import gather, grouping, sampling, scoring_layer, vit_block
+    from bridgeqa_tpu_torch.ops import vocab_loss
 
     sampling.launches = grouping.launches = vocab_loss.launches = 0
+    vit_block.launches = gather.launches = 0
     for name in scoring_layer.launches:
         scoring_layer.launches[name] = 0
 
 
 def read_launches() -> dict:
-    from bridgeqa_tpu_torch.ops import grouping, sampling, scoring_layer, vocab_loss
+    from bridgeqa_tpu_torch.ops import gather, grouping, sampling, scoring_layer, vit_block
+    from bridgeqa_tpu_torch.ops import vocab_loss
 
     return {"fps": sampling.launches, "ball_query_stripes": grouping.launches,
-            **scoring_layer.launches, "vocab_loss": vocab_loss.launches}
+            **scoring_layer.launches, "vocab_loss": vocab_loss.launches,
+            "vit_attention": vit_block.launches, "gather_rows": gather.launches}
+
+
+# kernels no path runs: checked in phase 3 only
+OFF_PATH = ("gather_rows",)
 
 
 def phase_reference(device):
     """A tiny rank forward through the kernels on the card against the
-    plain versions on the CPU, same weights, f32, the fused scoring path
-    forced on both sides. Every answer is scored (k_test = the list length),
-    so no top-k tie can split the two runs. The decoders' biases and
-    LayerNorm parameters are perturbed. Tolerance 1e-3: the two devices sum
-    matrix products in another order."""
+    plain versions on the CPU, same weights, f32, the fused scoring path and
+    the fused ViT on both sides (forced on the CPU, "auto" on the card).
+    Every answer is scored (k_test = the list length), so no top-k tie can
+    split the two runs. The decoders' and the ViT's biases and LayerNorm
+    parameters are perturbed. Tolerance 1e-3: the two devices sum matrix
+    products in another order."""
+    from bridgeqa_tpu_torch.ops import vit_block as vb
+
     cfg = tiny_config()
     cpu_model = build_model(cfg, torch.device("cpu"), seed=3)
     blip = cpu_model.blip_model
@@ -571,15 +850,22 @@ def phase_reference(device):
     perturb_affine(blip.text_decoder, gen)
     if blip._decoder_scene() is not blip.text_decoder:
         perturb_affine(blip._decoder_scene(), gen)
+    perturb_affine(blip.visual_encoder, gen)
     card_model = copy.deepcopy(cpu_model).to(device)
     batch = make_batch(cfg, 2, 4096, 64, 20, 6, torch.device("cpu"), seed=4)
+    if vb.FUSED_MODE != "auto":
+        raise AssertionError("the card runs the ViT with vit_block.FUSED_MODE='auto'")
     with torch.inference_mode():
-        want = cpu_model(batch, k_test=cfg.num_answers)
+        try:
+            vb.FUSED_MODE = "force"
+            want = cpu_model(batch, k_test=cfg.num_answers)
+        finally:
+            vb.FUSED_MODE = "auto"
         reset_launches()
         got = card_model({k: v.to(device) for k, v in batch.items()}, k_test=cfg.num_answers)
         torch.cuda.synchronize()
         launches = read_launches()
-    idle = [k for k, n in launches.items() if n == 0]
+    idle = [k for k, n in launches.items() if n == 0 and k not in OFF_PATH]
     if idle:
         raise AssertionError(f"reference: kernels not launched on the card: {idle}")
     for key in ("sa1_inds", "sa2_inds", "fp2_inds"):
@@ -592,56 +878,72 @@ def phase_reference(device):
         worst[key] = err
         if not err <= 1e-3:
             raise AssertionError(f"reference: {key} differs by {err}")
-    log(f"reference (tiny config, f32, fused scoring forced, card vs CPU): max abs err "
+    log(f"reference (tiny config, f32, fused scoring and ViT, card vs CPU): max abs err "
         f"{json.dumps(worst)}; card launches {json.dumps(launches)}")
 
 
 STAGES = ("detector", "vit", "twin encoder", "decoder 2D", "decoder 3D")
 
 
-def stage_times(model, run, reps: int = 3) -> dict:
-    """ms of each stage in a ``run()``: CUDA events before and after each
-    stage's module calls, summed over its calls in a run (a decoder runs
-    twice, the first-token pass and the scoring pass), median of ``reps``
-    runs."""
+def stage_times(model, run, reps: int = 3) -> tuple[dict, dict]:
+    """ms of each stage in a ``run()``, on the card and on the host: CUDA
+    events, and the host clock, before and after each stage's module calls,
+    summed over its calls in a run (a decoder runs twice, the first-token
+    pass and the scoring pass), medians of ``reps`` runs. The host's span
+    is the time it takes to issue a stage's work (and to wait where the
+    stage synchronises); where it exceeds the card's work, the card's span
+    is the host's less the lead the host had when the stage began."""
     blip = model.blip_model
     modules = dict(zip(STAGES, (model.detector, blip.visual_encoder, blip.text_encoder,
                                 blip.text_decoder, blip._decoder_scene())))
-    spans = {}
+    spans, host = {}, {}
     handles = []
     for name, mod in modules.items():
         def pre(_m, _args, name=name):
             spans[name].append([torch.cuda.Event(enable_timing=True),
                                 torch.cuda.Event(enable_timing=True)])
             spans[name][-1][0].record()
+            host[name].append(time.perf_counter())
 
         def post(_m, _args, _out, name=name):
             spans[name][-1][1].record()
+            host[name][-1] = time.perf_counter() - host[name][-1]
 
         handles += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
-    runs = []
+    runs, host_runs = [], []
     try:
         for _ in range(reps):
             spans.update({name: [] for name in STAGES})
+            host.update({name: [] for name in STAGES})
+            torch.cuda.synchronize()
             run()
             torch.cuda.synchronize()
             runs.append({name: sum(a.elapsed_time(b) for a, b in spans[name]) for name in STAGES})
+            host_runs.append({name: sum(host[name]) * 1e3 for name in STAGES})
     finally:
         for handle in handles:
             handle.remove()
-    return {name: statistics.median(r[name] for r in runs) for name in STAGES}
+    return ({name: statistics.median(r[name] for r in runs) for name in STAGES},
+            {name: statistics.median(r[name] for r in host_runs) for name in STAGES})
 
 
 def expected_launches(cfg) -> dict:
     """Kernel launches of one rank forward, from the config: one FPS and one
     ball query per main-path shape; each scoring pass runs every decoder
-    layer (``LAUNCHES_PER_LAYER`` launches each) and one vocabulary pass."""
+    layer (``LAUNCHES_PER_LAYER`` launches each) and one vocabulary pass;
+    the ViT runs every block (``LAUNCHES_PER_BLOCK``) and one more LayerNorm
+    (its final norm); no path runs the gather."""
     from bridgeqa_tpu_torch.ops.scoring_layer import LAUNCHES_PER_LAYER
+    from bridgeqa_tpu_torch.ops.vit_block import LAUNCHES_PER_BLOCK
 
-    layers = decoder_layers(cfg)
-    return {"fps": len(FPS_SHAPES), "ball_query_stripes": len(BQ_SHAPES),
-            **{k: n * layers * SCORING_PASSES for k, n in LAUNCHES_PER_LAYER.items()},
-            "vocab_loss": SCORING_PASSES}
+    layers, depth = decoder_layers(cfg), vit_depth(cfg)
+    counts = {"fps": len(FPS_SHAPES), "ball_query_stripes": len(BQ_SHAPES),
+              **{k: n * layers * SCORING_PASSES for k, n in LAUNCHES_PER_LAYER.items()},
+              "vocab_loss": SCORING_PASSES, "vit_attention": 0, "gather_rows": 0}
+    for k, n in LAUNCHES_PER_BLOCK.items():
+        counts[k] += n * depth
+    counts["scoring_layernorm"] += 1
+    return counts
 
 
 def main_config():
@@ -654,12 +956,19 @@ def decoder_layers(cfg) -> int:
     return cfg.blip.decoder_layers or cfg.blip.med.num_hidden_layers
 
 
+def vit_depth(cfg) -> int:
+    """Blocks of the config's ViT (``models/vit.py::create_vit``)."""
+    return {"base": 12, "large": 24}.get(cfg.blip.vit, cfg.blip.vit_custom_depth)
+
+
 def phase_main_path(device, reps: int = 5):
     from bridgeqa_tpu_torch.models.layers import set_compute_dtype
+    from bridgeqa_tpu_torch.ops import vit_block as vb
 
     cfg = main_config()
-    if cfg.blip.med.fused_scoring != "auto":
-        raise AssertionError("the main path runs with fused_scoring='auto'")
+    if cfg.blip.med.fused_scoring != "auto" or vb.FUSED_MODE != "auto":
+        raise AssertionError("the main path runs with fused_scoring='auto' and "
+                             "vit_block.FUSED_MODE='auto'")
     t0 = time.perf_counter()
     model = set_compute_dtype(build_model(cfg, device), torch.bfloat16)
     batch = make_batch(cfg, BATCH, NUM_POINTS, IMAGE_SIZE, QUESTION_LEN, ANSWER_LEN, device)
@@ -709,7 +1018,7 @@ def phase_main_path(device, reps: int = 5):
             forward()
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        stages = stage_times(model, forward)
+        stages, host_stages = stage_times(model, forward)
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -731,13 +1040,18 @@ def phase_main_path(device, reps: int = 5):
         f"{BATCH / latency:.2f} QA pairs/s")
     log(f"main path stages (ms of one forward, median of 3): "
         f"{json.dumps({k: round(v, 2) for k, v in stages.items()})}, sum {sum(stages.values()):.1f}")
+    log(f"main path stages on the host (ms to issue each stage's work, median of 3): "
+        f"{json.dumps({k: round(v, 2) for k, v in host_stages.items()})}, "
+        f"sum {sum(host_stages.values()):.1f}")
     return launches
 
 
 def summarize(kernel, launches: int) -> dict:
     """One kernel's record of the kernels line: its times and bound over
-    the calls of one forward (each shape's median times its ``calls``)."""
+    the calls of one forward (each shape's median times its ``calls``), or
+    over what ``per`` names for a kernel no path runs."""
     rows = kernel.pop("rows")
+    per = kernel.pop("per", "one rank forward: each shape's median times the calls it gets")
 
     def total(key):
         if any(r[key] is None for r in rows):
@@ -749,15 +1063,18 @@ def summarize(kernel, launches: int) -> dict:
         by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"] * r["calls"]
     return dict(kernel, launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows),
                 ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
-                bound_by=max(by, key=by.get), library_ms=total("library_ms"),
-                per="one rank forward: each shape's median times the calls it gets", shapes=rows)
+                bound_by=max(by, key=by.get), library_ms=total("library_ms"), per=per,
+                shapes=rows)
 
 
 def main() -> int:
     device = phase_device()
     phase_build()
-    kernels = phase_kernels(device) + phase_scoring_kernels(device, decoder_layers(main_config()))
+    cfg = main_config()
+    kernels = phase_kernels(device) + phase_scoring_kernels(device, decoder_layers(cfg))
+    kernels += phase_vit_kernels(device, {k["name"]: k for k in kernels}, vit_depth(cfg))
     phase_decoder_pass(device)
+    phase_vit_pass(device)
     phase_reference(device)
     launches = phase_main_path(device)
     records = [summarize(k, launches[k["name"]]) for k in kernels]

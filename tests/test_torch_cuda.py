@@ -15,18 +15,24 @@ machine does not have; this file imports none.) On the edge cases
   reductions) must agree with theirs within a tolerance, in f32 and bf16:
   rows and vocabularies that are no tile multiple, 7, 80 and 130 question
   keys, all but one key masked, and attention shapes that take the
-  tensor-core kernel (bf16, head width 64) and the CUDA-core one. f32: 1e-3 absolute (both sides accumulate
-  in f32, in another order). bf16 outputs: 2^-6 of the largest output,
-  about two steps of bf16 (both round once from f32, and a sum taken in
-  another order can flip a rounding, or the rounding of an exp before the
-  product with V).
+  tensor-core kernel (bf16, head width 64) and the CUDA-core one;
+- the ViT kernels likewise: the GEMM's residual epilogue, LayerNorm without
+  a residual and keeping the sum, the attention over 1, 17, 64, 65, 901 and
+  1025 tokens (65 and 1025 leave one valid key in the last tile), and a
+  whole block;
+- the row gather must copy bit for bit, with rows that fill no block and
+  1, 3, 4 and 131 channels, and refuse indices out of range.
+f32: 1e-3 absolute (both sides accumulate in f32, in another order). bf16
+outputs: 2^-6 of the largest output, about two steps of bf16 (both round
+once from f32, and a sum taken in another order can flip a rounding, or the
+rounding of an exp or a softmax weight before the product with V).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from bridgeqa_tpu_torch.ops import grouping, sampling, scoring_layer, vocab_loss
+from bridgeqa_tpu_torch.ops import gather, grouping, sampling, scoring_layer, vit_block, vocab_loss
 
 pytestmark = pytest.mark.cuda
 
@@ -104,7 +110,7 @@ def _randn(rng, *shape, scale=1.0, dtype=torch.float32, device="cpu"):
 def _assert_close(got, want, what):
     err = float((got.float() - want.float()).abs().max())
     if got.dtype == torch.bfloat16:
-        tol = 2.0**-6 * max(1.0, float(want.float().abs().max()))
+        tol = 2.0**-6 * float(want.float().abs().max())
     else:
         tol = 1e-3
     assert err <= tol, f"{what}: max abs err {err} > {tol}"
@@ -216,3 +222,118 @@ def test_scoring_wrappers_refuse_bad_inputs(card):
                                     torch.zeros(64, device=card), 1e-12)
     with pytest.raises(ValueError):
         vocab_loss.lm_vocab_reductions(x, w, b, torch.zeros(16, dtype=torch.int64, device=card))
+
+
+# ------------------------------------------------------------ the ViT block
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,n,k,gelu", [(7208, 768, 3072, False), (37, 136, 72, True)])
+def test_scoring_gemm_residual_matches_plain(card, dtype, m, n, k, gelu):
+    rng = np.random.RandomState(m + k)
+    x = _randn(rng, m, k, dtype=dtype, device=card)
+    w = _randn(rng, n, k, scale=0.05, dtype=dtype, device=card)
+    b = _randn(rng, n, scale=0.5, device=card)
+    res = _randn(rng, m, n, scale=2.0, dtype=dtype, device=card)
+    got = _counted("scoring_gemm", lambda: scoring_layer.scoring_gemm(x, w, b, gelu, res))
+    want = scoring_layer.scoring_gemm_plain(x, w, b, gelu, res)
+    _assert_close(got, want, "gemm + residual")
+    _assert_close(got - res, scoring_layer.scoring_gemm_plain(x, w, b, gelu), "residual dropped")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,cols,mode", [(1001, 768, "plain"), (3, 130, "plain"),
+                                            (1001, 768, "sum"), (3, 130, "sum")])
+def test_layernorm_vit_modes_match_plain(card, dtype, rows, cols, mode):
+    """LayerNorm with no residual, and LayerNorm(a + r) keeping the sum."""
+    rng = np.random.RandomState(rows * cols)
+    a = _randn(rng, rows, cols, dtype=dtype, device=card)
+    r = _randn(rng, rows, cols, scale=2.0, dtype=dtype, device=card) if mode == "sum" else None
+    scale = _randn(rng, cols, scale=0.5, device=card) + 1.0
+    bias = _randn(rng, cols, scale=0.5, device=card)
+    keep = mode == "sum"
+    got = _counted("scoring_layernorm",
+                   lambda: scoring_layer.add_layernorm(a, r, scale, bias, 1e-6, keep_sum=keep))
+    want = scoring_layer.add_layernorm_plain(a, r, scale, bias, 1e-6, keep_sum=keep)
+    if keep:
+        assert torch.equal(got[0], want[0])  # the sum is rounded once on both sides
+        got, want = got[1], want[1]
+    _assert_close(got, want, f"layernorm, {mode}")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 17, 64, 65, 901, 1025])
+def test_vit_attention_matches_plain(card, dtype, n):
+    rng = np.random.RandomState(n)
+    b, heads = 2, 3
+    qkv = _randn(rng, b, n, 3 * heads * vit_block.HEAD_DIM, dtype=dtype, device=card)
+    before = vit_block.launches
+    got = vit_block.vit_attention(qkv, heads=heads)
+    assert vit_block.launches == before + 1
+    _assert_close(got, vit_block.vit_attention_plain(qkv, heads=heads), f"vit attention, n {n}")
+    if n == 1:  # one key: the context is its value
+        assert torch.equal(got, qkv[..., 2 * heads * vit_block.HEAD_DIM:])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_vit_block_matches_plain(card, dtype):
+    """A whole block at embed 128, 2 heads, 37 tokens; biases and LayerNorm
+    parameters away from 0 and (1, 0)."""
+    rng = np.random.RandomState(11)
+    h, mlp = 128, 512
+    x = _randn(rng, 3, 37, h, dtype=dtype, device=card)
+    ws = [_randn(rng, *shape, scale=0.05, dtype=dtype, device=card)
+          for shape in ((3 * h, h), (h, h), (mlp, h), (h, mlp))]
+    bs = [_randn(rng, w.shape[0], scale=0.5, device=card) for w in ws]
+    lns = [_randn(rng, h, scale=0.5, device=card) + shift for shift in (1.0, 0.0, 1.0, 0.0)]
+    args = (x, ws[0], bs[0], ws[1], bs[1], lns[0], lns[1], ws[2], bs[2], ws[3], bs[3], lns[2],
+            lns[3])
+    got = vit_block.vit_block(*args, heads=2, eps=1e-6)
+    _assert_close(got, vit_block.vit_block_plain(*args, heads=2, eps=1e-6), "vit block")
+
+
+def test_vit_wrappers_refuse_bad_inputs(card):
+    qkv = torch.zeros(2, 10, 3 * 128, device=card)
+    with pytest.raises(ValueError):  # not contiguous
+        vit_block.vit_attention(torch.zeros(2, 3 * 128, 10, device=card).transpose(1, 2), heads=2)
+    with pytest.raises(ValueError):  # no kernel for float16
+        vit_block.vit_attention(qkv.half(), heads=2)
+    with pytest.raises(ValueError):  # head width 32
+        vit_block.vit_attention(qkv, heads=4)
+    with pytest.raises(ValueError):  # a residual of another shape
+        scoring_layer.scoring_gemm(torch.zeros(4, 8, device=card), torch.zeros(8, 8, device=card),
+                                   torch.zeros(8, device=card),
+                                   residual=torch.zeros(4, 16, device=card))
+
+
+# ------------------------------------------------------------ the gather
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,c,r", [(1000, 1, 3001), (40000, 3, 5003), (2048, 4, 777),
+                                   (2048, 131, 1037)])
+def test_gather_rows_matches_torch_gather(card, dtype, n, c, r):
+    rng = np.random.RandomState(n + c)
+    table = _randn(rng, 3, n, c, dtype=dtype, device=card)
+    idx = torch.from_numpy(rng.randint(0, n, (3, r)).astype(np.int32)).to(card)
+    before = gather.launches
+    got = gather.gather_rows(table, idx)
+    assert gather.launches == before + 1
+    assert torch.equal(got, gather.gather_rows_plain(table, idx))
+    one = gather.gather_rows(table[1], idx[1].long())
+    assert torch.equal(one, table[1][idx[1].long()])
+
+
+def test_gather_rows_refuses_bad_inputs(card):
+    table = torch.zeros(2, 50, 4, device=card)
+    idx = torch.zeros(2, 7, dtype=torch.int32, device=card)
+    with pytest.raises(IndexError):
+        gather.gather_rows(table, idx + 50)
+    with pytest.raises(IndexError):
+        gather.gather_rows(table, idx - 1)
+    with pytest.raises(ValueError):  # float indices
+        gather.gather_rows(table, idx.float())
+    with pytest.raises(ValueError):  # no kernel for float16
+        gather.gather_rows(table.half(), idx)
+    with pytest.raises(ValueError):  # not contiguous
+        gather.gather_rows(torch.zeros(2, 4, 50, device=card).transpose(1, 2), idx)
+    with pytest.raises(ValueError):  # mixed devices
+        gather.gather_rows(table, idx.cpu())

@@ -29,12 +29,13 @@ from bridgeqa_tpu.models import bridgeqa as jbridgeqa
 from bridgeqa_tpu.models import med as jmed
 from bridgeqa_tpu.ops import grouping as jgrouping
 from bridgeqa_tpu.ops import scoring_layer as jscoring
+from bridgeqa_tpu.ops import vit_block as jvit_block
 from bridgeqa_tpu.ops import vocab_loss as jvocab
 from bridgeqa_tpu_torch.convert import load_jax_variables
 from bridgeqa_tpu_torch.data.scannet_config import MEAN_SIZE_ARR
 from bridgeqa_tpu_torch.models import blip_vqa3d, bridgeqa, med
 from bridgeqa_tpu_torch.models.layers import init_weights
-from bridgeqa_tpu_torch.ops import scoring_layer, vocab_loss
+from bridgeqa_tpu_torch.ops import scoring_layer, vit_block, vocab_loss
 from tests.test_torch_bridgeqa import _port_cfg, _qa_batch
 
 ATOL = 1e-4
@@ -261,8 +262,9 @@ class TestGate:
 
 @pytest.fixture(scope="module")
 def fused_slice_outputs():
-    """The whole rank slice at hidden 128 with ``fused_scoring="force"`` on
-    both sides: the decoders score through the fused path."""
+    """The whole rank slice at hidden 128 with ``fused_scoring="force"`` and
+    ``vit_block.FUSED_MODE = "force"`` on both sides: the decoders score
+    through the fused scoring path and the ViT runs the fused block."""
     med_cfg = dataclasses.replace(CFG, vocab_size=120, max_position_embeddings=64)
     blip = jblip.BlipVQA3DConfig(med=med_cfg, image_size=32, num_answers=30, scene_size=32,
                                  bos_token_id=110, vit="custom", vit_custom_embed_dim=128,
@@ -279,23 +281,33 @@ def fused_slice_outputs():
     kw = dict(train=False, inference="rank", k_test=8)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jgrouping, "FORCE_MODE", "stripes")  # read while tracing
+        mp.setattr(jvit_block, "FUSED_MODE", "force")
         variables = jax.jit(functools.partial(jmodel.init, **kw))(jax.random.PRNGKey(0), jbatch)
         jout = jax.jit(functools.partial(jmodel.apply, **kw))(variables, jbatch)
     tcfg = _port_cfg(bridgeqa.BridgeQAConfig, jcfg,
                      blip=_port_cfg(blip_vqa3d.BlipVQA3DConfig, blip,
                                     med=_port_cfg(med.MedConfig, med_cfg)))
     model = load_jax_variables(bridgeqa.BridgeQA(tcfg, mean_size, device="cpu"), variables)
-    calls = []
-    body = scoring_layer.scoring_decoder_body
+    calls = {"scoring": 0, "vit": 0}
+    body, blocks = scoring_layer.scoring_decoder_body, vit_block.fused_vit_blocks
+
+    def counted(key, fn):
+        def run(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return run
+
     with pytest.MonkeyPatch.context() as mp, torch.no_grad():
-        mp.setattr(med, "scoring_decoder_body", lambda *a, **k: calls.append(1) or body(*a, **k))
+        mp.setattr(med, "scoring_decoder_body", counted("scoring", body))
+        mp.setattr(vit_block, "fused_vit_blocks", counted("vit", blocks))
+        mp.setattr(vit_block, "FUSED_MODE", "force")
         out = model({k: _t(v) for k, v in batch.items()}, inference="rank", k_test=8)
-    return out, {k: np.asarray(v) for k, v in jout.items()}, len(calls)
+    return out, {k: np.asarray(v) for k, v in jout.items()}, calls
 
 
 def test_fused_slice_scores_the_same_answers(fused_slice_outputs):
     out, jout, calls = fused_slice_outputs
-    assert calls == 2  # one fused scoring pass per decoder
+    assert calls["scoring"] == 2  # one fused scoring pass per decoder
     for key in ("answer_scores_2d", "answer_scores_scene"):
         scored = jout[key] != -1e4
         assert scored.sum(axis=1).tolist() == [8, 8], key
@@ -306,3 +318,11 @@ def test_fused_slice_scores_the_same_answers(fused_slice_outputs):
                                atol=0)
     for key in ("lang_scores", "cluster_ref"):
         _close(out[key], jout[key], key)
+
+
+def test_fused_slice_takes_the_fused_vit(fused_slice_outputs):
+    """The image encoder ran the fused block once (both of its blocks and
+    the final LayerNorm), and the heads that read its output agree."""
+    out, jout, calls = fused_slice_outputs
+    assert calls["vit"] == 1
+    assert out["answer_scores"].shape == (2, 30)
