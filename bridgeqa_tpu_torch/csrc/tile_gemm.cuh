@@ -1,5 +1,7 @@
-// Matrix-product tiles shared by the scoring GEMM (scoring_gemm.cu) and the
-// streaming vocabulary loss (vocab_loss.cu).
+// Matrix-product tiles of the streaming vocabulary loss (vocab_loss.cu, bf16
+// and f32) and of the scoring GEMM's f32 instantiation (scoring_gemm.cu; its
+// bf16 kernel runs on wgmma_gemm.cuh). The attention kernels use the
+// cp.async, ldmatrix and mma.sync helpers.
 //
 // Both compute a tile of Y = X * W^T: X (M, K) and W (N, K) row-major, K
 // contiguous in both (W is an nn.Linear weight, or the tied word table), so
@@ -57,7 +59,7 @@ struct MmaConfig {
   }
 };
 
-// The tile both callers use: 128 x 128 outputs, K 64 at a time, 3 stages
+// The vocabulary loss's tile: 128 x 128 outputs, K 64 at a time, 3 stages
 // (110.6 KB of shared memory, two blocks to an SM), 8 warps of 64 x 32. On
 // the H100 at the decoder's shapes it beat K 32 at a time and the other
 // mma.sync tiles tried (block shape, stages, warps); PERF.md has its times.

@@ -63,6 +63,8 @@ _SIGNATURES = {
 }
 
 _lib = None
+# the loaded library's file
+library_path = None
 # what the last build printed (ptxas register and shared-memory use) and took
 build_log = ""
 build_seconds = None
@@ -117,9 +119,10 @@ def _build() -> Path:
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    global _lib
+    global _lib, library_path
     if _lib is None:
-        loaded = ctypes.CDLL(str(_build()))
+        library_path = _build()
+        loaded = ctypes.CDLL(str(library_path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(loaded, name)
             fn.argtypes = argtypes

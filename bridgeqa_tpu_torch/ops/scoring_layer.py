@@ -89,9 +89,9 @@ def scoring_gemm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gelu: bool =
     m, k = x.shape
     n = w.shape[0]
     if x.dtype == torch.bfloat16 and (k % 8 or n % 8 or x.data_ptr() % 16 or w.data_ptr() % 16
-                                      or (residual is not None and residual.data_ptr() % 4)):
-        raise ValueError(f"scoring_gemm: bf16 needs K and N multiples of 8, 16-byte aligned "
-                         f"x and w and a 4-byte aligned residual, got {k}, {n}")
+                                      or (residual is not None and residual.data_ptr() % 16)):
+        raise ValueError(f"scoring_gemm: bf16 needs K and N multiples of 8 and 16-byte aligned "
+                         f"x, w and residual (the kernel's TMA boxes), got {k}, {n}")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     rc = cuda_lib.lib().bq_scoring_gemm(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), None if residual is None else residual.data_ptr(),

@@ -24,14 +24,23 @@ fused path on the CPU too, through the plain versions (the CPU tests), and
 "off" runs the module loop. On a CUDA tensor the wrappers launch their
 kernels and never fall back: a tensor a kernel does not take raises.
 
-Numerics, the Pallas kernel's: LayerNorm statistics in f32 with the one-pass
-variance ``mean(y^2) - mu^2``, scale and shift in f32, one rounding to the
-working type; every product takes working-type inputs, accumulates in f32,
-adds the f32 bias and rounds once; scores ``(q . k) * scale`` in f32; the
-softmax normalised before the product with V (``p = e / sum(e)`` rounded to
-the working type); the residual sums in the working type; exact erf GELU.
-The TPU kernel pads 901 tokens to 912 and masks the padded keys with -1e9,
-which gives them exactly 0 weight; here N is not padded.
+Numerics, the Pallas kernel's but one: LayerNorm statistics in f32 with the
+one-pass variance ``mean(y^2) - mu^2``, scale and shift in f32, one rounding
+to the working type; every product takes working-type inputs, accumulates
+in f32, adds the f32 bias and rounds once; scores ``(q . k) * scale`` in f32;
+the residual sums in the working type; exact erf GELU. The one: the softmax
+is normalised after the product with V, as the scoring kernel does
+(``scoring_layer._attend_plain``): ``e = exp(s - max)`` is rounded to the
+working type for the product and the f32 context is divided by the f32 sum
+of the unrounded ``e``. The TPU kernel rounds ``p = e / sum(e)`` instead,
+only because the deferred form's buffers did not fit Mosaic's scoped VMEM
+(``bridgeqa_tpu/ops/vit_block.py:71-75``); on the card the deferred form
+lets the kernel sweep the keys once. Both ``e`` and ``p`` lie in [0, 1] and
+round with the same relative error, so the two orders agree to a few f32
+ulps in f32 and within the bf16 rounding in bf16 (``tests/test_torch_vit.py``
+holds both against JAX). The TPU kernel pads 901 tokens to 912 and masks the
+padded keys with -1e9, which gives them exactly 0 weight; here N is not
+padded.
 
 Weights are in ``nn.Linear`` layout, (out, in); biases and LayerNorm
 parameters (out,) f32.
@@ -43,6 +52,7 @@ import torch
 
 from bridgeqa_tpu_torch.ops import cuda_lib
 from bridgeqa_tpu_torch.ops.scoring_layer import (
+    _attend_plain,
     add_layernorm,
     add_layernorm_plain,
     scoring_gemm,
@@ -110,18 +120,16 @@ def vit_attention(qkv: torch.Tensor, *, heads: int) -> torch.Tensor:
 
 
 def vit_attention_plain(qkv, *, heads: int):
-    """Plain PyTorch ``vit_attention``: f32 scores of the up-cast inputs,
-    ``p = e / sum(e)`` rounded to the working type, f32 context, one
-    rounding."""
+    """Plain PyTorch ``vit_attention``: f32 scores of the up-cast inputs and
+    the deferred normalisation of ``scoring_layer._attend_plain`` (``e``
+    rounded to the working type, f32 context over the f32 sum, one
+    rounding)."""
     b, n, h3 = qkv.shape
     h = h3 // 3
     hd = h // heads
     q, k, v = qkv.reshape(b, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(hd))
-    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = (e / e.sum(dim=-1, keepdim=True)).to(qkv.dtype)
-    ctx = torch.einsum("bhqk,bhkd->bhqd", p.float(), v.float()).to(qkv.dtype)
-    return ctx.transpose(1, 2).reshape(b, n, h)
+    return _attend_plain(s, v, qkv.dtype).transpose(1, 2).reshape(b, n, h)
 
 
 # ---------------------------------------------------------------- the block

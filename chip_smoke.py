@@ -9,7 +9,11 @@ result is printed):
 1. device: a CUDA card is required (there is no CPU path); print its name
    and ``nvidia-smi``'s name and power limit; the port imports nothing of
    JAX and nothing of the JAX package (``bridgeqa_tpu``).
-2. build: compile every ``bridgeqa_tpu_torch/csrc/*.cu`` for sm_90a.
+2. build: compile every ``bridgeqa_tpu_torch/csrc/*.cu`` for sm_90a; print
+   ptxas's register, spill and shared-memory lines for the bf16 GEMM and the
+   ViT attention; disassemble the library (``cuobjdump -sass``) and fail
+   unless every instantiation of the bf16 GEMM holds ``HGMMA`` (wgmma) and
+   ``UTMALDG`` (TMA loads).
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at every shape the main path gives it, batch 8.
    - FPS and the stripe ball query, with padding points, duplicate points,
@@ -46,10 +50,14 @@ result is printed):
    as loops of back-to-back calls between two CUDA events (ms per call,
    median of three loops), so the wrappers' host time overlaps the card's
    work instead of adding to it; each is printed with its bound (below).
-   The LayerNorms take the card less time than their wrappers take the
-   host, so their three times are the card time of such a loop, read from
-   ``torch.profiler``. The gather's wrapper waits for the card in its index
-   check; its loop time is printed beside its card time.
+   The LayerNorms and the smaller products take the card less time than
+   their wrappers take the host, so the LayerNorm and GEMM rows' three
+   times are the card time of such a loop, read from ``torch.profiler``.
+   The gather's wrapper waits for the card in its index check; its loop
+   time is printed beside its card time. Then each GEMM
+   shape's time over ``F.linear``'s and the per-forward sums, the ViT
+   attention's over SDPA's, and the host time per call of those two
+   wrappers.
 4. reference: a tiny rank forward on the card (kernels, f32) against the
    same weights on the CPU (plain versions, f32), hidden 128 and 2 heads so
    that the fused scoring path and the fused ViT run (``fused_scoring=
@@ -220,6 +228,56 @@ def phase_device():
     return torch.device("cuda", 0)
 
 
+# the redesigned kernels whose ptxas lines phase 2 prints (parts of their
+# mangled names)
+PTXAS_KERNELS = ("gemm_kernel", "vit_attention_bf16_kernel")
+# instructions the bf16 GEMM's SASS must hold: the Hopper tensor-core product
+# and the TMA tile load
+GEMM_SASS = ("HGMMA", "UTMALDG")
+
+
+def ptxas_lines(build_log: str) -> list[str]:
+    """The ptxas lines (registers, spills, barriers, warnings) of the
+    entry functions whose names contain one of ``PTXAS_KERNELS``."""
+    out, current = [], None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            current = line.split("'")[1] if "'" in line else line
+            if any(k in current for k in PTXAS_KERNELS):
+                out.append(f"{current}:")
+            continue
+        if current and any(k in current for k in PTXAS_KERNELS) and (
+                "registers" in line or "spill" in line or "smem" in line or "arning" in line):
+            out.append(f"    {line.strip()}")
+    return out
+
+
+def sass_check(library) -> dict:
+    """Disassemble the kernel library with ``cuobjdump -sass`` and count, in
+    each instantiation of the bf16 GEMM (``wg::gemm_kernel``), the
+    instructions of ``GEMM_SASS``; raise unless every one holds both."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            if "wg11gemm_kernel" in name:  # wg::gemm_kernel<...>, mangled
+                counts[name] = dict.fromkeys(GEMM_SASS, 0)
+            else:
+                name = None
+        elif name:
+            for op in GEMM_SASS:
+                if op in line:
+                    counts[name][op] += 1
+    if not counts or any(n == 0 for c in counts.values() for n in c.values()):
+        raise AssertionError(f"the bf16 GEMM's SASS lacks {GEMM_SASS}: {counts}")
+    return counts
+
+
 def phase_build():
     from bridgeqa_tpu_torch.ops import cuda_lib
 
@@ -228,6 +286,43 @@ def phase_build():
     for line in cuda_lib.build_log.splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
+    log("ptxas, the redesigned kernels (bf16 GEMM, ViT attention):")
+    for line in ptxas_lines(cuda_lib.build_log) or ["(library reused: no build log)"]:
+        log(f"  {line}")
+    for fn, c in sass_check(cuda_lib.library_path).items():
+        log(f"SASS {fn}: " + ", ".join(f"{op} x{n}" for op, n in c.items()))
+
+
+def wrapper_host_us(device, loops: int = 3, reps: int = 200) -> dict:
+    """Host time per call of the two redesigned kernels' wrappers, in us:
+    loops of ``reps`` calls at small shapes (the card finishes each call
+    before the host issues the next), median of the loops, host clock
+    around the enqueue only."""
+    from bridgeqa_tpu_torch.ops import scoring_layer as sl
+    from bridgeqa_tpu_torch.ops import vit_block as vb
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    x = torch.randn(256, HIDDEN, generator=gen, device=device).bfloat16()
+    w = torch.randn(HIDDEN, HIDDEN, generator=gen, device=device).bfloat16()
+    b = torch.randn(HIDDEN, generator=gen, device=device)
+    qkv = torch.randn(1, 64, 3 * HIDDEN, generator=gen, device=device).bfloat16()
+    calls = {"scoring_gemm": lambda: sl.scoring_gemm(x, w, b),
+             "vit_attention": lambda: vb.vit_attention(qkv, heads=VIT_HEADS)}
+    out = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(loops):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            times.append((time.perf_counter() - t0) / reps * 1e6)
+            torch.cuda.synchronize()
+        out[name] = statistics.median(times)
+    log("wrapper host time per call (us, median of 3 loops of 200 calls): "
+        + json.dumps({k: round(v, 2) for k, v in out.items()}))
+    return out
 
 
 def stripe_scan_tests(radius: float, nsample: int, xyz, ctr) -> int:
@@ -388,9 +483,9 @@ def phase_scoring_kernels(device, layers: int, reps: int = 10):
         b16 = b.to(bf16)
         check_row(gemm_rows, failures, "scoring_gemm", f"{name}: ({rows_n}, {k}) x ({n}, {k})^T"
                   + (" + GELU" if gelu else ""), one_output(max_err(got, want), want, f32_err),
-                  time_ms(lambda: sl.scoring_gemm(x, w, b, gelu), reps),
-                  time_ms(lambda: sl.scoring_gemm_plain(x, w, b, gelu), 3),
-                  time_ms(lambda: F.linear(x, w, b16), reps), 2.0 * rows_n * n * k,
+                  device_ms(lambda: sl.scoring_gemm(x, w, b, gelu), reps),
+                  device_ms(lambda: sl.scoring_gemm_plain(x, w, b, gelu), 3),
+                  device_ms(lambda: F.linear(x, w, b16), reps), 2.0 * rows_n * n * k,
                   2 * (rows_n * k + n * k + rows_n * n) + 4 * n, PEAK_BF16, per_layer,
                   "library: F.linear, without the GELU" if gelu else "library: F.linear")
         del x, w, got, want, x32, w32
@@ -540,9 +635,9 @@ def phase_vit_kernels(device, kernels: dict, depth: int, reps: int = 10):
                   f"{name}: ({rows_n}, {k}) x ({n}, {k})^T" + (" + GELU" if gelu else "")
                   + (" + residual" if with_res else ""),
                   one_output(max_err(got, want), want, f32_err),
-                  time_ms(lambda: sl.scoring_gemm(x, w, b, gelu, res), reps),
-                  time_ms(lambda: sl.scoring_gemm_plain(x, w, b, gelu, res), 3),
-                  time_ms(lambda: F.linear(x, w, b16), reps), 2.0 * rows_n * n * k,
+                  device_ms(lambda: sl.scoring_gemm(x, w, b, gelu, res), reps),
+                  device_ms(lambda: sl.scoring_gemm_plain(x, w, b, gelu, res), 3),
+                  device_ms(lambda: F.linear(x, w, b16), reps), 2.0 * rows_n * n * k,
                   2 * (rows_n * k + n * k + rows_n * n * (2 if with_res else 1)) + 4 * n,
                   PEAK_BF16, depth,
                   "library: F.linear" + (", without the GELU" if gelu else "")
@@ -1046,6 +1141,25 @@ def phase_main_path(device, reps: int = 5):
     return launches
 
 
+def report_ratios(kernels: dict) -> None:
+    """Each product's time over ``F.linear``'s, and the per-forward sums of
+    both (decoder and ViT shapes, each shape's ms times its calls); the ViT
+    attention's time over ``scaled_dot_product_attention``'s."""
+    rows = kernels["scoring_gemm"]["rows"]
+    for r in rows:
+        log(f"scoring_gemm {r['shape']}: {r['ms']:.4f} ms, F.linear {r['library_ms']:.4f} ms, "
+            f"ratio {r['ms'] / r['library_ms']:.2f}")
+    for part, keep in (("decoder", lambda r: not r["shape"].startswith("vit")),
+                       ("vit", lambda r: r["shape"].startswith("vit")), ("all", lambda r: True)):
+        ms = sum(r["ms"] * r["calls"] for r in rows if keep(r))
+        lib = sum(r["library_ms"] * r["calls"] for r in rows if keep(r))
+        log(f"scoring_gemm per forward, {part} shapes: {ms:.3f} ms, F.linear {lib:.3f} ms, "
+            f"ratio {ms / lib:.2f}")
+    for r in kernels["vit_attention"]["rows"]:
+        log(f"vit_attention {r['shape']}: {r['ms']:.4f} ms, scaled_dot_product_attention "
+            f"{r['library_ms']:.4f} ms, ratio {r['ms'] / r['library_ms']:.2f}")
+
+
 def summarize(kernel, launches: int) -> dict:
     """One kernel's record of the kernels line: its times and bound over
     the calls of one forward (each shape's median times its ``calls``), or
@@ -1073,6 +1187,8 @@ def main() -> int:
     cfg = main_config()
     kernels = phase_kernels(device) + phase_scoring_kernels(device, decoder_layers(cfg))
     kernels += phase_vit_kernels(device, {k["name"]: k for k in kernels}, vit_depth(cfg))
+    report_ratios({k["name"]: k for k in kernels})
+    wrapper_host_us(device)
     phase_decoder_pass(device)
     phase_vit_pass(device)
     phase_reference(device)

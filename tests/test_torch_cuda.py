@@ -17,9 +17,14 @@ machine does not have; this file imports none.) On the edge cases
   keys, all but one key masked, and attention shapes that take the
   tensor-core kernel (bf16, head width 64) and the CUDA-core one;
 - the ViT kernels likewise: the GEMM's residual epilogue, LayerNorm without
-  a residual and keeping the sum, the attention over 1, 17, 64, 65, 901 and
-  1025 tokens (65 and 1025 leave one valid key in the last tile), and a
-  whole block;
+  a residual and keeping the sum, the attention over 1, 17, 64, 65, 833, 901
+  and 1025 tokens (65, 833 and 1025 leave one valid key in the last tile),
+  and a whole block;
+- the bf16 GEMM's TMA edges: M, N and K that are no multiple of the tile or
+  of the 64-wide box, with GELU and with the residual; its GELU against the
+  erf GELU at every |x| up to 6, within two f32 ulp or one bf16 rounding;
+- the bf16 GEMM and ViT attention launched from several host threads at
+  once (ctypes releases the GIL), bit for bit as from one;
 - the row gather must copy bit for bit, with rows that fill no block and
   1, 3, 4 and 131 channels, and refuse indices out of range.
 f32: 1e-3 absolute (both sides accumulate in f32, in another order). bf16
@@ -27,6 +32,8 @@ outputs: 2^-6 of the largest output, about two steps of bf16 (both round
 once from f32, and a sum taken in another order can flip a rounding, or the
 rounding of an exp or a softmax weight before the product with V).
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -241,6 +248,76 @@ def test_scoring_gemm_residual_matches_plain(card, dtype, m, n, k, gelu):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("epilogue", ["gelu", "residual"])
+@pytest.mark.parametrize("m,n,k", [(7208, 136, 8), (1000, 8, 776), (5, 200, 72),
+                                   (7208, 2304, 776), (1000, 3072, 72)])
+def test_scoring_gemm_tma_edges(card, dtype, epilogue, m, n, k):
+    """The bf16 kernel's TMA boxes past the edges: M no multiple of the
+    128-row tile, N no multiple of 256 (or of the 128-wide tile, or of the
+    64-wide store box), K no multiple of the 64-wide load box."""
+    rng = np.random.RandomState(m + 3 * n + 7 * k)
+    x = _randn(rng, m, k, dtype=dtype, device=card)
+    w = _randn(rng, n, k, scale=0.05, dtype=dtype, device=card)
+    b = _randn(rng, n, scale=0.5, device=card)
+    gelu = epilogue == "gelu"
+    res = None if gelu else _randn(rng, m, n, scale=2.0, dtype=dtype, device=card)
+    got = _counted("scoring_gemm", lambda: scoring_layer.scoring_gemm(x, w, b, gelu, res))
+    _assert_close(got, scoring_layer.scoring_gemm_plain(x, w, b, gelu, res), f"gemm, {epilogue}")
+    if res is not None:
+        _assert_close(got - res, scoring_layer.scoring_gemm_plain(x, w, b), "residual dropped")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_scoring_gemm_gelu_is_exact(card, dtype):
+    """The epilogue's GELU (a branch-free erf) at every |x| up to 6, taken
+    through an identity product so that the sum is exact: within 2 f32 ulp
+    of the erf GELU in f32 (erf's error times |x| / 2 where erf nears -1),
+    within one bf16 rounding in bf16."""
+    x = torch.linspace(-6.0, 6.0, 4096 * 8, dtype=torch.float64).reshape(4096, 8).to(dtype)
+    w = torch.eye(8, dtype=dtype)
+    b = torch.zeros(8)
+    got = _counted("scoring_gemm", lambda: scoring_layer.scoring_gemm(
+        x.to(card), w.to(card), b.to(card), True)).cpu().double()
+    xd = x.double()
+    want = 0.5 * xd * (1.0 + torch.erf(xd / 2.0**0.5))
+    ulp = 2.0**-23 if dtype == torch.float32 else 2.0**-8
+    tol = 2 * ulp * want.abs() + 2.0**-23 * xd.abs()
+    assert ((got - want).abs() <= tol).all(), float(((got - want).abs() - tol).max())
+
+
+def test_kernels_from_threads(card):
+    """The C entries are called through ctypes, which releases the GIL, so
+    host threads launching at once share the GEMM's tensor-map cache and the
+    per-device shared-memory attribute record. Every thread's results equal,
+    bit for bit, those of the same calls made from one thread."""
+    rng = np.random.RandomState(5)
+    calls = []
+    for m, n, k in [(300, 200, 72), (1000, 768, 776), (5, 136, 8)]:
+        x = _randn(rng, m, k, dtype=torch.bfloat16, device=card)
+        w = _randn(rng, n, k, scale=0.05, dtype=torch.bfloat16, device=card)
+        b = _randn(rng, n, scale=0.1, device=card)
+        calls.append(lambda x=x, w=w, b=b: scoring_layer.scoring_gemm(x, w, b, True))
+    qkv = _randn(rng, 2, 65, 3 * 3 * vit_block.HEAD_DIM, dtype=torch.bfloat16, device=card)
+    calls.append(lambda: vit_block.vit_attention(qkv, heads=3))
+    want = [fn() for fn in calls]
+    got = [[] for _ in calls]
+
+    def run(i):
+        for _ in range(50):
+            got[i].append(calls[i]())
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(calls))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    for i, (ref, outs) in enumerate(zip(want, got)):
+        assert len(outs) == 50, f"call {i}: a thread raised"
+        assert all(torch.equal(o, ref) for o in outs), f"call {i}"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("rows,cols,mode", [(1001, 768, "plain"), (3, 130, "plain"),
                                             (1001, 768, "sum"), (3, 130, "sum")])
 def test_layernorm_vit_modes_match_plain(card, dtype, rows, cols, mode):
@@ -261,7 +338,7 @@ def test_layernorm_vit_modes_match_plain(card, dtype, rows, cols, mode):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n", [1, 17, 64, 65, 901, 1025])
+@pytest.mark.parametrize("n", [1, 17, 64, 65, 833, 901, 1025])
 def test_vit_attention_matches_plain(card, dtype, n):
     rng = np.random.RandomState(n)
     b, heads = 2, 3

@@ -100,6 +100,41 @@ def test_vit_block_plain_matches_pallas(n):
     _close(got, want, f"vit_block, {n} tokens")
 
 
+def test_vit_block_plain_bf16_matches_pallas():
+    """The bf16 block, where the port's deferred softmax normalisation (e
+    rounded before P V) and the TPU kernel's (p = e / sum(e) rounded) round
+    at different points: within 2^-6 of the largest output, the bf16
+    tolerance of the kernels' checks."""
+    rng = np.random.RandomState(21)
+    n, h, mlp = 10, EMBED, 4 * EMBED
+
+    def r(*shape, scale=0.1):
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    x = r(2, n, h, scale=1.0)
+    wqkv, wo, wi, wo2 = r(h, 3 * h), r(h, h), r(h, mlp), r(mlp, h)
+    bqkv, bo, bi, bo2 = r(3 * h), r(h), r(mlp), r(h)
+    (l1s, l1b), (l2s, l2b) = [(1.0 + r(h), r(h)) for _ in range(2)]
+    xp = np.pad(x, ((0, 0), (0, (-n) % 16), (0, 0)))
+
+    def jb(a):
+        return jnp.asarray(a).astype(jnp.bfloat16)
+
+    want = jvb.vit_block(jb(xp), jb(wqkv), bqkv[None], jb(wo), bo[None], l1s[None], l1b[None],
+                         jb(wi), bi[None], jb(wo2), bo2[None], l2s[None], l2b[None], heads=HEADS,
+                         eps=1e-6, valid=n, interpret=True)[:, :n]
+    want = np.asarray(want.astype(jnp.float32))
+
+    def tb(a):
+        return _t(a).bfloat16()
+
+    got = vb.vit_block_plain(tb(x), tb(wqkv.T), _t(bqkv), tb(wo.T), _t(bo), _t(l1s), _t(l1b),
+                             tb(wi.T), _t(bi), tb(wo2.T), _t(bo2), _t(l2s), _t(l2b),
+                             heads=HEADS, eps=1e-6)
+    assert got.dtype == torch.bfloat16
+    _close(got, want, "bf16 vit_block", atol=2.0**-6 * float(np.abs(want).max()))
+
+
 def test_fused_vit_blocks_match_pallas(vit_models):
     """Both blocks, the port reading its ``blocks_{i}`` modules."""
     _, variables, model, _ = vit_models
