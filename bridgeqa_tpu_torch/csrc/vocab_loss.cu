@@ -10,21 +10,31 @@
 // shapes (22528 rows, 30524 words, width 768) is 1.06 TFLOP against ~82 MB
 // that must move: 1.07 ms at 989 TFLOP/s.
 //
-// What the design does about it: a block owns 128 rows and walks a run of
-// 128-word vocabulary tiles; each tile's logits come from the scoring GEMM's
-// main loop (tile_gemm.cuh: mma.sync, cp.async ring) and stay in registers,
-// where every thread folds its 8 columns of each of its 8 rows into a running
-// (max, sum of exp, sum of logits, target logit), the flash-attention
-// rescaling applied to logsumexp. At the end the 16 threads that share a row
-// merge through shared memory. The vocabulary is cut into `splits` runs so
-// that 176 row blocks still fill 132 SMs; a second, O(rows) kernel merges
-// the runs and takes the log.
+// What the design does about it (bf16): the product runs on the Hopper main
+// loop of wgmma_gemm.cuh (TMA loads under the 128-byte swizzle into a
+// 5-stage mbarrier ring, one producer thread, two consumer warpgroups on
+// wgmma.m64n128k16 in ping-pong, a persistent grid of one block per SM), and
+// the epilogue folds each 128 x 128 tile of logits, still in the
+// accumulator registers, into a running (max, sum of exp, sum of logits,
+// target logit) per row: the f32 bias added, the columns at or past `vocab`
+// masked (TMA zero-fills the table's rows past it, so they would count), the
+// flash-attention rescaling applied to logsumexp. A thread owns 4 rows (r,
+// r + 8, r + 64, r + 72 of the tile) and 32 columns of each. The work unit
+// is (128-row panel, run of `per_run` vocabulary tiles, an even number): its
+// tiles alternate between the two consumers, each keeps its rows' stats in
+// registers across its half of the run, and at the run's end merges the four
+// threads of a quad (which share rows) by shuffles and writes one float4
+// partial per row. Units are numbered run-major, so the blocks in flight
+// share one run of the table in L2 and each keeps its own row panel there.
+// The number of runs is chosen so the units fill the card's blocks in whole
+// waves. A second, O(rows) kernel merges the partials and takes the log.
+// The f32 instantiation (the card-vs-CPU reference) runs on tile_gemm.cuh's
+// SIMT tile.
 
 #include "tile_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
-
-using tile::bf16;
 
 constexpr float kNeg = -1e30f;
 
@@ -63,58 +73,133 @@ __device__ __forceinline__ void fold(Stat& a, const float (&v)[N], const int (&c
   a.m = m;
 }
 
-using Tile = tile::ScoringTile;
+// Fold the 32 logits of one row that a consumer thread holds in a wgmma
+// accumulator, d[4 c + OFF + q] at column cb + 8 c + q (c < 16, q < 2; OFF 0
+// for the row r, 2 for r + 8), into its stat; MASK: some columns may be at
+// or past `vocab`.
+template <int OFF, bool MASK>
+__device__ __forceinline__ void fold_row(Stat& a, const float (&d)[64], int cb, int vocab,
+                                         int label) {
+  float tmax = kNeg;
+#pragma unroll
+  for (int c = 0; c < 16; ++c)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      if (!MASK || cb + 8 * c + q < vocab) tmax = fmaxf(tmax, d[4 * c + OFF + q]);
+  const float m = fmaxf(a.m, tmax);
+  float s = a.s * expf(a.m - m), sum = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 16; ++c)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      if (!MASK || cb + 8 * c + q < vocab) {
+        s += expf(d[4 * c + OFF + q] - m);
+        sum += d[4 * c + OFF + q];
+      }
+  // the label's column, counted from this thread's first: 8 c + q when
+  // this thread holds it
+  const int t = label - cb;
+  if (t >= 0 && t < 128 && (t & 6) == 0) {
+#pragma unroll
+    for (int c = 0; c < 16; ++c)
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        if (t == 8 * c + q) a.tgt += d[4 * c + OFF + q];
+  }
+  a.m = m;
+  a.s = s;
+  a.sum += sum;
+}
 
-__global__ void __launch_bounds__(Tile::THREADS)
-vocab_bf16_kernel(const bf16* __restrict__ h, const bf16* __restrict__ table,
-                  const float* __restrict__ bias, const int* __restrict__ labels,
-                  float4* __restrict__ partial, int rows, int vocab, int hdim,
-                  int tiles_per_split) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kRows = Tile::MT * 2, kCols = Tile::NT * 2;  // a thread's rows and columns
-  const int row0 = blockIdx.x * Tile::BM;
-  const int vtiles = (vocab + Tile::BN - 1) / Tile::BN;
-  const int vt0 = blockIdx.y * tiles_per_split;
-  const int vt1 = min(vt0 + tiles_per_split, vtiles);
-  Stat st[kRows];
-  int lab[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = row0 + Tile::row(i / 2, i % 2);
-    st[i] = stat_init();
-    lab[i] = row < rows ? labels[row] : -1;
+// h (rows, hdim) and the table (vocab, hdim) through their TMA maps; the
+// vocabulary cut into runs of per_run tiles (even); partial (2 runs, rows)
+// float4: consumer c's stats of run u at [2 u + c].
+__global__ void __launch_bounds__(wg::Config::THREADS, 1)
+vocab_wgmma_kernel(const __grid_constant__ CUtensorMap map_h,
+                   const __grid_constant__ CUtensorMap map_t, const float* __restrict__ bias,
+                   const int* __restrict__ labels, float4* __restrict__ partial, int rows,
+                   int vocab, int hdim, int runs, int per_run) {
+  using C = wg::Config;
+  extern __shared__ unsigned char smem_raw[];
+  const wg::Ring ring = wg::setup(smem_raw);
+  const int panels = (rows + C::BM - 1) / C::BM;
+  const int grid = gridDim.x;
+  const int count = (panels * runs - blockIdx.x + grid - 1) / grid * per_run;  // the block's tiles
+  const int ktiles = (hdim + C::BK - 1) / C::BK;
+  // the block's j-th tile: tile j % per_run of its unit blockIdx.x + (j /
+  // per_run) grid, unit u being (run u / panels, panel u % panels)
+  auto unit_of = [&](int j) { return blockIdx.x + j / per_run * grid; };
+  auto tile_at = [&](int j) {
+    const int u = unit_of(j);
+    return make_int2(u % panels * C::BM, (u / panels * per_run + j % per_run) * C::BN);
+  };
+
+  if (threadIdx.x / 128 == 0) {
+    wg::produce(ring, &map_h, &map_t, count, ktiles, tile_at);
+    return;
   }
-  for (int vt = vt0; vt < vt1; ++vt) {
-    const int col0 = vt * Tile::BN;
-    float acc[Tile::MT][Tile::NT][4];
-    tile::mma_tile<Tile>(h, table, rows, vocab, hdim, row0, col0,
-                         reinterpret_cast<bf16*>(smem_raw), acc);
-    int col[kCols];
-    float b[kCols];
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int me = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int r = warp * 16 + lane / 4;  // this thread's rows: r, r + 8, r + 64, r + 72
+  float lo[64], hi[64];                // rows 0-63 and 64-127 of the tile
+  Stat st[4];
+  int lab[4];
+  for (int j = me; j < count; j += 2) {
+    const int2 tile = tile_at(j);
+    const int row0 = tile.x, col0 = tile.y, t = j % per_run;
+    if (t < 2) {  // this consumer's first tile of the unit
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      col[j] = col0 + Tile::col(j / 2, j % 2);
-      b[j] = col[j] < vocab ? bias[col[j]] : 0.0f;
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + r + (i % 2) * 8 + (i / 2) * 64;
+        lab[i] = row < rows ? labels[row] : -1;
+        st[i] = stat_init();
+      }
     }
+    wg::mainloop(ring, j, count, ktiles, me, lo, hi);
+    if (col0 < vocab) {  // else the tile lies wholly past the vocabulary
+      const int cb = col0 + (lane % 4) * 2;  // this thread's columns: cb + 8 c + q
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      float v[kCols];
+      for (int c = 0; c < C::BN / 8; ++c) {
+        const int col = cb + 8 * c;
+        const float b0 = col < vocab ? __ldg(bias + col) : 0.0f;
+        const float b1 = col + 1 < vocab ? __ldg(bias + col + 1) : 0.0f;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) v[j] = acc[i / 2][j / 2][2 * (i % 2) + j % 2] + b[j];
-      fold(st[i], v, col, vocab, lab[i]);
+        for (int q = 0; q < 4; ++q) {
+          lo[4 * c + q] += q % 2 ? b1 : b0;
+          hi[4 * c + q] += q % 2 ? b1 : b0;
+        }
+      }
+      if (col0 + C::BN <= vocab) {
+        fold_row<0, false>(st[0], lo, cb, vocab, lab[0]);
+        fold_row<2, false>(st[1], lo, cb, vocab, lab[1]);
+        fold_row<0, false>(st[2], hi, cb, vocab, lab[2]);
+        fold_row<2, false>(st[3], hi, cb, vocab, lab[3]);
+      } else {
+        fold_row<0, true>(st[0], lo, cb, vocab, lab[0]);
+        fold_row<2, true>(st[1], lo, cb, vocab, lab[1]);
+        fold_row<0, true>(st[2], hi, cb, vocab, lab[2]);
+        fold_row<2, true>(st[3], hi, cb, vocab, lab[3]);
+      }
     }
-  }
-  // the tile loop ended on a barrier: shared memory is free for the merge
-  Stat* red = reinterpret_cast<Stat*>(smem_raw);  // [BM][column groups]
+    if (t + 2 >= per_run) {  // this consumer's last tile of the unit
+      const int run = unit_of(j) / panels;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
-    red[Tile::row(i / 2, i % 2) * Tile::COL_GROUPS + Tile::col_group()] = st[i];
-  __syncthreads();
-  if (threadIdx.x < Tile::BM && row0 + static_cast<int>(threadIdx.x) < rows) {
-    Stat a = red[threadIdx.x * Tile::COL_GROUPS];
-    for (int g = 1; g < Tile::COL_GROUPS; ++g) merge(a, red[threadIdx.x * Tile::COL_GROUPS + g]);
-    partial[static_cast<size_t>(blockIdx.y) * rows + row0 + threadIdx.x] =
-        make_float4(a.m, a.s, a.sum, a.tgt);
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {  // the quad shares the row
+          const Stat o{__shfl_xor_sync(0xffffffffu, st[i].m, off),
+                       __shfl_xor_sync(0xffffffffu, st[i].s, off),
+                       __shfl_xor_sync(0xffffffffu, st[i].sum, off),
+                       __shfl_xor_sync(0xffffffffu, st[i].tgt, off)};
+          merge(st[i], o);
+        }
+        const int row = row0 + r + (i % 2) * 8 + (i / 2) * 64;
+        if (lane % 4 == 0 && row < rows)
+          partial[static_cast<size_t>(2 * run + me) * rows + row] =
+              make_float4(st[i].m, st[i].s, st[i].sum, st[i].tgt);
+      }
+    }
   }
 }
 
@@ -187,27 +272,38 @@ __global__ void vocab_merge_kernel(const float4* __restrict__ partial, float* __
 
 }  // namespace
 
-// h (rows, hdim), table (vocab, hdim): bf16 (dtype 1, hdim % 8 == 0) or f32
-// (dtype 0); bias (vocab,) f32; labels (rows,) i32; partial (splits, rows, 4)
-// f32 scratch; lse, sumlog, tgt (rows,) f32. The vocabulary tiles (128 words
-// for bf16, 64 for f32) are cut into `splits` runs of `tiles_per_split`.
-// Returns cudaGetLastError() after the two launches.
+// h (rows, hdim), table (vocab, hdim): bf16 (dtype 1: hdim % 8 == 0, h and
+// table 16-byte aligned) or f32 (dtype 0); bias (vocab,) f32; labels (rows,)
+// i32; lse, sumlog, tgt (rows,) f32. The vocabulary tiles (128 words for
+// bf16, 64 for f32) are cut into `splits` runs of `tiles_per_split` (even
+// for bf16); partial is f32 scratch of (parts, rows, 4), parts = 2 splits
+// for bf16 (one per run and consumer) and splits for f32. Returns
+// cudaGetLastError() after the two launches.
 extern "C" int bq_vocab_reductions(const void* h, const void* table, const float* bias,
                                    const int* labels, float* partial, float* lse, float* sumlog,
                                    float* tgt, int rows, int vocab, int hdim, int splits,
                                    int tiles_per_split, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float4* part = reinterpret_cast<float4*>(partial);
+  int parts = splits;
   if (dtype == 1) {
-    if (hdim % 8) return static_cast<int>(cudaErrorInvalidValue);
-    // the attribute is per device: set it before every launch
-    const cudaError_t err = cudaFuncSetAttribute(
-        vocab_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::SMEM_BYTES);
+    using C = wg::Config;
+    if (hdim % 8 || tiles_per_split % 2 ||
+        (reinterpret_cast<size_t>(h) | reinterpret_cast<size_t>(table)) % 16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = set_smem_once(reinterpret_cast<const void*>(vocab_wgmma_kernel),
+                                    C::SMEM_BYTES);
+    int dev = 0, sms = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    CUtensorMap map_h, map_t;
+    if (err == cudaSuccess) err = wg::make_map(&map_h, h, rows, hdim, C::BM);
+    if (err == cudaSuccess) err = wg::make_map(&map_t, table, vocab, hdim, C::BN);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((rows + Tile::BM - 1) / Tile::BM, splits);
-    vocab_bf16_kernel<<<grid, Tile::THREADS, Tile::SMEM_BYTES, s>>>(
-        static_cast<const bf16*>(h), static_cast<const bf16*>(table), bias, labels, part, rows,
-        vocab, hdim, tiles_per_split);
+    const int units = (rows + C::BM - 1) / C::BM * splits;
+    vocab_wgmma_kernel<<<units < sms ? units : sms, C::THREADS, C::SMEM_BYTES, s>>>(
+        map_h, map_t, bias, labels, part, rows, vocab, hdim, splits, tiles_per_split);
+    parts = 2 * splits;
   } else {
     const dim3 grid((rows + tile::kSimtBM - 1) / tile::kSimtBM, splits);
     vocab_f32_kernel<<<grid, tile::kSimtThreads, 0, s>>>(
@@ -216,6 +312,6 @@ extern "C" int bq_vocab_reductions(const void* h, const void* table, const float
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  vocab_merge_kernel<<<(rows + 255) / 256, 256, 0, s>>>(part, lse, sumlog, tgt, rows, splits);
+  vocab_merge_kernel<<<(rows + 255) / 256, 256, 0, s>>>(part, lse, sumlog, tgt, rows, parts);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,8 @@
 // A Hopper GEMM main loop: Y = epilogue(X * W^T), X (M, K) and W (N, K)
 // bf16, row-major, K contiguous in both (W is an nn.Linear weight), f32
-// accumulators in registers. The scoring GEMM (scoring_gemm.cu) runs on it.
+// accumulators in registers. The scoring GEMM (scoring_gemm.cu, the kernel
+// below) runs on it, and so does the vocabulary pass (vocab_loss.cu), which
+// shares setup(), produce() and mainloop() and has its own epilogue.
 //
 // Shape of the kernel (sm_90a only: wgmma and setmaxnreg need the "a"):
 // - TMA loads. One CUtensorMap each for X and W (cuTensorMapEncodeTiled,
@@ -242,6 +244,129 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// ----------------------------------------------------------------- main loop
+//
+// What every kernel on this main loop shares: the ring in shared memory, the
+// producer, and each consumer's products of one output tile. A kernel calls
+// setup() with all its threads, then produce() in warpgroup 0 and, in each
+// consumer warpgroup, mainloop() for each of its tiles before its own
+// epilogue.
+
+// The dynamic shared memory: the ring's stages (1024-aligned, the swizzle's
+// period), each consumer's output tile, then the barriers: full[s],
+// empty[s] and one per consumer for a residual tile.
+struct Ring {
+  uint32_t tiles, out, bars;
+  __device__ __forceinline__ uint32_t stage(int s) const { return tiles + s * Config::STAGE_BYTES; }
+  __device__ __forceinline__ uint32_t full(int s) const { return bars + 8u * s; }
+  __device__ __forceinline__ uint32_t empty(int s) const { return bars + 8u * (Config::STAGES + s); }
+  __device__ __forceinline__ uint32_t residual(int c) const {
+    return bars + 8u * (2 * Config::STAGES + c);
+  }
+};
+
+// Lay out the ring in `smem_raw` and initialise its barriers; every thread
+// of the block calls it (it ends on a block barrier).
+__device__ __forceinline__ Ring setup(unsigned char* smem_raw) {
+  using C = Config;
+  Ring ring;
+  ring.tiles = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  ring.out = ring.tiles + C::STAGES * C::STAGE_BYTES;
+  ring.bars = ring.out + 2 * C::OUT_BYTES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(ring.full(s), 1);
+      mbar_init(ring.empty(s), C::CONSUMER_WARPS);
+    }
+    mbar_init(ring.residual(0), 1);
+    mbar_init(ring.residual(1), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return ring;
+}
+
+// The producer, warpgroup 0, which gives up its registers: one thread issues
+// every load, for the block's `count` tiles in the order the consumers take
+// them, the j-th tile's X rows and W rows starting at at(j) = (row0, col0),
+// `ktiles` steps of BK each.
+template <class At>
+__device__ __forceinline__ void produce(const Ring& ring, const CUtensorMap* map_x,
+                                        const CUtensorMap* map_w, int count, int ktiles, At at) {
+  using C = Config;
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+  if (threadIdx.x != 0) return;
+  tma_prefetch(map_x);
+  tma_prefetch(map_w);
+  int stage = 0, phase = 0;
+  for (int j = 0; j < count; ++j) {
+    const int2 tile = at(j);
+    for (int kt = 0; kt < ktiles; ++kt) {
+      mbar_wait(ring.empty(stage), phase ^ 1);
+      mbar_expect_tx(ring.full(stage), C::STAGE_BYTES);
+      const uint32_t a = ring.stage(stage);
+      tma_load_2d(a, map_x, ring.full(stage), kt * C::BK, tile.x);
+      tma_load_2d(a + C::A_BYTES, map_w, ring.full(stage), kt * C::BK, tile.y);
+      if (++stage == C::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
+// The products of the block's j-th tile (of `count`) in consumer `me`:
+// consumer 0 (warpgroup 1) takes the block's tiles 0, 2, 4, ..., consumer 1
+// tiles 1, 3, 5, .... Returns lo, hi = rows 0-63 and 64-127 of the tile's
+// X * W^T. The k-th step of tile j sits in stage (j * ktiles + k) % STAGES,
+// in that stage's round (j * ktiles + k) / STAGES. Barrier 1 passes the main
+// loop from consumer 0 to 1, barrier 2 back, so a consumer never waits on a
+// stage more than one round ahead of the ring (a barrier's parity cannot
+// tell rounds two apart); the other consumer's main loop starts as soon as
+// this one's products are issued, and runs during this one's epilogue.
+__device__ __forceinline__ void mainloop(const Ring& ring, int j, int count, int ktiles, int me,
+                                         float (&lo)[64], float (&hi)[64]) {
+  using C = Config;
+  const int lane = threadIdx.x % 32;
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(ring.empty(s));
+  };
+  if (j > 0) consumers_sync(me == 0 ? 2 : 1);  // the other's main loop is issued
+  int held = 0;
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int step = j * ktiles + kt;
+    const int stage = step % C::STAGES;
+    mbar_wait(ring.full(stage), (step / C::STAGES) & 1);
+    const uint32_t a = ring.stage(stage);
+    const uint32_t b = a + C::A_BYTES;
+    fence_operands(lo);
+    fence_operands(hi);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::BK / 16; ++kk) {
+      const uint64_t db = desc_sw128(b + kk * 32);
+      wgmma_m64n128k16(lo, desc_sw128(a + kk * 32), db, kt > 0 || kk > 0);
+      wgmma_m64n128k16(hi, desc_sw128(a + 64 * 128 + kk * 32), db, kt > 0 || kk > 0);
+    }
+    wgmma_commit();
+    fence_operands(lo);
+    fence_operands(hi);
+    if (kt > 0) {  // the products of step kt - 1 are done: free their stage
+      wgmma_wait<1>();
+      fence_operands(lo);
+      fence_operands(hi);
+      release(held);
+    }
+    held = stage;
+  }
+  if (j + 1 < count) consumers_arrive(me == 0 ? 1 : 2);  // the other may start
+  wgmma_wait<0>();
+  fence_operands(lo);
+  fence_operands(hi);
+  release(held);
+}
+
 // -------------------------------------------------------------------- kernel
 
 template <bool GELU, bool RESIDUAL>
@@ -251,114 +376,39 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ C
             const float* __restrict__ bias, int m, int n, int k) {
   using C = Config;
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t tiles_at = (raw + 1023u) & ~1023u;
-  const uint32_t out_at = tiles_at + C::STAGES * C::STAGE_BYTES;  // the consumers' output tiles
-  const uint32_t full_at = out_at + 2 * C::OUT_BYTES;  // full[s], empty[s], residual[consumer]
-  auto full = [&](int s) { return full_at + 8u * s; };
-  auto empty = [&](int s) { return full_at + 8u * (C::STAGES + s); };
-  auto residual = [&](int c) { return full_at + 8u * (2 * C::STAGES + c); };
+  const Ring ring = setup(smem_raw);
   const int ntiles = (n + C::BN - 1) / C::BN;
   const int tiles = (m + C::BM - 1) / C::BM * ntiles;
   const int ktiles = (k + C::BK - 1) / C::BK;
-  const int warpgroup = threadIdx.x / 128;
+  const int grid = gridDim.x, mine = (tiles - blockIdx.x + grid - 1) / grid;  // the block's tiles
+  // the block's j-th tile walks the output tiles row-major (N fastest)
+  auto tile_at = [&](int j) {
+    const int tile = blockIdx.x + j * grid;
+    return make_int2(tile / ntiles * C::BM, tile % ntiles * C::BN);
+  };
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < C::STAGES; ++s) {
-      mbar_init(full(s), 1);
-      mbar_init(empty(s), C::CONSUMER_WARPS);
-    }
-    mbar_init(residual(0), 1);
-    mbar_init(residual(1), 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (warpgroup == 0) {
-    // producer: one thread issues every load, in the order the consumers
-    // take the block's tiles
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (threadIdx.x == 0) {
-      tma_prefetch(&map_x);
-      tma_prefetch(&map_w);
-      int stage = 0, phase = 0;
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int row0 = tile / ntiles * C::BM, col0 = tile % ntiles * C::BN;
-        for (int kt = 0; kt < ktiles; ++kt) {
-          mbar_wait(empty(stage), phase ^ 1);
-          mbar_expect_tx(full(stage), C::STAGE_BYTES);
-          const uint32_t a = tiles_at + stage * C::STAGE_BYTES;
-          tma_load_2d(a, &map_x, full(stage), kt * C::BK, row0);
-          tma_load_2d(a + C::A_BYTES, &map_w, full(stage), kt * C::BK, col0);
-          if (++stage == C::STAGES) {
-            stage = 0;
-            phase ^= 1;
-          }
-        }
-      }
-    }
+  if (threadIdx.x / 128 == 0) {
+    produce(ring, &map_x, &map_w, mine, ktiles, tile_at);
   } else {
-    // consumers: warpgroup 1 takes the block's tiles 0, 2, 4, ..., warpgroup
-    // 2 tiles 1, 3, 5, ...; the k-th step of the block's j-th tile sits in
-    // stage (j * ktiles + k) % STAGES, in that stage's round
-    // (j * ktiles + k) / STAGES. Barrier 1 passes the main loop from
-    // warpgroup 1 to 2, barrier 2 back.
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    const int me = warpgroup - 1;
+    const int me = threadIdx.x / 128 - 1;
     const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-    const int grid = gridDim.x, mine = (tiles - blockIdx.x + grid - 1) / grid;  // the block's tiles
     float lo[64], hi[64];  // rows 0-63 and 64-127 of the tile
-    const uint32_t out = out_at + me * C::OUT_BYTES;
-    auto release = [&](int s) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty(s));
-    };
+    const uint32_t out = ring.out + me * C::OUT_BYTES;
     for (int j = me; j < mine; j += 2) {
-      const int tile = blockIdx.x + j * grid;
-      const int row0 = tile / ntiles * C::BM, col0 = tile % ntiles * C::BN;
+      const int2 tile = tile_at(j);
+      const int row0 = tile.x, col0 = tile.y;
       const bool lead = threadIdx.x % 128 == 0;
       const bool right = col0 + 64 < n;  // the tile's second 64 columns hold some of N
       if (lead) {
         bulk_wait_read();  // this consumer's last stores have read its buffer
         if (RESIDUAL) {
-          mbar_expect_tx(residual(me), right ? C::OUT_BYTES : C::OUT_BYTES / 2);
-          tma_load_2d(out, &map_r, residual(me), col0, row0);
-          if (right) tma_load_2d(out + C::BM * 128, &map_r, residual(me), col0 + 64, row0);
+          mbar_expect_tx(ring.residual(me), right ? C::OUT_BYTES : C::OUT_BYTES / 2);
+          tma_load_2d(out, &map_r, ring.residual(me), col0, row0);
+          if (right) tma_load_2d(out + C::BM * 128, &map_r, ring.residual(me), col0 + 64, row0);
         }
       }
-      if (j > 0) consumers_sync(me == 0 ? 2 : 1);  // the other's main loop is issued
-      int held = 0;
-      for (int kt = 0; kt < ktiles; ++kt) {
-        const int step = j * ktiles + kt;
-        const int stage = step % C::STAGES;
-        mbar_wait(full(stage), (step / C::STAGES) & 1);
-        const uint32_t a = tiles_at + stage * C::STAGE_BYTES;
-        const uint32_t b = a + C::A_BYTES;
-        fence_operands(lo);
-        fence_operands(hi);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < C::BK / 16; ++kk) {
-          const uint64_t db = desc_sw128(b + kk * 32);
-          wgmma_m64n128k16(lo, desc_sw128(a + kk * 32), db, kt > 0 || kk > 0);
-          wgmma_m64n128k16(hi, desc_sw128(a + 64 * 128 + kk * 32), db, kt > 0 || kk > 0);
-        }
-        wgmma_commit();
-        fence_operands(lo);
-        fence_operands(hi);
-        if (kt > 0) {  // the products of step kt - 1 are done: free their stage
-          wgmma_wait<1>();
-          fence_operands(lo);
-          fence_operands(hi);
-          release(held);
-        }
-        held = stage;
-      }
-      if (j + 1 < mine) consumers_arrive(me == 0 ? 1 : 2);  // the other may start
-      wgmma_wait<0>();
-      fence_operands(lo);
-      fence_operands(hi);
-      release(held);
+      mainloop(ring, j, mine, ktiles, me, lo, hi);
 
       // the epilogue, first in place on the accumulators: the bias (thread
       // column pairs col0 + 8 c + 2 (lane % 4), + 1), then the activation
@@ -382,7 +432,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ C
       // hit 8 different chunks). Rows and columns past M and N compute
       // values that the TMA stores clip.
       warpgroup_sync(3 + me);  // the buffer is free
-      if (RESIDUAL) mbar_wait(residual(me), (j / 2) & 1);
+      if (RESIDUAL) mbar_wait(ring.residual(me), (j / 2) & 1);
       const int r = warp * 16 + lane / 4;  // r % 8 == lane / 4, for r + 8, + 64, + 72 too
 #pragma unroll
       for (int c = 0; c < C::BN / 8; ++c) {

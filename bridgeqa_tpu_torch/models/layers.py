@@ -2,12 +2,15 @@
 ``bridgeqa_tpu/models/layers.py`` plus the flax layers the JAX package uses).
 
 Every layer keeps its parameters under the flax names' counterparts
-(``convert.py`` maps flax ``kernel`` to ``weight`` and so on) and runs in
-the dtype of its weights: ``set_compute_dtype`` casts the matrix weights
-(``Dense``, ``Embed``, ``PatchEmbed``) to the compute dtype and leaves every
-other parameter in f32. Biases stay f32 parameters, as flax keeps them: the
-module path adds a compute-dtype copy made once by ``set_compute_dtype``
-(flax casts at each call), and the fused paths read the f32 parameter.
+(``convert.py`` maps flax ``kernel`` to ``weight`` and so on), in f32, as
+flax keeps them. ``set_compute_dtype`` gives each ``Dense``, ``Embed`` and
+``PatchEmbed`` a compute dtype: it makes compute-dtype copies of the weight
+and the bias once (``weight_cast``, ``bias_cast``, non-persistent buffers),
+and these layers run in that dtype. Without grad the products read the
+copies, so no call adds a cast; under grad they cast the f32 parameters
+inside the graph (flax casts at each call), so the gradients reach them
+(``param_as``). The fused paths run only without grad and read the copies
+of the weights and the f32 biases.
 ``init_weights`` fills every parameter from a ``torch.Generator`` with the
 JAX package's initialisers. Inference only: no dropout, no batch statistics
 updates.
@@ -29,7 +32,7 @@ def _trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> N
 
 class Dense(nn.Linear):
     """``flax.linen.Dense``: ``weight`` is the transposed flax ``kernel``;
-    the input is cast to the weight's dtype. ``init`` names the flax
+    the input is cast to its compute dtype. ``init`` names the flax
     ``kernel_init``: "normal" (std 0.02), "trunc_normal" (std 0.02),
     "kaiming" (fan-in normal, gain 2) or "lecun" (fan-in truncated normal)."""
 
@@ -37,12 +40,12 @@ class Dense(nn.Linear):
                  init: str = "normal"):
         super().__init__(in_features, out_features, bias=bias)
         self.init = init
-        # the bias in the compute dtype (``set_compute_dtype``), None while it
-        # is the weight's dtype
-        self.register_buffer("bias_cast", None, persistent=False)
+        _register_casts(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, _call_bias(self))
+        dt = compute_dtype(self)
+        bias = None if self.bias is None else param_as(self, "bias", dt)
+        return F.linear(x.to(dt), param_as(self, "weight", dt), bias)
 
     @torch.no_grad()
     def init_weights_(self, generator: torch.Generator) -> None:
@@ -67,13 +70,15 @@ class Embed(nn.Module):
     def __init__(self, num_embeddings: int, features: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(num_embeddings, features))
+        _register_casts(self)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.weight)
+        return F.embedding(ids, param_as(self, "weight", compute_dtype(self)))
 
     def attend(self, query: torch.Tensor) -> torch.Tensor:
         """Logits against the table (the tied LM head)."""
-        return query.to(self.weight.dtype) @ self.weight.T
+        table = param_as(self, "weight", compute_dtype(self))
+        return query.to(table.dtype) @ table.T
 
     @torch.no_grad()
     def init_weights_(self, generator: torch.Generator) -> None:
@@ -167,25 +172,47 @@ def add_indexed(parent: nn.Module, prefix: str, modules) -> list:
     return modules
 
 
-def _call_bias(m: nn.Module):
-    """The bias a module-path product adds: the compute-dtype copy where
-    ``set_compute_dtype`` made one, else the parameter."""
-    return m.bias if m.bias_cast is None else m.bias_cast
+def _register_casts(m: nn.Module) -> None:
+    # the weight and the bias in the compute dtype (``set_compute_dtype``),
+    # None while it is the parameters' dtype
+    m.register_buffer("weight_cast", None, persistent=False)
+    m.register_buffer("bias_cast", None, persistent=False)
+
+
+def compute_dtype(m: nn.Module) -> torch.dtype:
+    """The dtype a ``Dense``, ``Embed`` or ``PatchEmbed`` computes in: the
+    one ``set_compute_dtype`` gave it, else its parameters'."""
+    return m.weight.dtype if m.weight_cast is None else m.weight_cast.dtype
+
+
+def param_as(m: nn.Module, name: str, dtype: torch.dtype) -> torch.Tensor:
+    """Parameter ``name`` ("weight" or "bias") of ``m`` in ``dtype``, as a
+    product reads it. Without grad, the copy ``set_compute_dtype`` made
+    where it has that dtype, so the call adds no cast; under grad, the
+    parameter cast inside the graph, so its gradient reaches the f32
+    parameter."""
+    cast = getattr(m, f"{name}_cast")
+    if cast is not None and cast.dtype == dtype and not torch.is_grad_enabled():
+        return cast
+    return getattr(m, name).to(dtype)
 
 
 def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast the matrix weights to the compute dtype. Biases, norms, BN
-    statistics and free parameters stay f32; each ``Dense`` and
-    ``PatchEmbed`` keeps a copy of its bias in the compute dtype for the
-    module path, made here once so that no call adds a cast. Run it after the
-    weights are loaded or drawn: a later change of a bias does not reach the
-    copy."""
+    """Give every ``Dense``, ``Embed`` and ``PatchEmbed`` of ``model`` the
+    compute dtype ``dtype``. Every parameter stays as it is, in f32 as flax
+    keeps them; the weight and bias of those layers get compute-dtype copies,
+    made here once (non-persistent buffers: the ``state_dict`` and
+    ``convert.load_jax_variables`` see the f32 parameters). Without grad the
+    products read the copies; under grad they cast the parameters in the
+    graph. The copies are made now: after the weights are loaded, drawn or
+    changed by an optimizer step they are stale until this runs again."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (Dense, Embed, PatchEmbed)):
-                m.weight.data = m.weight.data.to(dtype)
-            if isinstance(m, (Dense, PatchEmbed)) and m.bias is not None:
-                m.bias_cast = None if dtype == m.bias.dtype else m.bias.detach().to(dtype)
+                for name in ("weight", "bias"):
+                    p = getattr(m, name, None)
+                    cast = None if p is None or dtype == p.dtype else p.detach().to(dtype)
+                    setattr(m, f"{name}_cast", cast)
     return model
 
 
@@ -214,15 +241,17 @@ class PatchEmbed(nn.Module):
         self.patch = patch
         self.weight = nn.Parameter(torch.empty(embed_dim, in_chans, patch, patch))
         self.bias = nn.Parameter(torch.zeros(embed_dim))
-        self.register_buffer("bias_cast", None, persistent=False)  # as ``Dense``'s
+        _register_casts(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, H, W, C) -> (B, H/p * W/p, embed_dim), patches row-major."""
         b, h, w, c = x.shape
         p = self.patch
-        x = x.to(self.weight.dtype).reshape(b, h // p, p, w // p, p, c)
+        dt = compute_dtype(self)
+        x = x.to(dt).reshape(b, h // p, p, w // p, p, c)
         x = x.permute(0, 1, 3, 5, 2, 4).reshape(b, (h // p) * (w // p), c * p * p)
-        return F.linear(x, self.weight.reshape(self.weight.shape[0], -1), _call_bias(self))
+        weight = param_as(self, "weight", dt)
+        return F.linear(x, weight.reshape(weight.shape[0], -1), param_as(self, "bias", dt))
 
     @torch.no_grad()
     def init_weights_(self, generator: torch.Generator) -> None:

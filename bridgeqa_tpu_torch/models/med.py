@@ -17,7 +17,15 @@ import math
 import torch
 from torch import nn
 
-from bridgeqa_tpu_torch.models.layers import Dense, Embed, LayerNorm, add_indexed, gelu
+from bridgeqa_tpu_torch.models.layers import (
+    Dense,
+    Embed,
+    LayerNorm,
+    add_indexed,
+    compute_dtype,
+    gelu,
+    param_as,
+)
 from bridgeqa_tpu_torch.ops.scoring_layer import fused_scoring_capable, scoring_decoder_body
 from bridgeqa_tpu_torch.ops.vocab_loss import label_smoothed_loss_streaming
 
@@ -328,7 +336,7 @@ class BertLMHeadModel(nn.Module):
             # the last position predicts nothing: drop it before the head
             h_t = self.cls.transform(sequence_output)[:, :-1]
             shifted = labels[:, 1:]
-            table = word_embed.weight.to(h_t.dtype)
+            table = param_as(word_embed, "weight", h_t.dtype)
             losses = [label_smoothed_from_shifted(h_t[s:s + loss_chunk_size] @ table.T + self.cls.bias,
                                                   shifted[s:s + loss_chunk_size])
                       for s in range(0, b, loss_chunk_size)]
@@ -345,21 +353,25 @@ class BertLMHeadModel(nn.Module):
         None where the module path should run.
 
         It runs for a call with labels and encoder states over a grouped
-        batch (``fused_scoring_capable``), as ``fused_scoring`` allows. It
-        drops the answer padding mask (equivalent for right-padded answers)
-        and projects the vocabulary in f32 where the module path rounds the
-        logits to the working type."""
+        batch (``fused_scoring_capable``), as ``fused_scoring`` allows, and
+        never where a gradient is wanted (``torch.is_grad_enabled()``, the
+        port's counterpart of JAX's ``not deterministic``) or with
+        ``remat``: the kernels have no backward. It drops the answer padding
+        mask (equivalent for right-padded answers) and projects the
+        vocabulary in f32 where the module path rounds the logits to the
+        working type."""
         c = self.config
         if c.fused_scoring not in ("auto", "force", "off"):
             raise ValueError(f"fused_scoring must be 'auto', 'force' or 'off', got "
                              f"{c.fused_scoring!r}")
-        if labels is None or encoder_hidden_states is None or c.fused_scoring == "off":
+        if (labels is None or encoder_hidden_states is None or c.fused_scoring == "off"
+                or c.remat or torch.is_grad_enabled()):
             return None
         if c.fused_scoring == "auto" and input_ids.device.type != "cuda":
             return None
         word_embed = self.bert.embeddings.word_embeddings
         (batch, la), (enc_batch, lk) = input_ids.shape, encoder_hidden_states.shape[:2]
-        if not fused_scoring_capable(c, batch, enc_batch, la, lk, word_embed.weight.dtype):
+        if not fused_scoring_capable(c, batch, enc_batch, la, lk, compute_dtype(word_embed)):
             return None
         if encoder_attention_mask is None:
             encoder_attention_mask = torch.ones((enc_batch, lk), dtype=torch.int32,
@@ -368,5 +380,6 @@ class BertLMHeadModel(nn.Module):
                                  encoder_hidden_states, encoder_attention_mask, config=c,
                                  layernorm_idx=layernorm_idx)
         h_t = self.cls.transform(x)[:, :-1]
-        return label_smoothed_loss_streaming(h_t, labels[:, 1:], word_embed.weight.to(h_t.dtype),
+        return label_smoothed_loss_streaming(h_t, labels[:, 1:],
+                                             param_as(word_embed, "weight", h_t.dtype),
                                              self.cls.bias)

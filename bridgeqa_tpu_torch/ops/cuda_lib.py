@@ -49,8 +49,10 @@ def source_flags(src: Path) -> list[str]:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    "bq_fps": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "bq_fps": [_P, _P, _P, _P, _I, _I, _I, _I, _IP, _IP, _P],
+    "bq_cluster_barrier_loop": [_I, _I, _I, _P],
     "bq_ball_query_stripes": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               ctypes.c_float, _P],
     "bq_scoring_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -141,12 +143,23 @@ def check(rc: int, name: str) -> None:
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def refuse_grad(name: str, *tensors: torch.Tensor | None) -> None:
+    """Raise where a gradient is wanted of a kernel's input: the kernels
+    write fresh outputs through ctypes and have no backward, so autograd
+    would stop at them without a word."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward; call it under torch.no_grad() "
+                           "or with inputs that need no gradient")
+
+
 def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
     """Raise unless every tensor is contiguous and on the first one's CUDA
-    device, and ``dtype`` (the call's working type) is one the kernels take."""
+    device, ``dtype`` (the call's working type) is one the kernels take, and
+    no gradient is wanted of them (``refuse_grad``)."""
     device = tensors[0].device
     if device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {device}")
+    refuse_grad(name, *tensors)
     if dtype not in DTYPE_CODES:
         raise ValueError(f"{name}: the kernel takes float32 or bfloat16, got {dtype}")
     for t in tensors:

@@ -76,6 +76,7 @@ def ball_query_stripes(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: 
         return ball_query_stripes_plain(radius, nsample, xyz, new_xyz, feats)
     if xyz.device.type != "cuda":
         raise ValueError(f"unsupported device {xyz.device}")
+    cuda_lib.refuse_grad("ball_query_stripes", xyz, new_xyz, feats)
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
     nf = 0 if feats is None else feats.shape[-1]

@@ -8,7 +8,18 @@ the Pallas kernel keeps them): first index 0; NaN coordinates scrubbed to 0
 once; points with ``|p|^2 <= 1e-3`` are padding, never selected and never
 updating the distance buffer; the buffer starts at 1e10; ties go to the
 lowest index. An all-padding cloud selects index 0 throughout.
+
+The kernel spreads each cloud over a thread-block cluster whose size it
+picks from the cloud's length and the card's occupancy (``last_cluster``
+keeps the last launch's size and how many clusters of it the card holds at
+once). Where a gradient is wanted of
+the coordinates, the picked coordinates are gathered again in the graph from
+the indices (``gather_points``), so that autograd scatters their cotangents
+onto the picked rows, as the JAX op's ``_fps_pallas_bwd`` does; the indices
+take no gradient.
 """
+
+import ctypes
 
 import torch
 
@@ -19,14 +30,20 @@ INIT_DIST = 1e10
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it)
 launches = 0
+# (cluster size, clusters of that size the card holds at once) of the last
+# kernel launch
+last_cluster = None
 
 
-def furthest_point_sample_with_xyz(xyz: torch.Tensor, npoint: int):
+def furthest_point_sample_with_xyz(xyz: torch.Tensor, npoint: int, *,
+                                   cluster_size: int | None = None):
     """xyz (B, N, 3) -> (idx (B, npoint) int32, coords (B, npoint, 3) f32).
 
     Coordinates are cast to f32 on entry, as the JAX op does; the returned
-    coordinates are the NaN-scrubbed coordinates of each pick."""
-    global launches
+    coordinates are the NaN-scrubbed coordinates of each pick.
+    ``cluster_size`` (2, 4, 8 or 16) sets the kernel's cluster size instead
+    of its own choice, for the card tests and chip_smoke's sweep."""
+    global launches, last_cluster
     if xyz.dim() != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"xyz must be (B, N, 3), got {tuple(xyz.shape)}")
     b, n, _ = xyz.shape
@@ -39,12 +56,19 @@ def furthest_point_sample_with_xyz(xyz: torch.Tensor, npoint: int):
         raise ValueError(f"unsupported device {xyz.device}")
     idx = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
     coords = torch.empty((b, npoint, 3), dtype=torch.float32, device=xyz.device)
-    temp = torch.empty((b, n), dtype=torch.float32, device=xyz.device)
-    rc = cuda_lib.lib().bq_fps(xyz.data_ptr(), temp.data_ptr(), idx.data_ptr(),
-                               coords.data_ptr(), b, n, npoint,
+    scratch = torch.empty((b, 4, n), dtype=torch.float32, device=xyz.device)
+    size, coresident = ctypes.c_int(), ctypes.c_int()
+    rc = cuda_lib.lib().bq_fps(xyz.data_ptr(), scratch.data_ptr(), idx.data_ptr(),
+                               coords.data_ptr(), b, n, npoint, cluster_size or 0,
+                               ctypes.byref(size), ctypes.byref(coresident),
                                cuda_lib.stream_handle(xyz.device))
     cuda_lib.check(rc, "bq_fps")
     launches += 1
+    last_cluster = (size.value, coresident.value)
+    if torch.is_grad_enabled() and xyz.requires_grad:
+        # the same values, in the graph
+        coords = torch.nan_to_num(gather_points(xyz, idx), nan=0.0, posinf=torch.inf,
+                                  neginf=-torch.inf)
     return idx, coords
 
 

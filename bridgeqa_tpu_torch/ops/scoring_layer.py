@@ -18,7 +18,9 @@ so here the layer is eleven launches of three hand-written kernels:
 
 On a CUDA tensor each wrapper launches its kernel and counts the launch in
 ``launches``; on a CPU tensor it runs its ``*_plain`` version. There is no
-fallback: a CUDA tensor the kernel does not take raises.
+fallback: a CUDA tensor the kernel does not take raises, and so does one
+that wants a gradient (the kernels have no backward; the model takes the
+fused path only without grad).
 
 Numerics, the Pallas kernel's: every product takes working-type inputs,
 accumulates in f32, adds an f32 bias and rounds once; the residual sum is
@@ -39,6 +41,7 @@ import math
 
 import torch
 
+from bridgeqa_tpu_torch.models.layers import param_as
 from bridgeqa_tpu_torch.ops import cuda_lib
 
 NEG = -1e9
@@ -330,8 +333,8 @@ def scoring_decoder_body(encoder, emb, question_states, question_mask, *, config
     cbias = torch.where(question_mask > 0, 0.0, NEG).float()
     x = emb.reshape(s * la, h).contiguous()
 
-    def w(dense):
-        return dense.weight.to(dt).contiguous()
+    def w(dense):  # the working-type copy ``set_compute_dtype`` made
+        return param_as(dense, "weight", dt).contiguous()
 
     def f32(p):
         return p.float().contiguous()

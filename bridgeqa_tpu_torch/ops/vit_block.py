@@ -21,8 +21,10 @@ the model's final LayerNorm follows as one more ``add_layernorm`` launch.
 ``FUSED_MODE`` picks the path of ``VisionTransformer.forward``: "auto" runs
 the kernels on a CUDA tensor and the module loop on the CPU, "force" runs the
 fused path on the CPU too, through the plain versions (the CPU tests), and
-"off" runs the module loop. On a CUDA tensor the wrappers launch their
-kernels and never fall back: a tensor a kernel does not take raises.
+"off" runs the module loop; where a gradient is wanted every mode runs the
+module loop. On a CUDA tensor the wrappers launch their kernels and never
+fall back: a tensor a kernel does not take, or that wants a gradient,
+raises.
 
 Numerics, the Pallas kernel's but one: LayerNorm statistics in f32 with the
 one-pass variance ``mean(y^2) - mu^2``, scale and shift in f32, one rounding
@@ -50,6 +52,7 @@ import math
 
 import torch
 
+from bridgeqa_tpu_torch.models.layers import param_as
 from bridgeqa_tpu_torch.ops import cuda_lib
 from bridgeqa_tpu_torch.ops.scoring_layer import (
     _attend_plain,
@@ -85,11 +88,15 @@ def fused_vit_capable(embed_dim: int, heads: int, mlp_dim: int | None = None) ->
 
 def use_fused(embed_dim: int, heads: int, mlp_dim: int, device: torch.device) -> bool:
     """Whether ``VisionTransformer.forward`` takes the fused path, as
-    ``FUSED_MODE`` allows (the JAX model's ``_use_fused_blocks``)."""
+    ``FUSED_MODE`` allows (the JAX model's ``_use_fused_blocks``). Never
+    where a gradient is wanted (``torch.is_grad_enabled()``, the port's
+    counterpart of JAX's ``not deterministic``): the kernels have no
+    backward, and the module loop is the training path."""
     if FUSED_MODE not in ("auto", "force", "off"):
         raise ValueError(f"vit_block.FUSED_MODE must be 'auto', 'force' or 'off', got "
                          f"{FUSED_MODE!r}")
-    if FUSED_MODE == "off" or not fused_vit_capable(embed_dim, heads, mlp_dim):
+    if (FUSED_MODE == "off" or torch.is_grad_enabled()
+            or not fused_vit_capable(embed_dim, heads, mlp_dim)):
         return False
     return device.type == "cuda" or FUSED_MODE == "force"
 
@@ -171,12 +178,14 @@ def fused_vit_blocks(vit, x, *, eps: float = 1e-6, block=vit_block):
     """Run every block of ``vit`` (a ``models.vit.VisionTransformer``)
     through ``block``, ``vit_block`` or ``vit_block_plain``. x: (B, N, H)
     tokens after the position embedding, in the working type. Returns
-    (B, N, H) before the final LayerNorm, as the JAX function does."""
+    (B, N, H) before the final LayerNorm, as the JAX function does. The
+    weights are the working-type copies ``set_compute_dtype`` made, the
+    biases and LayerNorm parameters the f32 parameters."""
     dt = x.dtype
     x = x.contiguous()
 
     def w(dense):
-        return dense.weight.to(dt).contiguous()
+        return param_as(dense, "weight", dt).contiguous()
 
     def f32(p):
         return p.float().contiguous()

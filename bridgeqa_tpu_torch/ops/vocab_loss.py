@@ -4,8 +4,9 @@ Counterpart of ``bridgeqa_tpu/ops/vocab_loss.py``. The answer-scoring head
 projects every answer token onto the 30524-word tied table and reduces the
 logits straight into a label-smoothed cross entropy. On a CUDA tensor
 ``lm_vocab_reductions`` launches the hand-written kernel in
-``csrc/vocab_loss.cu``, which streams vocabulary tiles past blocks of rows
-and never writes a logit; on a CPU tensor it runs
+``csrc/vocab_loss.cu``, which streams vocabulary tiles past panels of rows
+(bf16 on the wgmma main loop of ``csrc/wgmma_gemm.cuh``) and never writes a
+logit; on a CPU tensor it runs
 ``lm_vocab_reductions_plain``. Logits are ``h @ table.T`` accumulated in f32
 plus the f32 bias, never rounded to the working type.
 
@@ -30,24 +31,38 @@ launches = 0
 
 
 def _splits(rows: int, vocab: int, dtype: torch.dtype, device: torch.device) -> tuple[int, int]:
-    """(splits, tiles per split): cut the vocabulary into runs so that the
+    """(runs, tiles per run) of the vocabulary tiles.
+
+    bf16: a unit of the kernel is (128-row panel, run), and the persistent
+    grid holds one block per SM; the run length is the even number (the two
+    consumers alternate over a run's tiles) that makes the busiest block's
+    tiles fewest, the longest such run (fewer partials) on a tie. f32: the
     row blocks times the runs fill the card about four blocks deep."""
     tile = _TILE[dtype]
     vtiles = -(-vocab // tile)
     row_blocks = -(-rows // tile)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if dtype == torch.bfloat16:
+        def busiest(per):
+            units = row_blocks * -(-vtiles // per)
+            return -(-units // min(units, sms)) * per
+
+        per = min(range(2, vtiles + 2, 2), key=lambda p: (busiest(p), -p))
+        return -(-vtiles // per), per
     want = min(vtiles, max(1, -(-4 * sms // row_blocks)))
     per = -(-vtiles // want)
     return -(-vtiles // per), per
 
 
 def lm_vocab_reductions(h: torch.Tensor, table: torch.Tensor, bias: torch.Tensor,
-                        labels: torch.Tensor):
+                        labels: torch.Tensor, *, split: tuple[int, int] | None = None):
     """Per-row (lse, sum_logits, target_logit) of ``h @ table.T + bias``.
 
     h: (R, H) transformed hidden states; table: (V, H) tied embedding, the
     same dtype; bias: (V,) f32; labels: (R,) int32 in [0, V). Returns three
-    (R,) f32 tensors."""
+    (R,) f32 tensors. ``split`` = (runs, tiles per run, even for bf16) sets
+    how the kernel cuts the vocabulary instead of ``_splits``, for the card
+    tests (a run may lie wholly past the vocabulary)."""
     global launches
     r, hdim = h.shape
     v = table.shape[0]
@@ -61,6 +76,7 @@ def lm_vocab_reductions(h: torch.Tensor, table: torch.Tensor, bias: torch.Tensor
     for t in (table, bias, labels):
         if t.device != h.device:
             raise ValueError(f"lm_vocab_reductions: tensors on {t.device} and {h.device}")
+    cuda_lib.refuse_grad("lm_vocab_reductions", h, table, bias)
     if not all(t.is_contiguous() for t in (h, table, bias, labels)):
         raise ValueError("lm_vocab_reductions: the kernel needs contiguous tensors")
     if h.dtype not in _DTYPE_CODES or table.dtype != h.dtype:
@@ -72,8 +88,11 @@ def lm_vocab_reductions(h: torch.Tensor, table: torch.Tensor, bias: torch.Tensor
     if h.dtype == torch.bfloat16 and (hdim % 8 or h.data_ptr() % 16 or table.data_ptr() % 16):
         raise ValueError(f"lm_vocab_reductions: bf16 needs a width that is a multiple of 8 and "
                          f"16-byte aligned h and table, got {hdim}")
-    splits, per = _splits(r, v, h.dtype, h.device)
-    partial = torch.empty((splits, r, 4), dtype=torch.float32, device=h.device)
+    splits, per = split or _splits(r, v, h.dtype, h.device)
+    if h.dtype == torch.bfloat16 and per % 2:
+        raise ValueError(f"lm_vocab_reductions: bf16 runs of an even number of tiles, got {per}")
+    parts = 2 * splits if h.dtype == torch.bfloat16 else splits  # bf16: one per consumer
+    partial = torch.empty((parts, r, 4), dtype=torch.float32, device=h.device)
     lse, sumlog, tgt = (torch.empty(r, dtype=torch.float32, device=h.device) for _ in range(3))
     rc = cuda_lib.lib().bq_vocab_reductions(
         h.data_ptr(), table.data_ptr(), bias.data_ptr(), labels.data_ptr(), partial.data_ptr(),

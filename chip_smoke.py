@@ -10,15 +10,20 @@ result is printed):
    and ``nvidia-smi``'s name and power limit; the port imports nothing of
    JAX and nothing of the JAX package (``bridgeqa_tpu``).
 2. build: compile every ``bridgeqa_tpu_torch/csrc/*.cu`` for sm_90a; print
-   ptxas's register, spill and shared-memory lines for the bf16 GEMM and the
-   ViT attention; disassemble the library (``cuobjdump -sass``) and fail
-   unless every instantiation of the bf16 GEMM holds ``HGMMA`` (wgmma) and
-   ``UTMALDG`` (TMA loads).
+   ptxas's register, spill and shared-memory lines for the redesigned
+   kernels (the bf16 GEMM, the ViT attention, FPS's cluster kernel and the
+   vocabulary pass); disassemble the library (``cuobjdump -sass``) and fail
+   unless every instantiation of the bf16 GEMM and the vocabulary pass's
+   bf16 kernel hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads).
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at every shape the main path gives it, batch 8.
    - FPS and the stripe ball query, with padding points, duplicate points,
      empty balls and clouds whose length is no multiple of the stripe
-     quantum: both must agree bitwise.
+     quantum: both must agree bitwise. FPS's rows also give the cluster size
+     its launch took, the clusters of that size the card holds at once, the
+     us per selection, the kernel's time at every cluster size, and loops of
+     bare cluster barriers at SA1's clusters of every size (the floor of one
+     selection).
    - The scoring kernels (GEMM at the layer's six shapes, self and cross
      attention, residual + LayerNorm, the vocabulary reductions at
      22528 x 30524) in bf16, and their f32 instantiations. f32: max abs
@@ -28,8 +33,9 @@ result is printed):
      Biases and LayerNorm scale and shift are drawn well away from 0 and
      (1, 0), so a kernel that drops one fails. The vocabulary reductions
      come out in f32 from exact products: each output (lse, sum of logits,
-     target logit) within 1e-3 of its own largest value; also at 1000 rows
-     and a 203-word vocabulary, mostly padding in its last tile. Then a
+     target logit) within 1e-3 of its own largest value, and its TFLOP/s;
+     also at 1000 rows and a 203-word vocabulary, mostly padding in its last
+     tile. Then a
      whole 12-layer decoder pass and its loss, kernels against plain
      versions in bf16, every bias and LayerNorm parameter perturbed:
      per-sequence losses within 1% relative (rounding points match,
@@ -72,8 +78,9 @@ result is printed):
    included); outputs must be finite and well formed. Stage times (CUDA
    events around each stage's modules, the ViT's among them, and the host's
    time to issue each stage) follow, then
-   one forward under ``torch.profiler``: the card's busy share, and the
-   table by kernel in ``build/profile_main_path.txt``.
+   one forward under ``torch.profiler``: the card's busy share, the casts'
+   launches and time (``aten::copy_``), and the table by kernel in
+   ``build/profile_main_path.txt``.
 
 Bounds: the least time the card could take for a kernel's work, the larger
 of the bytes it must move (each input read once, each output written once)
@@ -111,6 +118,8 @@ K_TEST = 256
 # (name, points in, points out) for each FPS call of the main path
 FPS_SHAPES = [("sa1", NUM_POINTS, 2048), ("sa2", 2048, 1024), ("sa3", 1024, 512),
               ("sa4", 512, 256), ("votes", 1024, 256)]
+# the cluster sizes the FPS kernel takes
+FPS_CLUSTER_SIZES = (2, 4, 8, 16)
 # (name, points, centres, nsample, radius, feature channels) for each ball query
 BQ_SHAPES = [("sa1", NUM_POINTS, 2048, 64, 0.2, 1), ("sa2", 2048, 1024, 32, 0.4, 0),
              ("sa3", 1024, 512, 16, 0.8, 0), ("sa4", 512, 256, 16, 1.2, 0),
@@ -230,9 +239,12 @@ def phase_device():
 
 # the redesigned kernels whose ptxas lines phase 2 prints (parts of their
 # mangled names)
-PTXAS_KERNELS = ("gemm_kernel", "vit_attention_bf16_kernel")
-# instructions the bf16 GEMM's SASS must hold: the Hopper tensor-core product
-# and the TMA tile load
+PTXAS_KERNELS = ("gemm_kernel", "vit_attention_bf16_kernel", "fps_cluster_kernel",
+                 "vocab_wgmma_kernel")
+# kernels on the wgmma main loop (parts of their mangled names: wg::gemm_kernel
+# <...>, the vocabulary pass) and the instructions their SASS must hold: the
+# Hopper tensor-core product and the TMA tile load
+WGMMA_KERNELS = ("wg11gemm_kernel", "vocab_wgmma_kernel")
 GEMM_SASS = ("HGMMA", "UTMALDG")
 
 
@@ -254,8 +266,10 @@ def ptxas_lines(build_log: str) -> list[str]:
 
 def sass_check(library) -> dict:
     """Disassemble the kernel library with ``cuobjdump -sass`` and count, in
-    each instantiation of the bf16 GEMM (``wg::gemm_kernel``), the
-    instructions of ``GEMM_SASS``; raise unless every one holds both."""
+    each kernel on the wgmma main loop (``WGMMA_KERNELS``: every
+    instantiation of the bf16 GEMM, the vocabulary pass), the instructions
+    of ``GEMM_SASS``; raise unless every one holds both, and the vocabulary
+    pass is among them."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -265,7 +279,7 @@ def sass_check(library) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            if "wg11gemm_kernel" in name:  # wg::gemm_kernel<...>, mangled
+            if any(k in name for k in WGMMA_KERNELS):
                 counts[name] = dict.fromkeys(GEMM_SASS, 0)
             else:
                 name = None
@@ -273,8 +287,9 @@ def sass_check(library) -> dict:
             for op in GEMM_SASS:
                 if op in line:
                     counts[name][op] += 1
-    if not counts or any(n == 0 for c in counts.values() for n in c.values()):
-        raise AssertionError(f"the bf16 GEMM's SASS lacks {GEMM_SASS}: {counts}")
+    if (not all(any(k in name for name in counts) for k in WGMMA_KERNELS)
+            or any(n == 0 for c in counts.values() for n in c.values())):
+        raise AssertionError(f"the wgmma kernels' SASS lacks {GEMM_SASS}: {counts}")
     return counts
 
 
@@ -286,7 +301,7 @@ def phase_build():
     for line in cuda_lib.build_log.splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
-    log("ptxas, the redesigned kernels (bf16 GEMM, ViT attention):")
+    log("ptxas, the redesigned kernels (bf16 GEMM, ViT attention, FPS, vocabulary pass):")
     for line in ptxas_lines(cuda_lib.build_log) or ["(library reused: no build log)"]:
         log(f"  {line}")
     for fn, c in sass_check(cuda_lib.library_path).items():
@@ -356,13 +371,14 @@ def phase_kernels(device, batch: int = BATCH, fps_shapes=FPS_SHAPES, bq_shapes=B
     """FPS and the ball query against their plain versions; returns their
     records of the kernels line (without launch counts). No single PyTorch
     call computes either, so neither has a ``library_ms``."""
-    from bridgeqa_tpu_torch.ops import grouping, sampling
+    from bridgeqa_tpu_torch.ops import cuda_lib, grouping, sampling
 
     rng = np.random.RandomState(1)
     fps_rows, bq_rows = [], []
     for name, n, npoint in fps_shapes:
         xyz = torch.from_numpy(make_cloud(rng, batch, n)).to(device)
         idx, coords = sampling.furthest_point_sample_with_xyz(xyz, npoint)
+        size, coresident = sampling.last_cluster
         pidx, pcoords = sampling.fps_plain(xyz, npoint)
         torch.cuda.synchronize()
         same = torch.equal(idx, pidx) and torch.equal(coords, pcoords)
@@ -372,11 +388,37 @@ def phase_kernels(device, batch: int = BATCH, fps_shapes=FPS_SHAPES, bq_shapes=B
         # each pick updates every point: 3 sub, 3 mul, 2 add, a min and an argmax compare
         bound_ms, bound_by = bound(batch * (npoint - 1) * n * 10.0,
                                    batch * (n * 12 + npoint * 16), PEAK_F32)
+        us_per_pick = ms * 1e3 / (npoint - 1)
+        # the kernel at every cluster size, against which the size picked is
+        # read (these launches are not the main path's)
+        by_size = {s: time_ms(lambda s=s: sampling.furthest_point_sample_with_xyz(
+            xyz, npoint, cluster_size=s), reps) for s in FPS_CLUSTER_SIZES}
         fps_rows.append(dict(shape=f"{name}: ({batch}, {n}, 3) -> {npoint}", calls=1,
                              bitwise=same, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+                             library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                             cluster_size=size, coresident_clusters=coresident,
+                             us_per_selection=us_per_pick, ms_by_cluster_size=by_size))
         log(f"fps {name}: ({batch}, {n}) -> {npoint}: bitwise {same}, kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); clusters of "
+            f"{size} ({coresident} co-resident), {us_per_pick:.3f} us per selection; ms at "
+            f"each cluster size {json.dumps({k: round(v, 4) for k, v in by_size.items()})}")
+    # the floor of one selection: bare cluster barriers, SA1's clusters, at
+    # each cluster size
+    name, _, npoint = fps_shapes[0]
+    lib = cuda_lib.lib()
+
+    def barriers(size):
+        cuda_lib.check(lib.bq_cluster_barrier_loop(batch, size, npoint - 1,
+                                                   cuda_lib.stream_handle(device)),
+                       "bq_cluster_barrier_loop")
+
+    barrier_us = {s: time_ms(lambda s=s: barriers(s), reps) * 1e3 / (npoint - 1)
+                  for s in FPS_CLUSTER_SIZES}
+    fps_rows[0]["us_per_bare_cluster_barrier"] = barrier_us
+    log(f"fps {name}: loops of {npoint - 1} bare cluster barriers, {batch} clusters, us per "
+        f"barrier at each cluster size {json.dumps({k: round(v, 3) for k, v in barrier_us.items()})}"
+        f", against {fps_rows[0]['us_per_selection']:.3f} us per selection at "
+        f"{fps_rows[0]['cluster_size']}")
     for name, n, m, ns, radius, nf in bq_shapes:
         xyz_np = make_cloud(rng, batch, n)
         centres = xyz_np[:, rng.permutation(n)[:m]].copy()
@@ -582,6 +624,9 @@ def phase_scoring_kernels(device, layers: int, reps: int = 10):
                   2.0 * rows_v * vocab * h, 2 * (rows_v * h + vocab * h) + 4 * vocab
                   + 4 * rows_v + 12 * rows_v, PEAK_BF16, calls,
                   "no single PyTorch call: it takes a product and a logsumexp")
+        row = vocab_rows[-1]
+        row["tflops"] = 2.0 * rows_v * vocab * h / (row["ms"] * 1e-3) / 1e12
+        log(f"vocab_loss ({rows_v}, {h}) x ({vocab}, {h})^T: {row['tflops']:.1f} TFLOP/s")
         del hv, table, got, want, got32
 
     if failures:
@@ -818,7 +863,7 @@ def phase_decoder_pass(device, seed: int = 6):
     """A whole 12-layer full-width decoder and its loss over the main
     path's 2048 answers, kernels against plain versions in bf16, biases and
     LayerNorm parameters perturbed: per-sequence losses within 1% relative."""
-    from bridgeqa_tpu_torch.models.layers import init_weights, set_compute_dtype
+    from bridgeqa_tpu_torch.models.layers import init_weights, param_as, set_compute_dtype
     from bridgeqa_tpu_torch.models.med import BertLMHeadModel, MedConfig
     from bridgeqa_tpu_torch.ops import scoring_layer as sl
     from bridgeqa_tpu_torch.ops import vocab_loss as vl
@@ -838,7 +883,7 @@ def phase_decoder_pass(device, seed: int = 6):
     qs = torch.randn(BATCH, QUESTION_LEN, cfg.hidden_size, generator=gen, device=device).to(torch.bfloat16)
     qmask = (torch.arange(QUESTION_LEN, device=device)[None, :]
              < (QUESTION_LEN - 5 * torch.arange(BATCH, device=device))[:, None]).to(torch.int32)
-    table = dec.bert.embeddings.word_embeddings.weight
+    table = param_as(dec.bert.embeddings.word_embeddings, "weight", torch.bfloat16)
 
     def loss(layer, reductions):
         x = sl.scoring_decoder_body(dec.bert.encoder, dec.bert.embeddings(ids), qs, qmask,
@@ -1123,7 +1168,11 @@ def phase_main_path(device, reps: int = 5):
     # kernels run on one stream, so their durations add up to the busy time
     busy_ms = sum(e.device_time_total for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+    averages = prof.key_averages()
+    copies = [e for e in averages if e.key == "aten::copy_"]
+    log(f"profiled forward: aten::copy_ {sum(e.count for e in copies)} calls, "
+        f"{sum(e.device_time_total for e in copies) / 1e3:.2f} ms of device time")
+    table = averages.table(sort_by="cuda_time_total", row_limit=40)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "profile_main_path.txt").write_text(table)
     log("\n".join(table.splitlines()[:25]))

@@ -10,7 +10,9 @@ machine does not have; this file imports none.) On the edge cases
 
 - the point kernels must agree with their plain versions bitwise: NaN
   coordinates, an all-padding cloud, 4 feature channels, both stripe plans,
-  clouds shorter than one stripe quantum;
+  clouds shorter than one stripe quantum; FPS at every cluster size, with
+  duplicates whose tie crosses the clusters' merge, batches of 20 and 32,
+  clusters in waves, and slices in global memory;
 - the scoring kernels (GEMM, both attentions, LayerNorm, vocabulary
   reductions) must agree with theirs within a tolerance, in f32 and bf16:
   rows and vocabularies that are no tile multiple, 7, 80 and 130 question
@@ -26,7 +28,12 @@ machine does not have; this file imports none.) On the edge cases
 - the bf16 GEMM and ViT attention launched from several host threads at
   once (ctypes releases the GIL), bit for bit as from one;
 - the row gather must copy bit for bit, with rows that fill no block and
-  1, 3, 4 and 131 channels, and refuse indices out of range.
+  1, 3, 4 and 131 channels, and refuse indices out of range;
+- the vocabulary pass's runs past the vocabulary, labels at its first and
+  last word, logits scaled x30;
+- every wrapper refuses an input that wants a gradient under grad, FPS's
+  coordinates carry one, and a backward through the tiny rank slice (bf16,
+  the detector frozen) reaches the ViT's and both decoders' weights.
 f32: 1e-3 absolute (both sides accumulate in f32, in another order). bf16
 outputs: 2^-6 of the largest output, about two steps of bf16 (both round
 once from f32, and a sum taken in another order can flip a rounding, or the
@@ -75,6 +82,96 @@ def test_fps_kernel_matches_plain(card, n, npoint):
     assert torch.equal(idx, pidx)
     assert torch.equal(coords, pcoords)
     assert (idx[3] == 0).all()
+
+
+def _fps_cloud(rng, b, n):
+    """Cloud 0 with trailing padding and exact duplicates in two halves of
+    the cloud (two different blocks' slices at any cluster size), placed
+    farthest from point 0 so that the first pick is a tie that crosses the
+    merge; cloud 1 with ties and scattered NaN padding; cloud 2 with a NaN
+    in the first pick; cloud 3 all padding."""
+    xyz = _cloud(rng, b, n)
+    xyz[0, n - n // 5:] = 0.0
+    if n >= 8:
+        xyz[0, [n // 4, n // 2 + 1]] = [3.0, 3.0, 3.0]
+    if b > 1:
+        xyz[1, 10:40] = xyz[1, 40:70] if n >= 70 else xyz[1, 10:40]
+        xyz[1, min(5, n - 1)] = [np.nan, 0.3, 0.1]
+    if b > 2:
+        xyz[2, 0] = [0.2, np.nan, 0.0]
+    if b > 3:
+        xyz[3] = 0.0
+    return xyz
+
+
+def _fps_matches_plain(xyz, npoint, **kw):
+    before = sampling.launches
+    idx, coords = sampling.furthest_point_sample_with_xyz(xyz, npoint, **kw)
+    assert sampling.launches == before + 1
+    pidx, pcoords = sampling.fps_plain(xyz, npoint)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, pidx)
+    assert torch.equal(coords, pcoords)
+    return idx
+
+
+@pytest.mark.parametrize("b,n,npoint", [(3, 5, 7), (4, 300, 64), (4, 40000, 256),
+                                        (4, 40001, 256), (20, 5000, 128), (32, 5000, 128),
+                                        (2, 70000, 16), (2, 400000, 8)])
+def test_fps_cluster_kernel_matches_plain(card, b, n, npoint):
+    """Bitwise at n below one block's threads, n ragged against the
+    cluster's slices, batches of 20 and 32 (more clusters; the cluster size
+    falls, or the clusters run in waves, as the occupancy says), and slices
+    that do not fit shared memory (400000 points: the global-memory slices
+    at any cluster size)."""
+    xyz = torch.from_numpy(_fps_cloud(np.random.RandomState(n + b), b, n)).to(card)
+    idx = _fps_matches_plain(xyz, npoint)
+    size, coresident = sampling.last_cluster
+    assert size in (2, 4, 8, 16) and coresident >= 1
+    assert size == 2 or n >= size * 256  # at least one point per thread of a block
+    if n >= 8:  # the duplicate pair: the lower index wins the tie
+        assert int(idx[0, 1]) == n // 4
+    if b > 3:
+        assert (idx[3] == 0).all()
+
+
+@pytest.mark.parametrize("size", [2, 4, 8, 16])
+def test_fps_every_cluster_size_matches_plain(card, size):
+    xyz = torch.from_numpy(_fps_cloud(np.random.RandomState(size), 4, 40001)).to(card)
+    _fps_matches_plain(xyz, 200, cluster_size=size)
+    assert sampling.last_cluster[0] == size
+
+
+def test_fps_waves_match_plain(card):
+    """More clusters of 16 than the card holds at once: they run in
+    waves."""
+    xyz = torch.from_numpy(_fps_cloud(np.random.RandomState(6), 4, 40000)).to(card)
+    sampling.furthest_point_sample_with_xyz(xyz, 2, cluster_size=16)
+    waves = sampling.last_cluster[1] + 1
+    xyz = torch.from_numpy(_fps_cloud(np.random.RandomState(7), waves, 40000)).to(card)
+    _fps_matches_plain(xyz, 64, cluster_size=16)
+
+
+def test_fps_coordinates_carry_the_gradient(card):
+    """Under grad the picked coordinates are gathered in the graph: the same
+    values as the kernel's, and the gradient of the plain version on the
+    CPU (the JAX op's scatter onto the picked rows), within 1e-5: the
+    all-padding cloud's 100 picks of row 0 add their cotangents in another
+    order on the card."""
+    xyz = _fps_cloud(np.random.RandomState(8), 4, 3000)
+    xyz[2, 0] = 0.5  # a finite first pick: the gradient of a NaN is 0 on both sides
+    g = torch.from_numpy(np.random.RandomState(9).randn(4, 100, 3).astype(np.float32))
+    grads = []
+    for device in (card, torch.device("cpu")):
+        t = torch.from_numpy(xyz).to(device).requires_grad_()
+        with torch.enable_grad():
+            idx, coords = sampling.furthest_point_sample_with_xyz(t, 100)
+            (coords * g.to(device)).sum().backward()
+        grads.append(t.grad.cpu())
+        if device == card:
+            with torch.no_grad():
+                assert torch.equal(coords, sampling.furthest_point_sample_with_xyz(t, 100)[1])
+    torch.testing.assert_close(grads[0], grads[1], atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("n,nsample,nf", [(1024, 8, 0), (900, 8, 4), (600, 16, 1), (100, 16, 2),
@@ -204,6 +301,119 @@ def test_vocab_reductions_match_plain(card, dtype, rows, vocab, hdim):
     for name, a, b in zip(("lse", "sum_logits", "target_logit"), got, want):
         err = float((a - b).abs().max())
         assert err <= 1e-3 * max(1.0, float(b.abs().max())), f"{name}: {err}"
+
+
+def _vocab_check(h, table, bias, labels, **kw):
+    before = vocab_loss.launches
+    got = vocab_loss.lm_vocab_reductions(h, table, bias, labels, **kw)
+    assert vocab_loss.launches == before + 1
+    want = vocab_loss.lm_vocab_reductions_plain(h, table, bias, labels)
+    for name, a, b in zip(("lse", "sum_logits", "target_logit"), got, want):
+        err = float((a - b).abs().max())
+        assert err <= 1e-3 * max(1.0, float(b.abs().max())), f"{name}: {err}"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,vocab,hdim,scale", [(333, 5, 768, 1.0), (129, 203, 8, 1.0),
+                                                   (1001, 30524, 64, 1.0), (777, 203, 64, 30.0),
+                                                   (200, 30524, 768, 30.0)])
+def test_vocab_reductions_edges(card, dtype, rows, vocab, hdim, scale):
+    """Rows that fill no 128-row panel, vocabularies of one, two and 239
+    tiles whose last tile is mostly padding, widths of one box and of many,
+    labels at the first and the last word, and logits scaled x30 (the
+    running max moves far)."""
+    rng = np.random.RandomState(rows + vocab + hdim)
+    h = _randn(rng, rows, hdim, scale=scale, dtype=dtype, device=card)
+    table = _randn(rng, vocab, hdim, scale=0.05 * 8 / hdim**0.5, dtype=dtype, device=card)
+    bias = _randn(rng, vocab, scale=0.5, device=card)
+    labels = rng.randint(0, vocab, rows).astype(np.int32)
+    labels[::3] = 0
+    labels[1::3] = vocab - 1
+    _vocab_check(h, table, bias, torch.from_numpy(labels).to(card))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_vocab_reductions_run_past_vocab(card, dtype):
+    """Runs of two tiles over a vocabulary of 203 words (two bf16 tiles,
+    four f32 ones): the last run lies wholly past it."""
+    rng = np.random.RandomState(17)
+    h = _randn(rng, 300, 64, dtype=dtype, device=card)
+    table = _randn(rng, 203, 64, scale=0.1, dtype=dtype, device=card)
+    bias = _randn(rng, 203, scale=0.5, device=card)
+    labels = torch.from_numpy(rng.randint(0, 203, 300).astype(np.int32)).to(card)
+    _vocab_check(h, table, bias, labels, split=(4 if dtype == torch.bfloat16 else 3, 2))
+
+
+def test_kernels_refuse_inputs_that_want_a_gradient(card):
+    """Under grad, a wrapper raises for an input that wants a gradient
+    instead of handing autograd a result cut from the graph; without grad
+    the same call runs."""
+    x = torch.randn(16, 64, device=card)
+    w = torch.randn(32, 64, device=card, requires_grad=True)
+    b = torch.zeros(32, device=card)
+    qkv = torch.randn(2, 10, 3 * 128, device=card, requires_grad=True)
+    xyz = torch.rand(2, 512, 3, device=card, requires_grad=True)
+    labels = torch.zeros(16, dtype=torch.int32, device=card)
+    calls = [lambda: scoring_layer.scoring_gemm(x, w, b),
+             lambda: scoring_layer.add_layernorm(w, None, x[0], x[0], 1e-6),
+             lambda: scoring_layer.self_attention(qkv[0].reshape(10, -1).contiguous(), la=5,
+                                                  heads=2),
+             lambda: vit_block.vit_attention(qkv, heads=2),
+             lambda: vocab_loss.lm_vocab_reductions(x, w, b, labels),
+             lambda: grouping.ball_query_stripes(0.2, 8, xyz, xyz[:, :16].contiguous()),
+             lambda: gather.gather_rows(w, labels)]
+    for fn in calls:
+        with torch.enable_grad(), pytest.raises(RuntimeError, match="no backward"):
+            fn()
+        with torch.no_grad():
+            fn()
+
+
+def test_backward_through_the_rank_slice(card, monkeypatch):
+    """A backward through the tiny rank slice on the card, bf16, the
+    detector frozen (its point kernels have no backward yet): neither fused
+    path runs under grad, and the ViT's and both decoders' weights get
+    gradients."""
+    from bridgeqa_tpu_torch.models import blip_vqa3d, bridgeqa, med
+    from bridgeqa_tpu_torch.models.layers import init_weights, set_compute_dtype
+
+    m = med.MedConfig(vocab_size=120, hidden_size=128, num_hidden_layers=2,
+                      num_attention_heads=2, intermediate_size=256, max_position_embeddings=64,
+                      encoder_width=128)
+    blip = blip_vqa3d.BlipVQA3DConfig(med=m, image_size=32, num_answers=30, scene_size=32,
+                                      bos_token_id=110, vit="custom", vit_custom_embed_dim=128,
+                                      vit_custom_depth=1, vit_custom_heads=2)
+    cfg = bridgeqa.BridgeQAConfig(num_answers=30, num_proposal=32, hidden_size=32, blip=blip,
+                                  mcan_num_layers=1, mcan_flat_out_size=64,
+                                  mcan_flat_mlp_size=32, input_feature_dim=1)
+    monkeypatch.setattr(vit_block, "FUSED_MODE", "auto")
+    model = init_weights(bridgeqa.BridgeQA(cfg, device=card), torch.Generator(card).manual_seed(0))
+    set_compute_dtype(model.eval(), torch.bfloat16)
+    model.detector.requires_grad_(False)
+    rng = np.random.RandomState(3)
+    pc = ((rng.rand(2, 2048, 3) - 0.5) * 6.0).astype(np.float32)
+    answers = rng.randint(1, 100, (30, 5))
+    answers[:, 0] = 110
+    batch = dict(point_clouds=np.concatenate([pc, pc[..., 2:] + 3.0], -1),
+                 images=rng.rand(2, 32, 32, 3).astype(np.float32),
+                 question_ids=rng.randint(1, 100, (2, 12)),
+                 question_mask=np.ones((2, 12), np.int32), answer_list_ids=answers,
+                 answer_list_mask=np.ones((30, 5), np.int32))
+    batch = {k: torch.from_numpy(v).to(card) for k, v in batch.items()}
+    before = (dict(scoring_layer.launches), vit_block.launches, vocab_loss.launches)
+    with torch.enable_grad():
+        out = model(batch, inference="rank", k_test=8)
+        scored = out["answer_scores_2d"] != -1e4
+        (out["answer_scores_2d"][scored].sum() + out["answer_scores_scene"][scored].sum()).backward()
+    assert (dict(scoring_layer.launches), vit_block.launches, vocab_loss.launches) == before
+    params = dict(model.named_parameters())
+    for name in ("blip_model.visual_encoder.blocks_0.attn.qkv.weight",
+                 "blip_model.text_decoder.bert.encoder.layer_0.crossattention.self.query.weight",
+                 "blip_model.text_decoder_scene.bert.encoder.layer_0.crossattention.self.query."
+                 "weight"):
+        g = params[name].grad
+        assert g is not None and g.dtype == torch.float32, name
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0, name
 
 
 def test_scoring_wrappers_refuse_bad_inputs(card):

@@ -293,12 +293,13 @@ def test_module_path_adds_the_rounded_bias():
         set_compute_dtype(model, torch.bfloat16)
         x = torch.randn(5, 64, generator=gen)
         assert dense.bias.dtype == torch.float32 and torch.equal(dense.bias, bias32)
-        want = F.linear(x.bfloat16(), dense.weight, bias32.bfloat16())
+        want = F.linear(x.bfloat16(), dense.weight_cast, bias32.bfloat16())
         assert torch.equal(dense(x), want)
         pe = model.patch_embed_proj
         img = torch.rand(1, 32, 32, 3, generator=gen)
         patches = img.bfloat16().reshape(1, 2, 16, 2, 16, 3).permute(0, 1, 3, 5, 2, 4)
-        want = F.linear(patches.reshape(1, 4, -1), pe.weight.reshape(64, -1), pe.bias.bfloat16())
+        want = F.linear(patches.reshape(1, 4, -1), pe.weight_cast.reshape(64, -1),
+                        pe.bias.bfloat16())
         assert torch.equal(pe(img), want)
 
 
