@@ -15,25 +15,52 @@
 // the product with V, the f32 context divided by the f32 sum of the
 // unrounded e, one rounding at the end.
 //
-// What bounds it on this card: memory. At the main-path shapes one self
-// pass reads the (24576, 2304) bf16 QKV block and writes the (24576, 768)
-// context (~150 MB, 45 us at 3.35 TB/s) for 0.9 GFLOP; the cross pass does
-// 6 GFLOP against 80 keys. On the CUDA cores the dot products alone are
-// bound by instruction issue several times over that (PERF.md).
+// What bounds it on this card: memory. At the main-path shapes (24576
+// rows, 12 heads of 64) one self pass reads the (24576, 2304) bf16 QKV
+// block and writes the (24576, 768) context: 151 MB, 45 us at 3.35 TB/s, for
+// 0.9 GFLOP. One cross pass reads (24576, 768) queries and writes a context
+// of the same size, plus 2 MB of keys and values: 23 us, for 6 GFLOP. Both
+// are far below the tensor cores' rate; what counts is that every byte
+// comes from DRAM once, in long runs, with loads in flight all the time.
 //
-// What the design does about it: one block per (tile of rows, head), the
-// tile's keys and values for that head in shared memory. In bf16 at head
-// width 64, both modes run on the tensor cores (attention_mma_kernel below)
-// when a warp's key window holds at most 128 keys: the main path's answers
-// of 12 tokens and questions of 80. Everything else (f32, other widths,
-// longer answers or questions) runs on the CUDA cores:
-// rows padded by two elements so that a lane per key reads without bank
-// conflicts, one warp per query row, a lane per key for the scores, the max
-// and the sum by warp shuffles, then a lane per pair of head dimensions for
-// the product with V. A self tile is whole sequences; a cross tile lies
-// inside one question, so its keys are loaded once for up to 128 rows.
+// What the design does about it (bf16, head width 64, a key window of at
+// most 128: the main path's answers of 12 tokens and questions of 80):
+//   - a persistent grid of as many blocks as the card holds at once (the
+//     occupancy query; built for two an SM where two stages fit in half of
+//     its shared memory and the window is at most 80 keys, as in both
+//     main-path modes, else one) walks units of (segment of row tiles,
+//     head), head fastest, so the blocks in flight hold every head of a few
+//     segments and read each row's 12 slices close together in time (the
+//     schedule below). The C entry reports the launch it made;
+//   - one producer warp keeps a ring of 2-4 stages full through TMA
+//     (cp.async.bulk.tensor under the 128-byte swizzle, mbarrier
+//     completion): a self stage is one tile's Q, K and V for one head, a
+//     cross stage one 128-row tile of Q. The next tiles' loads are in
+//     flight while eight consumer warps compute;
+//   - cross: a unit's question's keys and values for its head come in once,
+//     into one of two buffers of their own (the next unit's load overlaps),
+//     and the unit's row tiles stream past them;
+//   - each consumer warp takes 16 rows of the tile on mma.sync: the products
+//     are small (the accumulator layout of S is mma.sync's A layout of P,
+//     so P stays in registers), and at 16 rows a warp the window's keys
+//     need no cross-warp exchange. It writes its rounded context back into
+//     its own Q rows of the stage and stores them as one TMA box (whole
+//     128-byte rows; a tile's ragged last rows go out 16 bytes a lane).
+//   - scores are taken in the log2 domain (one FFMA with scale * log2 e,
+//     and the bias times log2 e) and e = ex2.approx(x - max), 1 / sum once
+//     a row: a few f32 ulps from expf and a division, as the ViT attention.
+// The consumers' math, not the memory, sets the pace at the main path's
+// shapes (clock stamps of a block's warps: they seldom wait on a stage);
+// PERF.md has the times against the bound.
+// f32, other head widths and longer windows run on the CUDA cores
+// (attention_kernel below): rows padded by two elements so that a lane per
+// key reads without bank conflicts, one warp per query row, a lane per key
+// for the scores, the max and the sum by warp shuffles, then a lane per
+// pair of head dimensions for the product with V, one block per (tile,
+// head).
 
 #include "tile_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -180,81 +207,122 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-// Both attentions on the tensor cores: bf16, head width 64. A block holds a
-// tile of up to 128 query rows and their keys and values for one head in
-// shared memory; each warp owns 16 rows and a window of 16 * KCH keys:
-// S = Q K^T on mma.sync, keys outside the row's mask (or past the window's
-// real keys) left out of the max and the sums, the row max and the sum of
-// exp across the four lanes of a row, e rounded to bf16 as the A operand of
-// P V (the accumulator layout of S is the A layout of P), and the f32
-// context divided by the f32 sum.
-//   - SELF: the tile is whole answers of `la` rows from the (rows, 3H) QKV
-//     block; a warp's window starts at the answer of its first row, and a
-//     key counts when it lies in the row's answer at or before the row.
-//   - cross: the tile lies inside one question; the window is that
-//     question's lk keys (zero-padded to a multiple of 16), with its bias.
+// ------------------------------------------------- the tensor-core pipeline
+//
+// Both attentions in bf16 at head width 64 (the main path's): a persistent,
+// warp-specialised kernel fed by TMA. See the note at the top of the file.
 constexpr int kHd = 64;
-constexpr int kLd = kHd + 8;  // padded row: ldmatrix reads free of bank conflicts
+constexpr int kRow = kHd * 2;     // bytes of one row of one head: a 128-byte swizzled row
+constexpr int kConsumers = 8;     // consumer warps, 16 rows of a 128-row tile each
+constexpr int kPipeThreads = (kConsumers + 1) * 32;  // and one producer warp
 
+constexpr int clamp_int(int v, int lo, int hi) { return v < lo ? lo : v > hi ? hi : v; }
+constexpr int kHalfSmem = 110 * 1024;  // a block's share where two share an SM
+
+// Shared memory of one block, for KCH chunks of 16 keys. A self stage holds
+// a tile's Q, K and V for one head (K and V with the slack the last warp's
+// window needs: it starts at most 16 rows before that warp's first row); a
+// cross stage holds Q, and the question's K, V and bias (times log2 e,
+// padded to the window with -3e38) sit in two buffers of their own, filled
+// once per unit. A block takes two blocks' share of an SM (96 registers a
+// thread) where two stages fit and the window is at most 80 keys: the main
+// path's answers of 12 and questions of 80.
 template <int KCH, bool SELF>
-__host__ __device__ constexpr int mma_key_rows() {
-  return SELF ? kTileRows + 16 * KCH : 16 * KCH;
+struct Pipe {
+  static constexpr int KEY_ROWS = SELF ? kTileRows - 16 + 16 * KCH : 16 * KCH;
+  static constexpr int Q_BYTES = kTileRows * kRow;
+  static constexpr int KV_BYTES = KEY_ROWS * kRow;  // K or V
+  static constexpr int STAGE_BYTES = SELF ? Q_BYTES + 2 * KV_BYTES : Q_BYTES;
+  static constexpr int FIXED = SELF ? 0 : 2 * (2 * KV_BYTES + 4 * KEY_ROWS);
+  // 1024 bytes of slack to align the stages (the swizzle's period), and the
+  // barriers: full and empty for each of up to 4 stages, full and empty
+  // for each K/V buffer
+  static constexpr int EXTRA = 1024 + 8 * (2 * 4 + 4);
+  static constexpr int MIN_BLOCKS = KCH <= 5 && EXTRA + 2 * STAGE_BYTES + FIXED <= kHalfSmem ? 2 : 1;
+  static constexpr int BUDGET = MIN_BLOCKS == 2 ? kHalfSmem : 220 * 1024;
+  static constexpr int STAGES = clamp_int((BUDGET - EXTRA - FIXED) / STAGE_BYTES, 2, 4);
+  static constexpr int SMEM = EXTRA + STAGES * STAGE_BYTES + FIXED;
+  static_assert(SMEM <= 232448, "shared memory of a block");
+  static_assert(MIN_BLOCKS == 1 || 2 * (SMEM + 1024) <= 233472, "two blocks an SM");
+};
+
+// The schedule. Rows are cut into tiles (self: whole answers, at most 128
+// rows; cross: 128 rows inside one question), a question's tiles into
+// segments of `seg` tiles, and a unit is (segment, head), head fastest: unit
+// u is head u % heads of segment u / heads. Block b of the persistent grid
+// takes units b, b + grid, ...: the blocks in flight hold every head of a
+// few segments and walk their rows in step. Self mode is one "question" of
+// all rows.
+struct Sched {
+  const float* bias;
+  bf16* out;
+  int heads, tile_rows, rows_per_q, tiles_per_q, seg, segs_per_q, units, grid;
+  int la, lk, koff, voff, out_stride;
+  float scale_log2;  // scale * log2 e
+};
+
+struct Span {
+  int head, question, t0, t1;  // tiles [t0, t1) of the question
+};
+
+__host__ __device__ __forceinline__ Span unit_span(const Sched& sc, int u) {
+  const int s = u / sc.heads;
+  Span r;
+  r.head = u % sc.heads;
+  r.question = s / sc.segs_per_q;
+  r.t0 = (s % sc.segs_per_q) * sc.seg;
+  r.t1 = r.t0 + sc.seg < sc.tiles_per_q ? r.t0 + sc.seg : sc.tiles_per_q;
+  return r;
 }
 
+// Fill the schedule's shape fields for `cap` co-resident blocks: the
+// segment length that gives the busiest block the fewest tiles, the longer
+// one on a tie (fewer units: a cross unit loads its question's K and V).
+inline void schedule(Sched& sc, bool self, int rows, int heads, int la, int rows_per_q, int cap) {
+  sc.heads = heads;
+  sc.tile_rows = self ? (kTileRows / la) * la : kTileRows;
+  sc.rows_per_q = self ? rows : rows_per_q;
+  const int nq = rows / sc.rows_per_q;
+  sc.tiles_per_q = (sc.rows_per_q + sc.tile_rows - 1) / sc.tile_rows;
+  long long best = -1;
+  for (int seg = 1; seg <= sc.tiles_per_q; ++seg) {
+    const int segs = (sc.tiles_per_q + seg - 1) / seg;
+    const long long units = static_cast<long long>(nq) * segs * heads;
+    const long long grid = units < cap ? units : cap;
+    const long long cost = (units + grid - 1) / grid * seg;
+    if (best < 0 || cost <= best) {
+      best = cost;
+      sc.seg = seg;
+      sc.segs_per_q = segs;
+      sc.units = static_cast<int>(units);
+      sc.grid = static_cast<int>(grid);
+    }
+  }
+}
+
+// the address of 16-byte chunk `chunk` of row `row` in a region of 128-byte
+// rows under TMA's 128-byte swizzle (the region 1024-aligned)
+__device__ __forceinline__ uint32_t swz(uint32_t region, int row, int chunk) {
+  return region + row * kRow + ((chunk ^ (row & 7)) << 4);
+}
+
+// One warp's 16 rows of one tile and head, on mma.sync. sq, sk, sv: the
+// stage's Q rows and the K and V rows (shared-memory row 0 = the tile's
+// first row in self mode, the question's first key in cross mode); sb: the
+// question's bias times log2 e, padded (cross). Scores are taken in the
+// log2 domain, x = s * scale * log2 e + bias * log2 e in one FFMA, and
+// e = 2^(x - max) (ex2.approx): a few f32 ulps from exp(s * scale + bias -
+// max), as in the ViT attention. The context goes back into the warp's own
+// Q rows (which only this warp reads), then out as whole 128-byte rows.
 template <int KCH, bool SELF>
-__global__ void __launch_bounds__(kWarps * 32)
-attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const float* __restrict__ bias,
-                     bf16* __restrict__ out, int in_stride, int out_stride, int rows, int la,
-                     int rows_per_q, int lk, int tiles_per_q, float scale) {
-  constexpr int kKeyRows = mma_key_rows<KCH, SELF>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // [kTileRows][kLd]
-  bf16* sk = sq + kTileRows * kLd;               // [kKeyRows][kLd]
-  bf16* sv = sk + kKeyRows * kLd;                // [kKeyRows][kLd]
+__device__ __forceinline__ void attend_rows(const Sched& sc, uint32_t sq, uint32_t sk, uint32_t sv,
+                                            uint32_t sb, int r0, int nrows, int head,
+                                            const CUtensorMap* map_o) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int head = blockIdx.y;
-  int r0, nrows, key0, nkeys;
-  const float* kb = nullptr;
-  if (SELF) {
-    const int tile_rows = (kTileRows / la) * la;
-    r0 = blockIdx.x * tile_rows;
-    nrows = min(tile_rows, rows - r0);
-    key0 = r0;
-    nkeys = nrows;
-  } else {
-    const int question = blockIdx.x / tiles_per_q;
-    const int tile_idx = blockIdx.x % tiles_per_q;
-    r0 = question * rows_per_q + tile_idx * kTileRows;
-    nrows = min(kTileRows, rows_per_q - tile_idx * kTileRows);
-    key0 = question * lk;
-    nkeys = lk;
-    kb = bias + static_cast<size_t>(question) * lk;
-  }
-
-  for (int c = threadIdx.x; c < kTileRows * 8; c += kWarps * 32) {
-    const int r = c >> 3, d = (c & 7) * 8;
-    const bool ok = r < nrows;
-    tile::cp_async16(sq + r * kLd + d,
-                     ok ? q + static_cast<size_t>(r0 + r) * in_stride + head * kHd + d : q, ok);
-  }
-  for (int c = threadIdx.x; c < kKeyRows * 8; c += kWarps * 32) {
-    const int r = c >> 3, d = (c & 7) * 8;
-    const bool ok = r < nkeys;
-    const size_t gi = static_cast<size_t>(key0 + r) * in_stride + head * kHd + d;
-    tile::cp_async16(sk + r * kLd + d, ok ? k + gi : k, ok);
-    tile::cp_async16(sv + r * kLd + d, ok ? v + gi : v, ok);
-  }
-  tile::cp_async_commit();
-  tile::cp_async_wait<0>();
-  __syncthreads();
-  if (warp * 16 >= nrows) return;  // uniform over the warp; no barrier follows
-
-  // the window: shared-memory key rows [ks, ks + 16 * KCH)
+  const int la = sc.la;
+  // the window: key rows [ks, ks + 16 * KCH)
   const int ks = SELF ? ((r0 + warp * 16) / la) * la - r0 : 0;
-  const bf16* wk = sk + ks * kLd;
-  const bf16* wv = sv + ks * kLd;
 
   // S = Q K^T: (16 rows) x (16 * KCH keys), 2 * KCH n8 tiles
   float s[2 * KCH][4];
@@ -263,25 +331,26 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < 4; ++c) s[j][c] = 0.0f;
 #pragma unroll
-  for (int kk = 0; kk < kHd; kk += 16) {
+  for (int kk = 0; kk < kHd / 8; kk += 2) {
     unsigned a[4];
-    tile::ldmatrix_x4(a, sq + (warp * 16 + (lane & 15)) * kLd + kk + (lane >> 4) * 8);
+    tile::ldmatrix_x4(a, swz(sq, warp * 16 + (lane & 15), kk + (lane >> 4)));
 #pragma unroll
     for (int np = 0; np < KCH; ++np) {
       unsigned b[4];
-      tile::ldmatrix_x4(b, wk + (np * 16 + (lane & 7) + (lane >> 4) * 8) * kLd + kk +
-                               ((lane >> 3) & 1) * 8);
+      tile::ldmatrix_x4(b,
+                        swz(sk, ks + np * 16 + (lane & 7) + (lane >> 4) * 8, kk + ((lane >> 3) & 1)));
       tile::mma_bf16(s[2 * np], a, b[0], b[1]);
       tile::mma_bf16(s[2 * np + 1], a, b[2], b[3]);
     }
   }
 
-  // scale, mask and bias, the max and the sum of each of this thread's two rows
+  // scale and bias, or the causal mask; the max and the sum of each of this
+  // thread's two rows
   int row[2], first[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    row[h] = warp * 16 + g + 8 * h;                             // in the tile
-    first[h] = SELF ? ((r0 + row[h]) / la) * la - r0 : 0;       // its answer's first key
+    row[h] = warp * 16 + g + 8 * h;                          // in the tile
+    first[h] = SELF ? ((r0 + row[h]) / la) * la - r0 : 0;    // its answer's first key
   }
   float mx[2] = {-3.0e38f, -3.0e38f};
 #pragma unroll
@@ -289,12 +358,15 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int key = ks + j * 8 + 2 * t + e;  // shared-memory key row
-      const float kbv = !SELF && key < lk ? kb[key] : 0.0f;
+      float kbv = 0.0f;
+      if (!SELF) asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(kbv) : "r"(sb + 4 * key));
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const bool valid = SELF ? key >= first[h] && key <= row[h] : key < lk;
         float& x = s[j][2 * h + e];
-        x = valid ? x * scale + kbv : -3.0e38f;  // masked keys take no part
+        if (SELF)  // keys outside the row's answer prefix take no part
+          x = key >= first[h] && key <= row[h] ? x * sc.scale_log2 : -3.0e38f;
+        else  // padding keys carry -3e38, which leaves x at -3e38
+          x = fmaf(x, sc.scale_log2, kbv);
         mx[h] = fmaxf(mx[h], x);
       }
     }
@@ -310,7 +382,7 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float e[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      e[c] = expf(s[j][c] - mx[c >> 1]);
+      e[c] = tile::ex2(s[j][c] - mx[c >> 1]);
       denom[c >> 1] += e[c];
     }
     const __nv_bfloat162 lo = __floats2bfloat162_rn(e[0], e[1]);
@@ -318,62 +390,253 @@ attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     p[j >> 1][(j & 1) * 2] = *reinterpret_cast<const unsigned*>(&lo);
     p[j >> 1][(j & 1) * 2 + 1] = *reinterpret_cast<const unsigned*>(&hi);
   }
+  float inv[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     denom[h] += __shfl_xor_sync(0xffffffffu, denom[h], 1);
     denom[h] += __shfl_xor_sync(0xffffffffu, denom[h], 2);
+    inv[h] = 1.0f / denom[h];
   }
 
-  // O = P V: (16 rows) x (64 dims), 8 n8 tiles
-  float o[kHd / 8][4];
+  // O = P V: (16 rows) x (64 dims) in two halves of 32 (4 n8 tiles each,
+  // fewer live registers), each rounded into the warp's own Q rows as it
+  // is done (row r's dims 8 j + 2 t, + 1 go to chunk j of the row:
+  // conflict-free, the 8 rows of a column hit 8 chunks)
 #pragma unroll
-  for (int j = 0; j < kHd / 8; ++j)
+  for (int half = 0; half < 2; ++half) {
+    float o[4][4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) o[j][c] = 0.0f;
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-  for (int c = 0; c < KCH; ++c)
+      for (int c = 0; c < 4; ++c) o[j][c] = 0.0f;
 #pragma unroll
-    for (int dp = 0; dp < kHd / 16; ++dp) {
-      unsigned b[4];
-      tile::ldmatrix_x4_trans(b, wv + (c * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kLd +
-                                     dp * 16 + (lane >> 4) * 8);
-      tile::mma_bf16(o[2 * dp], p[c], b[0], b[1]);
-      tile::mma_bf16(o[2 * dp + 1], p[c], b[2], b[3]);
+    for (int c = 0; c < KCH; ++c)
+#pragma unroll
+      for (int dp = 0; dp < 2; ++dp) {
+        unsigned b[4];
+        tile::ldmatrix_x4_trans(b, swz(sv, ks + c * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                             half * 4 + dp * 2 + (lane >> 4)));
+        tile::mma_bf16(o[2 * dp], p[c], b[0], b[1]);
+        tile::mma_bf16(o[2 * dp + 1], p[c], b[2], b[3]);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const __nv_bfloat162 v2 = __floats2bfloat162_rn(o[j][2 * h] * inv[h], o[j][2 * h + 1] * inv[h]);
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(swz(sq, row[h], half * 4 + j) + 4 * t),
+                     "r"(*reinterpret_cast<const unsigned*>(&v2))
+                     : "memory");
+      }
+  }
+  __syncwarp();
+  // ... and out: the warp's 16 rows as one TMA box where all of them are
+  // the tile's, else as whole rows, 8 lanes a row, 16 bytes each
+  if (warp * 16 + 16 <= nrows) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for the TMA unit
+    __syncwarp();
+    if (lane == 0) {
+      wg::tma_store_2d(map_o, sq + warp * 16 * kRow, head * kHd, r0 + warp * 16);
+      wg::bulk_commit();
+      wg::bulk_wait_read();  // the stage is reloaded once the store has read it
     }
+    return;
+  }
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (row[h] >= nrows) continue;
-    bf16* orow = out + static_cast<size_t>(r0 + row[h]) * out_stride + head * kHd + 2 * t;
-#pragma unroll
-    for (int j = 0; j < kHd / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
-          __floats2bfloat162_rn(o[j][2 * h] / denom[h], o[j][2 * h + 1] / denom[h]);
+  for (int i = 0; i < 4; ++i) {
+    const int r = warp * 16 + i * 4 + (lane >> 3), c = lane & 7;
+    uint4 v;
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                 : "r"(swz(sq, r, c))
+                 : "memory");
+    if (r < nrows)
+      *reinterpret_cast<uint4*>(sc.out + static_cast<size_t>(r0 + r) * sc.out_stride +
+                                head * kHd + c * 8) = v;
   }
 }
 
 template <int KCH, bool SELF>
-int launch_mma(const void* q, const void* k, const void* v, const float* bias, void* out,
-               int rows, int heads, int in_stride, int out_stride, int la, int rows_per_q, int lk,
-               float scale, cudaStream_t stream) {
-  int blocks, tiles_per_q = 1;
-  if (SELF) {
-    const int tile_rows = (kTileRows / la) * la;
-    blocks = (rows + tile_rows - 1) / tile_rows;
+__global__ void __launch_bounds__(kPipeThreads, Pipe<KCH, SELF>::MIN_BLOCKS)
+attention_pipe_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_o, const Sched sc) {
+  using P = Pipe<KCH, SELF>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (wg::smem_u32(smem_raw) + 1023u) & ~1023u;
+  // cross: K and V of buffer b at kv(b), its bias at bias(b)
+  const uint32_t kv0 = base + P::STAGES * P::STAGE_BYTES;
+  auto kv = [&](int b) { return kv0 + b * 2 * P::KV_BYTES; };
+  auto bias = [&](int b) { return kv0 + 4 * P::KV_BYTES + b * 4 * P::KEY_ROWS; };
+  const uint32_t bars = kv0 + P::FIXED;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (P::STAGES + s); };
+  auto kv_full = [&](int b) { return bars + 8u * (2 * P::STAGES + b); };
+  auto kv_empty = [&](int b) { return bars + 8u * (2 * P::STAGES + 2 + b); };
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // zero the stages and buffers once: the rows no TMA box writes (past a
+  // self tile's answers, past the question's keys, a window's slack) must
+  // hold finite values, since a masked key's weight is 0 and 0 * NaN is not
+  for (uint32_t i = threadIdx.x; i < (P::STAGES * P::STAGE_BYTES + P::FIXED) / 16u;
+       i += kPipeThreads)
+    asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(base + 16u * i), "r"(0)
+                 : "memory");
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::STAGES; ++s) {
+      wg::mbar_init(full(s), 1);
+      wg::mbar_init(empty(s), kConsumers);
+    }
+    for (int b = 0; b < 2; ++b) {
+      wg::mbar_init(kv_full(b), 1);
+      wg::mbar_init(kv_empty(b), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the zeros, before any TMA write
+  __syncthreads();
+
+  if (warp == kConsumers) {  // the producer warp: lane 0 issues every load
+    if (lane == 0) {
+      wg::tma_prefetch(&map_q);
+      if (!SELF) {
+        wg::tma_prefetch(&map_k);
+        wg::tma_prefetch(&map_v);
+      }
+    }
+    int stage = 0, phase = 0, n = 0;
+    for (int u = blockIdx.x; u < sc.units; u += gridDim.x, ++n) {
+      const Span us = unit_span(sc, u);
+      const int col = us.head * kHd;
+      if (!SELF) {  // the question's K and V by TMA, its bias by the warp's lanes
+        const int b = n & 1;
+        wg::mbar_wait(kv_empty(b), ((n >> 1) & 1) ^ 1);
+        const float* qb = sc.bias + static_cast<size_t>(us.question) * sc.lk;
+        for (int j = lane; j < P::KEY_ROWS; j += 32) {
+          const float v = j < sc.lk ? __ldg(qb + j) * 1.4426950408889634f : -3.0e38f;
+          asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(bias(b) + 4 * j), "f"(v) : "memory");
+        }
+        __syncwarp();  // lane 0's arrive below releases the lanes' stores
+        if (lane == 0) {
+          wg::mbar_expect_tx(kv_full(b), 2 * sc.lk * kRow);
+          wg::tma_load_2d(kv(b), &map_k, kv_full(b), col, us.question * sc.lk);
+          wg::tma_load_2d(kv(b) + P::KV_BYTES, &map_v, kv_full(b), col, us.question * sc.lk);
+        }
+      }
+      for (int t = us.t0; t < us.t1; ++t) {
+        if (lane == 0) {
+          const int r0 = us.question * sc.rows_per_q + t * sc.tile_rows;
+          wg::mbar_wait(empty(stage), phase ^ 1);
+          const uint32_t s = base + stage * P::STAGE_BYTES;
+          if (SELF) {
+            wg::mbar_expect_tx(full(stage), 3 * sc.tile_rows * kRow);
+            wg::tma_load_2d(s, &map_q, full(stage), col, r0);
+            wg::tma_load_2d(s + P::Q_BYTES, &map_q, full(stage), sc.koff + col, r0);
+            wg::tma_load_2d(s + P::Q_BYTES + P::KV_BYTES, &map_q, full(stage), sc.voff + col, r0);
+          } else {
+            wg::mbar_expect_tx(full(stage), P::Q_BYTES);
+            wg::tma_load_2d(s, &map_q, full(stage), col, r0);
+          }
+        }
+        if (++stage == P::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  int stage = 0, phase = 0, n = 0;
+  for (int u = blockIdx.x; u < sc.units; u += gridDim.x, ++n) {
+    const Span us = unit_span(sc, u);
+    uint32_t sk = 0, sv = 0;
+    if (!SELF) {
+      wg::mbar_wait(kv_full(n & 1), (n >> 1) & 1);
+      sk = kv(n & 1);
+      sv = sk + P::KV_BYTES;
+    }
+    for (int t = us.t0; t < us.t1; ++t) {
+      const int r0 = us.question * sc.rows_per_q + t * sc.tile_rows;
+      const int nrows = min(sc.tile_rows, sc.rows_per_q - t * sc.tile_rows);
+      wg::mbar_wait(full(stage), phase);
+      const uint32_t sq = base + stage * P::STAGE_BYTES;
+      if (SELF) {
+        sk = sq + P::Q_BYTES;
+        sv = sk + P::KV_BYTES;
+      }
+      if (warp * 16 < nrows)
+        attend_rows<KCH, SELF>(sc, sq, sk, sv, bias(n & 1), r0, nrows, us.head, &map_o);
+      // the context was written through the generic proxy; the next TMA
+      // load into this stage must come after it
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) wg::mbar_arrive(empty(stage));
+      if (++stage == P::STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    if (!SELF) {
+      __syncwarp();
+      if (lane == 0) wg::mbar_arrive(kv_empty(n & 1));
+    }
+  }
+  if (lane == 0) wg::bulk_wait();  // the context's last TMA stores are done
+}
+
+// What a call launched, for the caller's record (the C entry's `launch`), in
+// this order: 1 for the tensor-core pipeline or 0 for the CUDA-core kernel;
+// blocks; threads a block; dynamic shared memory of a block, bytes; blocks
+// of the kernel an SM holds (the occupancy query) and SMs of the card (the
+// pipeline's; 0 otherwise); the TMA ring's depth, the units of (segment,
+// head) the grid walks and the row tiles a unit (the pipeline's; 0
+// otherwise); rows a tile.
+constexpr int kLaunchFields = 10;
+
+template <int KCH, bool SELF>
+int launch_pipe(const void* q, const void* k, const void* v, const float* bias, void* out,
+                int rows, int heads, int in_stride, int out_stride, int la, int rows_per_q, int lk,
+                float scale, int* launch, cudaStream_t stream) {
+  using P = Pipe<KCH, SELF>;
+  auto kernel = attention_pipe_kernel<KCH, SELF>;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  cudaError_t err = set_smem_once(fn, P::SMEM);
+  int dev = 0, sms = 0, resident = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = blocks_per_sm_once(fn, kPipeThreads, P::SMEM, &resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (resident < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  Sched sc{};
+  // the persistent grid: as many blocks as the card holds at once
+  schedule(sc, SELF, rows, heads, la, rows_per_q, sms * resident);
+  sc.bias = bias;
+  sc.out = static_cast<bf16*>(out);
+  sc.la = la;
+  sc.lk = lk;
+  sc.out_stride = out_stride;
+  sc.scale_log2 = scale * 1.4426950408889634f;
+  const bf16* qb = static_cast<const bf16*>(q);
+  CUtensorMap map_q, map_k, map_v, map_o;
+  if (SELF) {  // one map over the QKV block; K and V are columns of it
+    sc.koff = static_cast<int>(static_cast<const bf16*>(k) - qb);
+    sc.voff = static_cast<int>(static_cast<const bf16*>(v) - qb);
+    err = wg::make_map(&map_q, q, rows, in_stride, sc.tile_rows);
+    map_k = map_v = map_q;
   } else {
-    tiles_per_q = (rows_per_q + kTileRows - 1) / kTileRows;
-    blocks = (rows / rows_per_q) * tiles_per_q;
+    const int keys = rows / rows_per_q * lk;
+    err = wg::make_map(&map_q, q, rows, in_stride, kTileRows);
+    if (err == cudaSuccess) err = wg::make_map(&map_k, k, keys, in_stride, lk);
+    if (err == cudaSuccess) err = wg::make_map(&map_v, v, keys, in_stride, lk);
   }
-  const int smem =
-      (kTileRows + 2 * mma_key_rows<KCH, SELF>()) * kLd * static_cast<int>(sizeof(bf16));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attention_mma_kernel<KCH, SELF>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  attention_mma_kernel<KCH, SELF><<<dim3(blocks, heads), kWarps * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), bias,
-      static_cast<bf16*>(out), in_stride, out_stride, rows, la, rows_per_q, lk, tiles_per_q,
-      scale);
+  if (err == cudaSuccess) err = wg::make_map(&map_o, out, rows, out_stride, 16);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<sc.grid, kPipeThreads, P::SMEM, stream>>>(map_q, map_k, map_v, map_o, sc);
+  const int record[kLaunchFields] = {1, sc.grid, kPipeThreads, P::SMEM, resident, sms,
+                                     P::STAGES, sc.units, sc.seg, sc.tile_rows};
+  for (int i = 0; i < kLaunchFields; ++i) launch[i] = record[i];
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -385,14 +648,14 @@ int mma_chunks(int mode, int la, int lk) {
 }
 
 template <bool SELF>
-int dispatch_mma(int chunks, const void* q, const void* k, const void* v, const float* bias,
-                 void* out, int rows, int heads, int in_stride, int out_stride, int la,
-                 int rows_per_q, int lk, float scale, cudaStream_t s) {
+int dispatch_pipe(int chunks, const void* q, const void* k, const void* v, const float* bias,
+                  void* out, int rows, int heads, int in_stride, int out_stride, int la,
+                  int rows_per_q, int lk, float scale, int* launch, cudaStream_t s) {
   switch (chunks) {
-#define BQ_CASE(N)                                                                         \
-  case N:                                                                                  \
-    return launch_mma<N, SELF>(q, k, v, bias, out, rows, heads, in_stride, out_stride, la, \
-                               rows_per_q, lk, scale, s);
+#define BQ_CASE(N)                                                                          \
+  case N:                                                                                   \
+    return launch_pipe<N, SELF>(q, k, v, bias, out, rows, heads, in_stride, out_stride, la, \
+                                rows_per_q, lk, scale, launch, s);
     BQ_CASE(1) BQ_CASE(2) BQ_CASE(3) BQ_CASE(4) BQ_CASE(5) BQ_CASE(6) BQ_CASE(7) BQ_CASE(8)
 #undef BQ_CASE
     default:
@@ -401,9 +664,9 @@ int dispatch_mma(int chunks, const void* q, const void* k, const void* v, const 
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const float* bias, void* out, int rows,
-           int heads, int hd, int q_stride, int kv_stride, int out_stride, int la, int rows_per_q,
-           int lk, int mode, float scale, cudaStream_t stream) {
+int launch_simt(const void* q, const void* k, const void* v, const float* bias, void* out,
+                int rows, int heads, int hd, int q_stride, int kv_stride, int out_stride, int la,
+                int rows_per_q, int lk, int mode, float scale, int* launch, cudaStream_t stream) {
   const int max_keys = mode == 0 ? kTileRows : lk;
   const size_t smem = 2 * static_cast<size_t>(max_keys) * (hd + 2) * sizeof(T) +
                       static_cast<size_t>(kWarps) * (hd + max_keys) * sizeof(float);
@@ -412,9 +675,9 @@ int launch(const void* q, const void* k, const void* v, const float* bias, void*
         attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  int blocks, tiles_per_q = 1;
+  int blocks, tiles_per_q = 1, tile_rows = kTileRows;
   if (mode == 0) {
-    const int tile_rows = (kTileRows / la) * la;
+    tile_rows = (kTileRows / la) * la;
     blocks = (rows + tile_rows - 1) / tile_rows;
   } else {
     tiles_per_q = (rows_per_q + kTileRows - 1) / kTileRows;
@@ -424,6 +687,10 @@ int launch(const void* q, const void* k, const void* v, const float* bias, void*
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
       static_cast<T*>(out), rows, hd, q_stride, kv_stride, out_stride, la, rows_per_q, lk, mode,
       tiles_per_q, scale);
+  // one block a (tile, head); the occupancy and SM fields are left at 0
+  const int record[kLaunchFields] = {0, blocks * heads, kWarps * 32, static_cast<int>(smem), 0,
+                                     0, 0, 0, 0, tile_rows};
+  for (int i = 0; i < kLaunchFields; ++i) launch[i] = record[i];
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -433,12 +700,15 @@ int launch(const void* q, const void* k, const void* v, const float* bias, void*
 // (rows, 3H) block, q_stride = kv_stride = 3H; rows is a multiple of la and
 // la <= 128. mode 1 (cross): q (rows, H), k and v (rows / rows_per_q, lk, H),
 // bias (rows / rows_per_q, lk) f32. out (rows, H). hd even. dtype 1: bf16,
-// 0: f32. Returns cudaGetLastError() after the launch.
+// 0: f32. `launch` (kLaunchFields ints) receives what was launched: kernel,
+// grid, threads, shared memory, resident blocks an SM, SMs, ring depth,
+// units, tiles a unit, rows a tile. Returns cudaGetLastError() after the
+// launch.
 extern "C" int bq_scoring_attention(const void* q, const void* k, const void* v,
                                     const float* bias, void* out, int rows, int heads, int hd,
                                     int q_stride, int kv_stride, int out_stride, int la,
                                     int rows_per_q, int lk, int mode, float scale, int dtype,
-                                    void* stream) {
+                                    int* launch, void* stream) {
   if (hd % 2 || (mode == 0 && (la > kTileRows || rows % la)) ||
       (mode == 1 && (rows_per_q <= 0 || rows % rows_per_q || lk <= 0)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -451,14 +721,14 @@ extern "C" int bq_scoring_attention(const void* q, const void* k, const void* v,
   if (dtype == 1 && hd == kHd && aligned && chunks && q_stride == kv_stride &&
       q_stride % 8 == 0 && out_stride % 8 == 0) {
     if (mode == 0)
-      return dispatch_mma<true>(chunks, q, k, v, bias, out, rows, heads, q_stride, out_stride,
-                                la, rows_per_q, lk, scale, s);
-    return dispatch_mma<false>(chunks, q, k, v, bias, out, rows, heads, q_stride, out_stride, la,
-                               rows_per_q, lk, scale, s);
+      return dispatch_pipe<true>(chunks, q, k, v, bias, out, rows, heads, q_stride, out_stride,
+                                la, rows_per_q, lk, scale, launch, s);
+    return dispatch_pipe<false>(chunks, q, k, v, bias, out, rows, heads, q_stride, out_stride, la,
+                               rows_per_q, lk, scale, launch, s);
   }
   if (dtype == 1)
-    return launch<bf16>(q, k, v, bias, out, rows, heads, hd, q_stride, kv_stride, out_stride, la,
-                        rows_per_q, lk, mode, scale, s);
-  return launch<float>(q, k, v, bias, out, rows, heads, hd, q_stride, kv_stride, out_stride, la,
-                       rows_per_q, lk, mode, scale, s);
+    return launch_simt<bf16>(q, k, v, bias, out, rows, heads, hd, q_stride, kv_stride, out_stride,
+                             la, rows_per_q, lk, mode, scale, launch, s);
+  return launch_simt<float>(q, k, v, bias, out, rows, heads, hd, q_stride, kv_stride, out_stride,
+                            la, rows_per_q, lk, mode, scale, launch, s);
 }

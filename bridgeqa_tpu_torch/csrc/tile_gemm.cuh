@@ -1,7 +1,7 @@
 // The f32 matrix-product tile of the streaming vocabulary loss and of the
 // scoring GEMM (vocab_loss.cu and scoring_gemm.cu; their bf16 kernels run on
-// wgmma_gemm.cuh), and the cp.async, ldmatrix and mma.sync helpers of the
-// attention kernels.
+// wgmma_gemm.cuh), and the cp.async, ldmatrix, mma.sync and ex2 helpers of
+// the attention kernels.
 //
 // The tile is 64 x 64 of Y = X * W^T, X (M, K) and W (N, K) row-major, K
 // contiguous in both (W is an nn.Linear weight, or the tied word table), on
@@ -34,19 +34,31 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+// from a shared-memory address, or from a pointer into shared memory
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned s) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(s));
 }
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+  ldmatrix_x4(r, static_cast<unsigned>(__cvta_generic_to_shared(p)));
+}
 
 // ldmatrix with .trans: for a row-major (k, n) operand in shared memory
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], unsigned s) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(s));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
+  ldmatrix_x4_trans(r, static_cast<unsigned>(__cvta_generic_to_shared(p)));
+}
+
+// 2^x (ex2.approx): the attentions' softmax in the log2 domain
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,

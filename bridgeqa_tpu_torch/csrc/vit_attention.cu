@@ -64,12 +64,6 @@ constexpr int kRows = kWarpRows * kWarps;    // query rows of a block
 constexpr int kKeys = 64;                    // keys of a tile: 4 chunks of 16
 constexpr int kSmemBytes = (kRows + 4 * kKeys) * kLd * static_cast<int>(sizeof(bf16));
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __global__ void __launch_bounds__(kWarps * 32, 3)
 vit_attention_bf16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int n, int heads,
                           float scale_log2) {
@@ -185,7 +179,7 @@ vit_attention_bf16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, 
           tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
           tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 2));
           const float mn = fmaxf(m[mt][h], tm);  // finite: key 0 lies in tile 0
-          const float alpha = ex2((m[mt][h] - mn) * scale_log2);  // 0 at the first tile
+          const float alpha = tile::ex2((m[mt][h] - mn) * scale_log2);  // 0 at the first tile
           m[mt][h] = mn;
           ms[mt][h] = mn * scale_log2;
           l[mt][h] *= alpha;
@@ -208,7 +202,7 @@ vit_attention_bf16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, 
             float e[4];
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
-              e[q] = ex2(fmaf(s[mt][2 * c + jj][q], scale_log2, -ms[mt][q >> 1]));
+              e[q] = tile::ex2(fmaf(s[mt][2 * c + jj][q], scale_log2, -ms[mt][q >> 1]));
               l[mt][q >> 1] += e[q];
             }
             const __nv_bfloat162 lo = __floats2bfloat162_rn(e[0], e[1]);

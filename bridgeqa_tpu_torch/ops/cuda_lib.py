@@ -54,10 +54,10 @@ _SIGNATURES = {
     "bq_fps": [_P, _P, _P, _P, _I, _I, _I, _I, _IP, _IP, _P],
     "bq_cluster_barrier_loop": [_I, _I, _I, _P],
     "bq_ball_query_stripes": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                              ctypes.c_float, _P],
+                              ctypes.c_float, _I, _IP, _P],
     "bq_scoring_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bq_scoring_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                             ctypes.c_float, _I, _P],
+                             ctypes.c_float, _I, _IP, _P],
     "bq_scoring_layernorm": [_P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _P],
     "bq_vocab_reductions": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bq_vit_attention": [_P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],

@@ -16,6 +16,8 @@ tensor it runs ``ball_query_stripes_plain``, which follows
   features.
 """
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -29,6 +31,12 @@ _PLAIN_BLOCK = 256
 
 # kernel launches since the last reset (chip_smoke.py reads and resets it)
 launches = 0
+# what the last kernel launch was, as its C entry reports it: {"kernel":
+# "staged" (stripes staged in shared memory) or "warp" (a warp per centre),
+# "blocks", "centres_per_warp", "staged_whole" (the cloud staged once)}
+last_launch = None
+# centres a warp of the staged kernel may be set to test
+CENTRES_PER_WARP = (1, 2, 4, 8)
 
 
 def stripe_plan(n: int, nsample: int) -> tuple[int, int]:
@@ -48,16 +56,22 @@ def _r2(radius: float) -> float:
 
 
 def ball_query_stripes(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
-                       feats: torch.Tensor | None = None):
+                       feats: torch.Tensor | None = None, *, centres_per_warp: int | None = None):
     """Stripe ball query with in-sweep grouping.
 
     xyz (B, N, 3), new_xyz (B, M, 3), feats (B, N, F) with F <= 4 or None.
     Returns (idx (B, M, nsample) int32, rel (B, M, nsample, 3) f32,
     grouped feats (B, M, nsample, F) f32 or None). Inputs are cast to f32 on
-    entry, as the JAX op does under any compute dtype."""
-    global launches
+    entry, as the JAX op does under any compute dtype.
+    ``centres_per_warp`` (1, 2, 4 or 8) runs the kernel that stages the
+    stripes with that many centres a warp instead of its own choice, at any
+    cloud size, for the card tests."""
+    global launches, last_launch
     if nsample % 2:
         raise ValueError(f"the stripe rule needs an even nsample, got {nsample}")
+    if centres_per_warp is not None and centres_per_warp not in CENTRES_PER_WARP:
+        raise ValueError(f"centres_per_warp must be one of {CENTRES_PER_WARP}, "
+                         f"got {centres_per_warp}")
     if xyz.dim() != 3 or xyz.shape[-1] != 3 or new_xyz.dim() != 3 or new_xyz.shape[-1] != 3:
         raise ValueError(f"xyz and new_xyz must be (B, N, 3), got {tuple(xyz.shape)}, "
                          f"{tuple(new_xyz.shape)}")
@@ -86,13 +100,16 @@ def ball_query_stripes(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: 
     idx = torch.empty((b, m, nsample), dtype=torch.int32, device=dev)
     rel = torch.empty((b, m, nsample, 3), dtype=torch.float32, device=dev)
     fout = torch.empty((b, m, nsample, nf), dtype=torch.float32, device=dev) if nf else None
+    record = (ctypes.c_int * 4)()
     rc = cuda_lib.lib().bq_ball_query_stripes(
         xyz.data_ptr(), new_xyz.data_ptr(), feats.data_ptr() if nf else None,
         idx.data_ptr(), rel.data_ptr(), fout.data_ptr() if nf else None,
         b, n, m, nsample, stripes, np_padded // stripes, picks, nf, _r2(radius),
-        cuda_lib.stream_handle(dev))
+        centres_per_warp or 0, record, cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, "bq_ball_query_stripes")
     launches += 1
+    last_launch = dict(kernel="staged" if record[0] else "warp", blocks=record[1],
+                       centres_per_warp=record[2], staged_whole=bool(record[3]))
     return idx, rel, fout
 
 

@@ -37,6 +37,7 @@ Weights are in ``nn.Linear`` layout, (out, in): the transposed flax kernel,
 as everywhere in the port.
 """
 
+import ctypes
 import math
 
 import torch
@@ -54,6 +55,28 @@ _MAX_SMEM = 232448
 launches = {"scoring_gemm": 0, "scoring_attention": 0, "scoring_layernorm": 0}
 # launches of each kernel that one ``scoring_layer`` call makes
 LAUNCHES_PER_LAYER = {"scoring_gemm": 6, "scoring_attention": 2, "scoring_layernorm": 3}
+# the fields of an attention launch as the C entry reports them (kLaunchFields
+# in csrc/scoring_attention.cu): "pipeline" 1 for the tensor-core pipeline, 0
+# for the CUDA-core kernel; "blocks"; "threads" a block; "smem" bytes of
+# dynamic shared memory a block; "resident" blocks an SM holds and "sms" of
+# the card (the pipeline's persistent grid); "stages" of its TMA ring;
+# "units" of (segment, head); "seg" row tiles a unit; "tile_rows"
+ATTENTION_LAUNCH_FIELDS = ("pipeline", "blocks", "threads", "smem", "resident", "sms", "stages",
+                           "units", "seg", "tile_rows")
+# the last attention launch, a dict of ATTENTION_LAUNCH_FIELDS
+last_attention_launch = None
+
+
+def _attention(device: torch.device, *args) -> None:
+    """Launch ``bq_scoring_attention`` with ``args`` (all but its launch
+    record and stream) on ``device``'s current stream, count the launch and
+    keep its record."""
+    global last_attention_launch
+    record = (ctypes.c_int * len(ATTENTION_LAUNCH_FIELDS))()
+    rc = cuda_lib.lib().bq_scoring_attention(*args, record, cuda_lib.stream_handle(device))
+    cuda_lib.check(rc, "bq_scoring_attention")
+    launches["scoring_attention"] += 1
+    last_attention_launch = dict(zip(ATTENTION_LAUNCH_FIELDS, record))
 
 
 def _check_f32(name: str, *tensors: torch.Tensor) -> None:
@@ -142,12 +165,8 @@ def self_attention(qkv: torch.Tensor, *, la: int, heads: int) -> torch.Tensor:
                          f"got {hd}, {la}")
     out = torch.empty((r, h), dtype=qkv.dtype, device=qkv.device)
     base, step = qkv.data_ptr(), h * qkv.element_size()
-    rc = cuda_lib.lib().bq_scoring_attention(
-        base, base + step, base + 2 * step, None, out.data_ptr(), r, heads, hd, h3, h3, h, la, 0,
-        0, 0, 1.0 / math.sqrt(hd), cuda_lib.DTYPE_CODES[qkv.dtype],
-        cuda_lib.stream_handle(qkv.device))
-    cuda_lib.check(rc, "bq_scoring_attention")
-    launches["scoring_attention"] += 1
+    _attention(qkv.device, base, base + step, base + 2 * step, None, out.data_ptr(), r, heads, hd,
+               h3, h3, h, la, 0, 0, 0, 1.0 / math.sqrt(hd), cuda_lib.DTYPE_CODES[qkv.dtype])
     return out
 
 
@@ -192,12 +211,9 @@ def cross_attention(qc: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, cbias:
         raise ValueError(f"cross_attention: head width {hd} (must be even) or {lk} keys do not "
                          "fit one block")
     out = torch.empty_like(qc)
-    rc = cuda_lib.lib().bq_scoring_attention(
-        qc.data_ptr(), ck.data_ptr(), cv.data_ptr(), cbias.data_ptr(), out.data_ptr(), r, heads,
-        hd, h, h, h, 1, r // nq, lk, 1, 1.0 / math.sqrt(hd), cuda_lib.DTYPE_CODES[qc.dtype],
-        cuda_lib.stream_handle(qc.device))
-    cuda_lib.check(rc, "bq_scoring_attention")
-    launches["scoring_attention"] += 1
+    _attention(qc.device, qc.data_ptr(), ck.data_ptr(), cv.data_ptr(), cbias.data_ptr(),
+               out.data_ptr(), r, heads, hd, h, h, h, 1, r // nq, lk, 1, 1.0 / math.sqrt(hd),
+               cuda_lib.DTYPE_CODES[qc.dtype])
     return out
 
 

@@ -11,10 +11,12 @@ result is printed):
    JAX and nothing of the JAX package (``bridgeqa_tpu``).
 2. build: compile every ``bridgeqa_tpu_torch/csrc/*.cu`` for sm_90a; print
    ptxas's register, spill and shared-memory lines for the redesigned
-   kernels (the bf16 GEMM, the ViT attention, FPS's cluster kernel and the
-   vocabulary pass); disassemble the library (``cuobjdump -sass``) and fail
-   unless every instantiation of the bf16 GEMM and the vocabulary pass's
-   bf16 kernel hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads).
+   kernels (the bf16 GEMM, the ViT attention, FPS's cluster kernel, the
+   vocabulary pass, the scoring attentions' pipeline and the ball query);
+   disassemble the library (``cuobjdump -sass``) and fail unless every
+   instantiation of the bf16 GEMM and the vocabulary pass's bf16 kernel
+   hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads), and every
+   instantiation of the scoring attentions' pipeline ``UTMALDG``.
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at every shape the main path gives it, batch 8.
    - FPS and the stripe ball query, with padding points, duplicate points,
@@ -56,14 +58,23 @@ result is printed):
    as loops of back-to-back calls between two CUDA events (ms per call,
    median of three loops), so the wrappers' host time overlaps the card's
    work instead of adding to it; each is printed with its bound (below).
-   The LayerNorms and the smaller products take the card less time than
-   their wrappers take the host, so the LayerNorm and GEMM rows' three
-   times are the card time of such a loop, read from ``torch.profiler``.
+   The LayerNorms, the smaller products, the scoring attentions and the
+   ball query take the card about as long as, or less time than, their
+   wrappers take the host, so the LayerNorm, GEMM, scoring-attention and
+   ball-query rows' times, the library calls beside them included, are the
+   card time of such a loop, read from ``torch.profiler`` (``device_ms``,
+   which takes a trace again if it lacks a card record of some launch and
+   counts such traces). The scoring-attention and ball-query rows carry
+   the launch their C entry reports having made (kernel, grid, and the
+   ring's depth and shared memory, or the centres a warp); the main path's
+   attentions must have run the tensor-core pipeline. The ball query's log
+   lines also give its bound in unfused f32 instructions (its source builds
+   with ``-fmad=false``).
    The gather's wrapper waits for the card in its index check; its loop
    time is printed beside its card time. Then each GEMM
    shape's time over ``F.linear``'s and the per-forward sums, the ViT
-   attention's over SDPA's, and the host time per call of those two
-   wrappers.
+   attention's and the scoring attentions' over SDPA's, and the host time
+   per call of the GEMM's and the ViT attention's wrappers.
 4. reference: a tiny rank forward on the card (kernels, f32) against the
    same weights on the CPU (plain versions, f32), hidden 128 and 2 heads so
    that the fused scoring path and the fused ViT run (``fused_scoring=
@@ -176,25 +187,41 @@ def time_ms(fn, reps: int, loops: int = 3) -> float:
     return statistics.median(times)
 
 
+# the host's calls that put work on the card, as the profiler names them
+_LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")
+# traces of a device_ms that lacked some of their launches' work, since the
+# process began: (reps, launch calls, card records) of each
+dropped_traces = []
+
+
 def device_ms(fn, reps: int) -> float:
     """ms of card time per call of ``fn``: the durations of every kernel
     (and copy) that a loop of ``reps`` back-to-back calls runs, read from
-    ``torch.profiler``, over ``reps``. For kernels that take the card less
-    time than their wrapper takes the host, where ``time_ms`` reads the
-    host. A trace that lost the card's records (fewer than one a call) is
-    taken again, up to three times."""
+    ``torch.profiler``'s records of the card, over ``reps``. For kernels that
+    take the card less time than their wrapper takes the host, where
+    ``time_ms`` reads the host. A trace is used only if it holds a card
+    record for every launch the host made in it; one that lost some
+    (``dropped_traces``) is taken again, up to five times."""
+    from torch.autograd import DeviceType
+
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        work = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        if len(work) >= reps:
-            return sum(e.device_time_total for e in work) / 1e3 / reps
-    raise RuntimeError("device_ms: torch.profiler recorded no card time")
+        events = prof.profiler.kineto_results.events()
+        work = [e for e in events if e.device_type() == DeviceType.CUDA]
+        calls = sum(1 for e in events if e.device_type() == DeviceType.CPU
+                    and e.name().startswith(_LAUNCH_CALLS))
+        if work and len(work) >= calls:
+            return sum(e.duration_ns() for e in work) / 1e6 / reps
+        dropped_traces.append((reps, calls, len(work)))
+        log(f"device_ms: a trace of {reps} calls held {len(work)} card records for {calls} "
+            "launches; taken again")
+    raise RuntimeError("device_ms: torch.profiler lost the card's records five times in a row")
 
 
 def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
@@ -240,12 +267,13 @@ def phase_device():
 # the redesigned kernels whose ptxas lines phase 2 prints (parts of their
 # mangled names)
 PTXAS_KERNELS = ("gemm_kernel", "vit_attention_bf16_kernel", "fps_cluster_kernel",
-                 "vocab_wgmma_kernel")
-# kernels on the wgmma main loop (parts of their mangled names: wg::gemm_kernel
-# <...>, the vocabulary pass) and the instructions their SASS must hold: the
-# Hopper tensor-core product and the TMA tile load
-WGMMA_KERNELS = ("wg11gemm_kernel", "vocab_wgmma_kernel")
-GEMM_SASS = ("HGMMA", "UTMALDG")
+                 "vocab_wgmma_kernel", "attention_pipe_kernel", "ball_query_stripes_kernel")
+# kernels whose SASS must hold Hopper instructions (parts of their mangled
+# names: wg::gemm_kernel<...>, the vocabulary pass, the scoring attentions'
+# pipeline), and which: the wgmma product (HGMMA) and the TMA tile load
+# (UTMALDG)
+SASS_KERNELS = {"wg11gemm_kernel": ("HGMMA", "UTMALDG"), "vocab_wgmma_kernel": ("HGMMA", "UTMALDG"),
+                "attention_pipe_kernel": ("UTMALDG",)}
 
 
 def ptxas_lines(build_log: str) -> list[str]:
@@ -266,10 +294,9 @@ def ptxas_lines(build_log: str) -> list[str]:
 
 def sass_check(library) -> dict:
     """Disassemble the kernel library with ``cuobjdump -sass`` and count, in
-    each kernel on the wgmma main loop (``WGMMA_KERNELS``: every
-    instantiation of the bf16 GEMM, the vocabulary pass), the instructions
-    of ``GEMM_SASS``; raise unless every one holds both, and the vocabulary
-    pass is among them."""
+    each kernel of ``SASS_KERNELS`` (every instantiation), the instructions
+    it must hold; raise unless every one holds them all, and every entry of
+    ``SASS_KERNELS`` is among the kernels."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -279,17 +306,18 @@ def sass_check(library) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            if any(k in name for k in WGMMA_KERNELS):
-                counts[name] = dict.fromkeys(GEMM_SASS, 0)
+            ops = next((o for k, o in SASS_KERNELS.items() if k in name), None)
+            if ops:
+                counts[name] = dict.fromkeys(ops, 0)
             else:
                 name = None
         elif name:
-            for op in GEMM_SASS:
+            for op in counts[name]:
                 if op in line:
                     counts[name][op] += 1
-    if (not all(any(k in name for name in counts) for k in WGMMA_KERNELS)
+    if (not all(any(k in name for name in counts) for k in SASS_KERNELS)
             or any(n == 0 for c in counts.values() for n in c.values())):
-        raise AssertionError(f"the wgmma kernels' SASS lacks {GEMM_SASS}: {counts}")
+        raise AssertionError(f"the Hopper kernels' SASS lacks {SASS_KERNELS}: {counts}")
     return counts
 
 
@@ -301,7 +329,8 @@ def phase_build():
     for line in cuda_lib.build_log.splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
-    log("ptxas, the redesigned kernels (bf16 GEMM, ViT attention, FPS, vocabulary pass):")
+    log("ptxas, the redesigned kernels (bf16 GEMM, ViT attention, FPS, vocabulary pass, scoring "
+        "attentions, ball query):")
     for line in ptxas_lines(cuda_lib.build_log) or ["(library reused: no build log)"]:
         log(f"  {line}")
     for fn, c in sass_check(cuda_lib.library_path).items():
@@ -427,27 +456,35 @@ def phase_kernels(device, batch: int = BATCH, fps_shapes=FPS_SHAPES, bq_shapes=B
         ctr = torch.from_numpy(centres).to(device)
         feats = torch.from_numpy(rng.rand(batch, n, nf).astype(np.float32)).to(device) if nf else None
         out = grouping.ball_query_stripes(radius, ns, xyz, ctr, feats)
+        launch = dict(grouping.last_launch)
         ref = grouping.ball_query_stripes_plain(radius, ns, xyz, ctr, feats)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) if a is not None else b is None for a, b in zip(out, ref))
         err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(out, ref) if a is not None)
         empty = bool((out[0][:, :4] == 0).all())
-        ms = time_ms(lambda: grouping.ball_query_stripes(radius, ns, xyz, ctr, feats), reps)
-        plain_ms = time_ms(lambda: grouping.ball_query_stripes_plain(radius, ns, xyz, ctr, feats),
-                           max(1, reps // 2))
+        # card time: at the small shapes a call takes the card less time than
+        # its wrapper takes the host
+        ms = device_ms(lambda: grouping.ball_query_stripes(radius, ns, xyz, ctr, feats), reps)
+        plain_ms = device_ms(lambda: grouping.ball_query_stripes_plain(radius, ns, xyz, ctr, feats),
+                             max(1, reps // 2))
         picks, np_padded = grouping.stripe_plan(n, ns)
         # a distance test: 3 sub, 3 mul, 2 add, a compare
         tests = stripe_scan_tests(radius, ns, xyz, ctr)
         bound_ms, bound_by = bound(tests * 9.0, batch * (n * (12 + 4 * nf) + m * 12
                                                          + m * ns * (4 + 12 + 4 * nf)), PEAK_F32)
+        # the same tests as unfused instructions (the source builds with
+        # -fmad=false): one a lane and cycle, 33.5e12 a second
+        unfused_ms = tests * 9.0 / (PEAK_F32 / 2) * 1e3
         bq_rows.append(dict(shape=f"{name}: N={n} padded to {np_padded}, {picks} pick(s), "
                                   f"M={m}, nsample={ns}, r={radius}, nf={nf}, batch {batch}",
                             calls=1, bitwise=same and empty, max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                            bound_by=bound_by, distance_tests=tests))
+                            bound_by=bound_by, distance_tests=tests, launch=launch))
         log(f"ball query {name}: N={n} (padded {np_padded}, {picks} pick(s)), M={m}, ns={ns}, "
-            f"r={radius}, nf={nf}: bitwise {same}, empty balls {empty}, kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {tests} tests)")
+            f"r={radius}, nf={nf}: bitwise {same}, empty balls {empty}, kernel {ms:.4f} ms card "
+            f"time, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {tests} tests), "
+            f"in unfused instructions {unfused_ms:.4f} ms ({ms / unfused_ms:.2f}x); launch "
+            f"{json.dumps(launch)}")
     bad = [r for r in fps_rows + bq_rows if not r["bitwise"]]
     if bad:
         raise AssertionError(f"kernel and plain version disagree: {bad}")
@@ -460,12 +497,24 @@ def phase_kernels(device, batch: int = BATCH, fps_shapes=FPS_SHAPES, bq_shapes=B
     ]
 
 
+def attention_launch(mode: str):
+    """The record of the last attention launch (the C entry's report); the
+    main path's bf16 shapes must have run the tensor-core pipeline."""
+    from bridgeqa_tpu_torch.ops import scoring_layer as sl
+
+    launch = dict(sl.last_attention_launch)
+    if launch["pipeline"] != 1:
+        raise AssertionError(f"the {mode} attention at the main path's shape did not run the "
+                             f"tensor-core pipeline: {launch}")
+    return launch
+
+
 def _bf16_tol(want) -> float:
     return 2.0**-6 * float(want.float().abs().max())
 
 
 def check_row(rows, failures, name, shape, checks, ms, plain_ms, library_ms, flops, nbytes, peak,
-              calls, note=""):
+              calls, note="", launch=None):
     """Append one shape's row to ``rows`` and log it. ``checks``: {output:
     (bf16 error, its tolerance, f32 error, its tolerance)}, one entry for
     each output the kernel writes; a check outside its tolerance is added to
@@ -480,12 +529,15 @@ def check_row(rows, failures, name, shape, checks, ms, plain_ms, library_ms, flo
                      max_abs_err=max(c["max_abs_err"] for c in checks.values()), checks=checks,
                      ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                      bound_by=bound_by, note=note))
+    if launch is not None:
+        rows[-1]["launch"] = launch
     lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
     errs = "; ".join(f"{out} err {c['max_abs_err']:.3g} (tol {c['tolerance']:.3g}), f32 err "
                      f"{c['f32_max_abs_err']:.3g} (tol {c['f32_tolerance']:.3g})"
                      for out, c in checks.items())
-    log(f"{name} {shape}: {errs}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib}, "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"{name} {shape}: {errs}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library {lib}, "
+        f"bound {bound_ms:.4f} ms ({bound_by}); {note}"
+        + ("" if launch is None else f"; launch {json.dumps(launch)}"))
 
 
 def one_output(err, want, f32_err):
@@ -536,6 +588,7 @@ def phase_scoring_kernels(device, layers: int, reps: int = 10):
     qkv = randn(rows_n, 3 * h)
     seqs = rows_n // la
     got = sl.self_attention(qkv, la=la, heads=HEADS)
+    launch = attention_launch("self")
     want = sl.self_attention_plain(qkv, la=la, heads=HEADS)
     qkv32 = qkv.float()
     f32_err = max_err(sl.self_attention(qkv32, la=la, heads=HEADS),
@@ -544,11 +597,11 @@ def phase_scoring_kernels(device, layers: int, reps: int = 10):
     check_row(attn_rows, failures, "scoring_attention",
               f"self: ({rows_n}, {3 * h}), {seqs} answers of {la}",
               one_output(max_err(got, want), want, f32_err),
-              time_ms(lambda: sl.self_attention(qkv, la=la, heads=HEADS), reps),
-              time_ms(lambda: sl.self_attention_plain(qkv, la=la, heads=HEADS), 3),
-              time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), reps),
+              device_ms(lambda: sl.self_attention(qkv, la=la, heads=HEADS), reps),
+              device_ms(lambda: sl.self_attention_plain(qkv, la=la, heads=HEADS), 3),
+              device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), reps),
               4.0 * HEADS * seqs * (la * (la + 1) // 2) * hd, 2 * (rows_n * 3 * h + rows_n * h),
-              PEAK_BF16, per_layer, "library: scaled_dot_product_attention, causal")
+              PEAK_BF16, per_layer, "library: scaled_dot_product_attention, causal", launch)
     del qkv, qkv32, q, k, v, got, want
 
     rows_q = rows_n // BATCH
@@ -558,6 +611,7 @@ def phase_scoring_kernels(device, layers: int, reps: int = 10):
     keep = torch.arange(QUESTION_LEN, device=device)[None, :] < valid[:, None]
     cbias = torch.where(keep, 0.0, sl.NEG).float()
     got = sl.cross_attention(qc, ck, cv, cbias, heads=HEADS)
+    launch = attention_launch("cross")
     want = sl.cross_attention_plain(qc, ck, cv, cbias, heads=HEADS)
     f32_err = max_err(sl.cross_attention(qc.float(), ck.float(), cv.float(), cbias, heads=HEADS),
                       sl.cross_attention_plain(qc.float(), ck.float(), cv.float(), cbias,
@@ -569,12 +623,12 @@ def phase_scoring_kernels(device, layers: int, reps: int = 10):
     check_row(attn_rows, failures, "scoring_attention",
               f"cross: ({rows_n}, {h}) against ({BATCH}, {QUESTION_LEN}, {h}), "
               f"{int(valid.sum())} valid keys", one_output(max_err(got, want), want, f32_err),
-              time_ms(lambda: sl.cross_attention(qc, ck, cv, cbias, heads=HEADS), reps),
-              time_ms(lambda: sl.cross_attention_plain(qc, ck, cv, cbias, heads=HEADS), 3),
-              time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask16), reps),
+              device_ms(lambda: sl.cross_attention(qc, ck, cv, cbias, heads=HEADS), reps),
+              device_ms(lambda: sl.cross_attention_plain(qc, ck, cv, cbias, heads=HEADS), 3),
+              device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask16), reps),
               4.0 * rows_q * h * float(valid.sum()),
               2 * (2 * rows_n * h + 2 * BATCH * QUESTION_LEN * h) + 4 * BATCH * QUESTION_LEN,
-              PEAK_BF16, per_layer, "library: scaled_dot_product_attention, additive mask")
+              PEAK_BF16, per_layer, "library: scaled_dot_product_attention, additive mask", launch)
     del qc, ck, cv, qh, kh, vh, got, want
 
     ln_rows = []
@@ -1193,7 +1247,10 @@ def phase_main_path(device, reps: int = 5):
 def report_ratios(kernels: dict) -> None:
     """Each product's time over ``F.linear``'s, and the per-forward sums of
     both (decoder and ViT shapes, each shape's ms times its calls); the ViT
-    attention's time over ``scaled_dot_product_attention``'s."""
+    attention's and the scoring attentions' times over
+    ``scaled_dot_product_attention``'s (the scoring attentions' both card
+    time, the ViT attention's both event-loop time); the traces
+    ``device_ms`` took again."""
     rows = kernels["scoring_gemm"]["rows"]
     for r in rows:
         log(f"scoring_gemm {r['shape']}: {r['ms']:.4f} ms, F.linear {r['library_ms']:.4f} ms, "
@@ -1204,9 +1261,12 @@ def report_ratios(kernels: dict) -> None:
         lib = sum(r["library_ms"] * r["calls"] for r in rows if keep(r))
         log(f"scoring_gemm per forward, {part} shapes: {ms:.3f} ms, F.linear {lib:.3f} ms, "
             f"ratio {ms / lib:.2f}")
-    for r in kernels["vit_attention"]["rows"]:
-        log(f"vit_attention {r['shape']}: {r['ms']:.4f} ms, scaled_dot_product_attention "
-            f"{r['library_ms']:.4f} ms, ratio {r['ms'] / r['library_ms']:.2f}")
+    for name in ("vit_attention", "scoring_attention"):
+        for r in kernels[name]["rows"]:
+            log(f"{name} {r['shape']}: {r['ms']:.4f} ms, scaled_dot_product_attention "
+                f"{r['library_ms']:.4f} ms, ratio {r['ms'] / r['library_ms']:.2f}")
+    log(f"device_ms: {len(dropped_traces)} trace(s) lacked card records and were taken again "
+        f"(reps, launches, card records): {dropped_traces}")
 
 
 def summarize(kernel, launches: int) -> dict:

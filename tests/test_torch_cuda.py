@@ -10,7 +10,10 @@ machine does not have; this file imports none.) On the edge cases
 
 - the point kernels must agree with their plain versions bitwise: NaN
   coordinates, an all-padding cloud, 4 feature channels, both stripe plans,
-  clouds shorter than one stripe quantum; FPS at every cluster size, with
+  clouds shorter than one stripe quantum; the ball query's planted cases
+  (d2 == r2, a centre on a point, duplicates across stripes, warps and
+  blocks, empty balls) at the launch it picks and at 1, 2, 4 and 8 centres
+  a warp; FPS at every cluster size, with
   duplicates whose tie crosses the clusters' merge, batches of 20 and 32,
   clusters in waves, and slices in global memory;
 - the scoring kernels (GEMM, both attentions, LayerNorm, vocabulary
@@ -194,6 +197,99 @@ def test_ball_query_kernel_matches_plain(card, n, nsample, nf):
     assert (out[0][:, :4] == 0).all()
 
 
+def _ball_query_matches_plain(card, radius, nsample, xyz, ctr, feats, centres_per_warp=None):
+    args = (radius, nsample, torch.from_numpy(xyz).to(card), torch.from_numpy(ctr).to(card),
+            None if feats is None else torch.from_numpy(feats).to(card))
+    before = grouping.launches
+    out = grouping.ball_query_stripes(*args, centres_per_warp=centres_per_warp)
+    assert grouping.launches == before + 1
+    ref = grouping.ball_query_stripes_plain(*args)
+    torch.cuda.synchronize()
+    for got, want in zip(out, ref):
+        assert (got is None and want is None) or torch.equal(got, want)
+    return out
+
+
+@pytest.mark.parametrize("shape", range(5))
+def test_ball_query_main_path_shapes(card, shape):
+    """Each of the main path's five shapes (``chip_smoke.BQ_SHAPES``) at
+    batch 2, with chip_smoke's clouds: padding, duplicates, empty balls."""
+    import chip_smoke
+
+    _, n, m, nsample, radius, nf = chip_smoke.BQ_SHAPES[shape]
+    rng = np.random.RandomState(40 + shape)
+    xyz = chip_smoke.make_cloud(rng, 2, n)
+    ctr = xyz[:, rng.permutation(n)[:m]].copy()
+    ctr[:, :4] += 100.0  # empty balls
+    feats = rng.rand(2, n, nf).astype(np.float32) if nf else None
+    out = _ball_query_matches_plain(card, radius, nsample, xyz, ctr, feats)
+    assert (out[0][:, :4] == 0).all()
+
+
+# (points, nsample, picks): clouds of up to 512 points (one warp per centre
+# unless the centres a warp are set), clouds staged whole (up to 2048
+# points), stripe by stripe, and in several pieces a stripe (70000 points:
+# stripes of 8832); both stripe plans
+_EDGE_CLOUDS = [(512, 4, 1), (300, 16, 2), (1024, 8, 1), (600, 16, 2), (5000, 8, 1),
+                (5000, 16, 2), (70000, 16, 2)]
+
+
+def _planted_edges(card, n, nsample, picks, nf, centres_per_warp=None):
+    """100 centres of 2 clouds (more than one block takes at any centres a
+    warp): a point at exactly d2 == r2 (not in the ball), a centre on a
+    point, duplicate points on both sides of a stripe boundary, duplicate
+    centres on both sides of every block's and every warp's centre group
+    (a block holds 8, 16, 32 or 64 centres), empty balls in one warp beside
+    centres that are not, and a warp of 8 centres whose balls are all
+    empty."""
+    assert grouping.stripe_plan(n, nsample)[0] == picks
+    width = grouping.stripe_plan(n, nsample)[1] // (nsample // picks)
+    rng = np.random.RandomState(n + nf)
+    xyz = _cloud(rng, 2, n)
+    ctr = _cloud(rng, 2, 100)
+    ctr[:, 0] = [0.25, 0.0, 0.0]
+    xyz[:, :5] = 3.0  # out of its ball: point 6 is its first in stripe 0
+    xyz[:, 5] = [0.75, 0.0, 0.0]  # d2 = 0.25 = r2 exactly: not in the ball
+    xyz[:, 6] = [0.25, 0.0, 0.0]  # the centre on a point
+    xyz[:, width] = xyz[:, width - 1]  # duplicates across the first stripe boundary
+    ctr[:, 1] = xyz[:, width]  # a centre on them
+    bounds = (2, 4, 8, 16, 32, 64)  # where warps of 2, 4, 8 and blocks of 8 ... 64 end
+    for k in bounds:
+        ctr[:, k] = ctr[:, k - 1]
+    ctr[:, 40:44] += 10.0  # empty balls
+    ctr[:, 72:80] += 10.0  # a whole warp of 8 empty balls
+    feats = rng.randn(2, n, nf).astype(np.float32) if nf else None
+    idx, rel, _ = _ball_query_matches_plain(card, 0.5, nsample, xyz, ctr, feats, centres_per_warp)
+    for empty in (slice(40, 44), slice(72, 80)):
+        assert (idx[:, empty] == 0).all() and (rel[:, empty] == 0).all()
+    assert not (idx[:, 0] == 5).any() and (idx[:, 0] == 6).any()
+    for k in bounds:
+        assert torch.equal(idx[:, k], idx[:, k - 1])
+
+
+@pytest.mark.parametrize("nf", range(5))
+@pytest.mark.parametrize("n,nsample,picks", _EDGE_CLOUDS)
+def test_ball_query_edges(card, n, nsample, picks, nf):
+    """The planted cases (``_planted_edges``) at the launch the call picks
+    itself, with 0-4 feature channels."""
+    _planted_edges(card, n, nsample, picks, nf)
+
+
+@pytest.mark.parametrize("c", grouping.CENTRES_PER_WARP)
+@pytest.mark.parametrize("n,nsample,picks", _EDGE_CLOUDS)
+def test_ball_query_edges_at_every_centre_count(card, n, nsample, picks, c):
+    """The planted cases with the staged kernel set to 1, 2, 4 and 8
+    centres a warp, at every cloud size (the smallest ones too, which the
+    call itself gives a warp per centre), both stripe plans: the early exit
+    once all of a warp's centres have their first qualifier, and each
+    centre's first and last, at every width."""
+    _planted_edges(card, n, nsample, picks, 2, centres_per_warp=c)
+    launch = grouping.last_launch
+    assert launch["kernel"] == "staged" and launch["centres_per_warp"] == c
+    assert launch["blocks"] == 2 * -(-100 // (8 * c))
+    assert launch["staged_whole"] == (n <= 2048)
+
+
 def test_wrappers_refuse_bad_inputs(card):
     xyz = torch.zeros(2, 64, 3, device=card)
     with pytest.raises(ValueError):
@@ -248,6 +344,10 @@ def test_self_attention_matches_plain(card, dtype, la, seqs, heads, hd):
     got = _counted("scoring_attention",
                    lambda: scoring_layer.self_attention(qkv, la=la, heads=heads))
     _assert_close(got, scoring_layer.self_attention_plain(qkv, la=la, heads=heads), "self")
+    # bf16 at head width 64 and a window of at most 128 keys (la + 15) takes
+    # the tensor-core pipeline, everything else the CUDA-core kernel
+    pipeline = dtype == torch.bfloat16 and hd == 64 and la + 15 <= 128
+    assert scoring_layer.last_attention_launch["pipeline"] == int(pipeline)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -269,8 +369,65 @@ def test_cross_attention_matches_plain(card, dtype, lk):
                    lambda: scoring_layer.cross_attention(qc, ck, cv, cbias, heads=heads))
     want = scoring_layer.cross_attention_plain(qc, ck, cv, cbias, heads=heads)
     _assert_close(got, want, f"cross, lk {lk}")
+    pipeline = dtype == torch.bfloat16 and lk <= 128
+    assert scoring_layer.last_attention_launch["pipeline"] == int(pipeline)
     # the question with one valid key copies that key's value
     _assert_close(got[rows_per_q:2 * rows_per_q], cv[1, :1].expand(rows_per_q, h), "one key")
+
+
+def _assert_pipeline_launch(rows_heads: int):
+    """The last attention call ran the tensor-core pipeline: a persistent
+    grid no larger than the blocks the card holds at once, a ring of 2-4
+    stages, shared memory within a block's 227 KB (and within two blocks'
+    share of an SM where two are resident), and units whose tiles cover
+    every (row, head)."""
+    launch = scoring_layer.last_attention_launch
+    assert launch["pipeline"] == 1 and launch["threads"] == 9 * 32
+    assert 1 <= launch["resident"] and launch["blocks"] <= launch["resident"] * launch["sms"]
+    assert launch["blocks"] <= launch["units"] and 2 <= launch["stages"] <= 4
+    assert launch["smem"] <= 232448 and launch["resident"] * (launch["smem"] + 1024) <= 233472
+    assert launch["units"] * launch["seg"] * launch["tile_rows"] >= rows_heads
+
+
+@pytest.mark.parametrize("seqs", [1001, 2048])
+def test_self_attention_pipeline_matches_plain(card, seqs):
+    """The tensor-core pipeline at 12 heads of 64 and answers of 12: 1001
+    answers leave a last tile of one answer and a short last segment;
+    2048 answers are the main path's 24576 rows."""
+    la, heads = 12, 12
+    rng = np.random.RandomState(seqs)
+    qkv = _randn(rng, la * seqs, 3 * heads * 64, dtype=torch.bfloat16, device=card)
+    got = _counted("scoring_attention",
+                   lambda: scoring_layer.self_attention(qkv, la=la, heads=heads))
+    _assert_close(got, scoring_layer.self_attention_plain(qkv, la=la, heads=heads), "self")
+    _assert_pipeline_launch(la * seqs * heads)
+
+
+@pytest.mark.parametrize("nq,rows_per_q", [(300, 36), (5, 200), (8, 3072)])
+def test_cross_attention_pipeline_matches_plain(card, nq, rows_per_q):
+    """The tensor-core pipeline at 12 heads of 64 and 80 keys: 300 questions
+    of 36 rows (more units than the persistent grid has blocks, so they
+    wrap), 5 of 200 (a 72-row last tile), and the main path's 8 of 3072.
+    Question 1 has one valid key, question 2 half of them, the others a
+    random count."""
+    lk, heads = 80, 12
+    h = heads * 64
+    rng = np.random.RandomState(nq)
+    qc = _randn(rng, nq * rows_per_q, h, dtype=torch.bfloat16, device=card)
+    ck = _randn(rng, nq, lk, h, dtype=torch.bfloat16, device=card)
+    cv = _randn(rng, nq, lk, h, dtype=torch.bfloat16, device=card)
+    valid = rng.randint(1, lk + 1, nq)
+    valid[1], valid[2] = 1, lk // 2
+    mask = np.arange(lk)[None, :] < valid[:, None]
+    cbias = torch.from_numpy(np.where(mask, 0.0, scoring_layer.NEG).astype(np.float32)).to(card)
+    got = _counted("scoring_attention",
+                   lambda: scoring_layer.cross_attention(qc, ck, cv, cbias, heads=heads))
+    _assert_close(got, scoring_layer.cross_attention_plain(qc, ck, cv, cbias, heads=heads),
+                  f"cross, {nq} questions of {rows_per_q}")
+    _assert_close(got[rows_per_q:2 * rows_per_q], cv[1, :1].expand(rows_per_q, h), "one key")
+    _assert_pipeline_launch(nq * rows_per_q * heads)
+    launch = scoring_layer.last_attention_launch
+    assert nq != 300 or launch["units"] > launch["blocks"]  # 300 questions: units wrap
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

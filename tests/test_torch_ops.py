@@ -14,6 +14,9 @@ versions are held to the JAX functions on the same numpy inputs:
   in another order).
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +26,16 @@ from bridgeqa_tpu.ops import grouping as jgrouping
 from bridgeqa_tpu.ops import interpolate as jinterp
 from bridgeqa_tpu.ops import sampling as jsampling
 from bridgeqa_tpu_torch.ops import grouping, interpolate, sampling
+
+
+def csrc_constants(name: str) -> dict:
+    """The ``constexpr int`` constants of ``bridgeqa_tpu_torch/csrc/<name>``,
+    evaluated in order (a constant may use the ones before it)."""
+    text = (Path(grouping.__file__).resolve().parents[1] / "csrc" / name).read_text()
+    consts = {}
+    for key, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", text, flags=re.M):
+        consts[key] = eval(expr, {}, dict(consts))
+    return consts
 
 
 def _cloud(rng, b, n, scale=2.0):
@@ -124,6 +137,24 @@ class TestStripeBallQuery:
         got_all = grouping.group_all(torch.from_numpy(xyz), torch.from_numpy(feats))
         np.testing.assert_array_equal(got_all.numpy(),
                                       np.asarray(jgrouping.group_all(jnp.asarray(xyz), jnp.asarray(feats))))
+
+
+def test_ball_query_kernel_smem():
+    """A block of the staged kernel keeps two pieces of a stripe (x, y, z)
+    and the slots of each of its warps' centres, at most 8 a warp, within
+    the 48 KB a static shared-memory allocation may take."""
+    consts = csrc_constants("ball_query_stripes.cu")
+    assert (2 * consts["kChunk"] * 3 * 4 + consts["kWarps"] * max(grouping.CENTRES_PER_WARP)
+            * consts["kMaxSlots"] * 4) <= 48 * 1024
+
+
+@pytest.mark.parametrize("c", [0, 3, 16])
+def test_ball_query_refuses_bad_centres_per_warp(c):
+    """The kernel takes 1, 2, 4 or 8 centres a warp; the wrapper refuses any
+    other count before it looks at the device."""
+    xyz = torch.zeros(1, 64, 3)
+    with pytest.raises(ValueError, match="centres_per_warp"):
+        grouping.ball_query_stripes(0.2, 4, xyz, xyz[:, :8], centres_per_warp=c)
 
 
 def test_three_nn_and_interpolate():

@@ -37,6 +37,7 @@ from bridgeqa_tpu_torch.models import blip_vqa3d, bridgeqa, med
 from bridgeqa_tpu_torch.models.layers import init_weights
 from bridgeqa_tpu_torch.ops import scoring_layer, vit_block, vocab_loss
 from tests.test_torch_bridgeqa import _port_cfg, _qa_batch
+from tests.test_torch_ops import csrc_constants
 
 ATOL = 1e-4
 REPO = Path(__file__).resolve().parent.parent
@@ -256,6 +257,24 @@ class TestGate:
         main = dataclasses.replace(cfg, hidden_size=768, num_attention_heads=12,
                                    intermediate_size=3072)
         assert gate(main, 8 * 256, 8, 12, 80)
+
+
+# ----------------------------------------------- the tensor-core attentions
+
+def test_attention_pipeline_constants():
+    """The tensor-core pipeline's tile holds the longest answer the wrapper
+    lets through, in 16-row slices of its consumer warps, one 128-byte
+    swizzled row a head; the wrapper reads as many launch fields as the
+    kernel writes; the shared memory of each instantiation is held to a
+    block's 227 KB by the source's own static_asserts."""
+    consts = csrc_constants("scoring_attention.cu")
+    assert consts["kTileRows"] == scoring_layer.MAX_ANSWER_LEN
+    assert consts["kConsumers"] * 16 == consts["kTileRows"]
+    assert consts["kRow"] == 2 * consts["kHd"] == 128
+    # the launch record the C entry writes and the wrapper reads
+    assert consts["kLaunchFields"] == len(scoring_layer.ATTENTION_LAUNCH_FIELDS)
+    text = (REPO / "bridgeqa_tpu_torch" / "csrc" / "scoring_attention.cu").read_text()
+    assert "static_assert(SMEM <= 232448" in text
 
 
 # ------------------------------------------------------------ the rank slice
