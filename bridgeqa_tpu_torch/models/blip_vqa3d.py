@@ -1,17 +1,24 @@
 """BLIP_VQA3D, the 2D/3D twin-transformer VQA model (counterpart of the rank
-path of ``bridgeqa_tpu/models/blip_vqa3d.py``): ViT image encoder, twin
-med-BERT question encoder (the 2D stream attends to the image, the 3D
-stream to the projected scene proposals), two causal LM decoders that rank
-a fixed answer list, and the low-rank bilinear 2D/3D fusion.
+and generate paths of ``bridgeqa_tpu/models/blip_vqa3d.py``): ViT image
+encoder, twin med-BERT question encoder (the 2D stream attends to the image,
+the 3D stream to the projected scene proposals), two causal LM decoders that
+rank a fixed answer list, beam-search generation of open-ended answers, and
+the low-rank bilinear 2D/3D fusion.
 
-Generation, classifier mode and the training loss are later parts of the
-port."""
+Classifier mode and the training loss are later parts of the port."""
 
 import dataclasses
+import warnings
 
 import torch
 from torch import nn
 
+from bridgeqa_tpu_torch.models.generation import (
+    beam_search_cached,
+    generate_answers,
+    interleave_streams,
+    top_k_stable,
+)
 from bridgeqa_tpu_torch.models.layers import Dense, LayerNorm, gelu
 from bridgeqa_tpu_torch.models.med import IGNORE_INDEX, BertLMHeadModel, BertModelTwin, MedConfig
 from bridgeqa_tpu_torch.models.vit import create_vit
@@ -22,8 +29,10 @@ class BlipVQA3DConfig:
     """The JAX ``BlipVQA3DConfig``'s fields and defaults. The rank path
     reads the widths, ``scene_feature_position``, ``share_decoder``, the
     layer counts, the token ids, ``scene_ensemble_weight`` and
-    ``rank_loss_chunk_size``; the rest are kept so a JAX config carries
-    over unchanged."""
+    ``rank_loss_chunk_size``; generate reads the widths, the layer counts,
+    the token ids (bos, ``sep_token_id`` as eos, pad), ``num_beams``,
+    ``use_kv_cache``, ``generate_max_length`` and ``generate_min_length``.
+    The rest are kept so a JAX config carries over unchanged."""
 
     med: MedConfig = dataclasses.field(default_factory=MedConfig)
     image_size: int = 480
@@ -68,12 +77,6 @@ class MlpAdapter(nn.Module):
 
     def forward(self, x):
         return self.norm(gelu(self.fc2(gelu(self.fc1(x)))))
-
-
-def top_k_stable(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest entries of each row, ties to the lower index
-    (``jax.lax.top_k``'s order; ``torch.topk`` does not promise one)."""
-    return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
 class BLIPVQA3D(nn.Module):
@@ -198,3 +201,48 @@ class BLIPVQA3D(nn.Module):
         scores = {"answer_scores": ensemble, "answer_scores_scene": all_3d,
                   "answer_scores_2d": all_2d}
         return self.fuse_2d3d(h2d, h3d), scores, question_mask
+
+    def generate(self, image, question_ids, question_mask, scene_object_embeds,
+                 scene_object_mask, *, num_beams: int | None = None,
+                 max_length: int | None = None, min_length: int | None = None):
+        """Open-ended answer generation: beam search with ``2 * num_beams``
+        beams per question, half attending to the 2D question states and half
+        to the 3D ones, decoded by the 2D ``text_decoder`` (as the reference
+        does), eos = [SEP]. KV-cached unless ``use_kv_cache`` is off.
+
+        Returns (best_ids (B, max_length), fused_hidden, question_mask)."""
+        c = self.cfg
+        num_beams = num_beams if num_beams is not None else c.num_beams
+        max_length = max_length if max_length is not None else c.generate_max_length
+        min_length = min_length if min_length is not None else c.generate_min_length
+        tokens = dict(bos_token_id=c.bos_token_id, eos_token_id=c.sep_token_id,
+                      pad_token_id=c.pad_token_id, max_length=max_length, min_length=min_length)
+
+        h2d, h3d = self.encode_question(self.encode_image(image), question_ids, question_mask,
+                                        scene_object_embeds, scene_object_mask)
+        question_states = interleave_streams(h2d, h3d, num_beams)
+        batch = h2d.shape[0]
+        if c.use_kv_cache:
+            k = 2 * num_beams
+            cache = self.text_decoder.init_cache(
+                question_states, question_mask.repeat_interleave(k, dim=0), max_length)
+            ids, _ = beam_search_cached(self.text_decoder.decode_step, cache, batch, k, **tokens)
+            best_ids = ids[:, 0]
+        else:
+            warnings.warn(
+                "use_kv_cache=False: the prefix-rerun beam search re-interprets "
+                "a beam's prefix under its destination row's question stream when "
+                "beams hop between the 2D/3D halves; sequences can differ from "
+                "the (default, reference-matching) cached path. Prefer "
+                "use_kv_cache=True.",
+                stacklevel=2,
+            )
+            best_ids, _ = generate_answers(self.decode_step, question_states, question_mask,
+                                           batch, num_beams, **tokens)
+        return best_ids, self.fuse_2d3d(h2d, h3d), question_mask
+
+    def decode_step(self, input_ids, input_mask, question_states, question_mask):
+        """One full-prefix pass of the 2D decoder: input_ids (B, L) -> logits
+        (B, L, V)."""
+        logits, _ = self.text_decoder(input_ids, input_mask, question_states, question_mask)
+        return logits

@@ -1,12 +1,14 @@
 """BridgeQA: detector + twin-BLIP VQA + grounding heads (counterpart of the
-rank inference path of ``bridgeqa_tpu/models/bridgeqa.py``).
+inference paths of ``bridgeqa_tpu/models/bridgeqa.py``).
 
 ``BridgeQA.forward(batch, inference="rank", k_test=...)`` runs what the JAX
 ``BridgeQA.apply(batch, train=False, inference="rank")`` runs: the VoteNet
 detector, proposal features into BLIP's twin encoder, both LM decoders
 ranking the answer list, the language head on the fused CLS state and the
-SGA grounding head producing ``cluster_ref``. Training, generate, the MCAN
-path and classifier mode are later parts of the port."""
+SGA grounding head producing ``cluster_ref``. ``inference="generate"``
+decodes open-ended answers by beam search instead of ranking the list.
+Training (``inference="loss"``), the MCAN path and classifier mode are later
+parts of the port."""
 
 import dataclasses
 
@@ -93,8 +95,8 @@ class BridgeQA(nn.Module):
     def _build(self, cfg: BridgeQAConfig, mean_size_arr: np.ndarray) -> None:
         c = self.cfg = cfg
         if c.stage != "VQA" or not c.use_blip or not c.use_text_decoder:
-            raise NotImplementedError("the port runs the BLIP rank path (stage='VQA', use_blip, "
-                                      "use_text_decoder) only so far")
+            raise NotImplementedError("the port runs the BLIP decoder paths (stage='VQA', "
+                                      "use_blip, use_text_decoder) only so far")
         self.detector = VoteNetDetector(
             c.num_object_class, c.num_heading_bin, c.num_size_cluster, mean_size_arr,
             c.input_feature_dim, c.num_proposal, c.vote_factor, c.seed_feat_dim, c.proposal_size,
@@ -110,13 +112,21 @@ class BridgeQA(nn.Module):
         self.dec_list_qo = add_indexed(self, "dec_qo_", (SGA(c.hidden_size, c.mcan_num_heads)
                                                          for _ in range(c.mcan_num_layers)))
 
-    def forward(self, batch, inference: str = "rank", k_test: int = 256):
+    def forward(self, batch, inference: str = "rank", k_test: int = 256,
+                num_beams: int | None = None, max_length: int | None = None):
         """batch: dict of tensors (point_clouds, images, question_ids,
-        question_mask, answer_list_ids, answer_list_mask). Returns the
-        detector outputs plus answer_scores(_2d, _scene), lang_scores and
-        cluster_ref."""
-        if inference != "rank":
-            raise NotImplementedError(f"inference={inference!r}: the port runs 'rank' only so far")
+        question_mask; answer_list_ids and answer_list_mask for "rank").
+        Returns the detector outputs, lang_scores and cluster_ref, and with
+        ``inference="rank"`` answer_scores(_2d, _scene) over the answer list
+        (the top ``k_test`` of each decoder scored), with
+        ``inference="generate"`` generated_ids (B, max_length): the best beam
+        of ``2 * num_beams`` per question (``num_beams``, ``max_length``:
+        the BLIP config's ``num_beams`` and ``generate_max_length`` when
+        None)."""
+        if inference not in ("rank", "generate"):
+            raise NotImplementedError(
+                f"inference={inference!r}: the port runs 'rank' and 'generate'; 'loss' "
+                "(training), the classifier mode and the MCAN path are later parts of the port")
         c = self.cfg
         out = self.detector(batch["point_clouds"])
         object_feat = gelu(self.object_feat_linear(out["aggregated_vote_features"]))
@@ -126,13 +136,18 @@ class BridgeQA(nn.Module):
 
         images = batch["images"]
         image = images[:, 0] if images.dim() == 5 else images
-        fused_feat, scores, fused_mask = self.blip_model.rank(
-            image, batch["question_ids"], batch["question_mask"], batch["answer_list_ids"],
-            batch["answer_list_mask"], object_feat, bbox_mask.to(torch.int32), k_test=k_test)
-        for key, val in scores.items():
-            if val.shape[1] < c.num_answers:
-                val = F.pad(val, (0, c.num_answers - val.shape[1]), value=-1e4)
-            out[key] = val
+        if inference == "generate":
+            out["generated_ids"], fused_feat, fused_mask = self.blip_model.generate(
+                image, batch["question_ids"], batch["question_mask"], object_feat,
+                bbox_mask.to(torch.int32), num_beams=num_beams, max_length=max_length)
+        else:
+            fused_feat, scores, fused_mask = self.blip_model.rank(
+                image, batch["question_ids"], batch["question_mask"], batch["answer_list_ids"],
+                batch["answer_list_mask"], object_feat, bbox_mask.to(torch.int32), k_test=k_test)
+            for key, val in scores.items():
+                if val.shape[1] < c.num_answers:
+                    val = F.pad(val, (0, c.num_answers - val.shape[1]), value=-1e4)
+                out[key] = val
 
         if c.use_lang_cls:
             out["lang_scores"] = self.lang_cls(fused_feat[:, 0])

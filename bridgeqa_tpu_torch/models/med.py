@@ -7,8 +7,9 @@ large-batch VPU branch computes the same thing and has no counterpart here.
 The answer-scoring call of ``BertLMHeadModel`` takes the fused path instead
 where ``MedConfig.fused_scoring`` lets it (``_fused_scoring_loss``):
 ``ops/scoring_layer.py`` and ``ops/vocab_loss.py``, hand-written kernels on
-the card. Inference only: no dropout, no KV-cache decode (generation is a
-later part of the port).
+the card. Generation decodes one token at a time against a KV cache
+(``BertLMHeadModel.init_cache`` and ``decode_step``), in plain PyTorch as the
+JAX package decodes in plain XLA. Inference only: no dropout.
 """
 
 import dataclasses
@@ -115,25 +116,35 @@ class BertSelfAttention(nn.Module):
         self.key = Dense(kv_width, c.hidden_size)
         self.value = Dense(kv_width, c.hidden_size)
 
-    def forward(self, hidden_states, attention_bias=None, encoder_hidden_states=None):
-        b, lq, h = hidden_states.shape
-        nh = self.num_heads
-        hd = h // nh
-        kv_src = encoder_hidden_states if self.is_cross_attention else hidden_states
+    def project_kv(self, kv_src):
+        """(B, Lk, *) -> K, V (B, nh, Lk, hd): the cacheable half."""
         kb, lk = kv_src.shape[:2]
-        q = self.query(hidden_states)
+        nh = self.num_heads
+        hd = self.key.out_features // nh
         k = self.key(kv_src).reshape(kb, lk, nh, hd).transpose(1, 2)
         v = self.value(kv_src).reshape(kb, lk, nh, hd).transpose(1, 2)
+        return k, v
+
+    def attend_cached(self, hidden_states, k, v, attention_bias=None):
+        """Queries from ``hidden_states`` (B, Lq, H) against K/V already
+        projected (``project_kv``, or a KV cache) -> context (B, Lq, H)."""
+        b, lq, h = hidden_states.shape
+        nh = self.num_heads
+        q = self.query(hidden_states).reshape(b, lq, nh, h // nh).transpose(1, 2)
+        return attend(q, k, v, attention_bias).transpose(1, 2).reshape(b, lq, h)
+
+    def forward(self, hidden_states, attention_bias=None, encoder_hidden_states=None):
+        b, lq, h = hidden_states.shape
+        k, v = self.project_kv(encoder_hidden_states if self.is_cross_attention
+                               else hidden_states)
+        kb = k.shape[0]
         if self.is_cross_attention and kb != b:
             # grouped cross-attention: g query rows per encoder row (the k
             # answers ranked against one question) fold into the query
             # length, so each question's K/V is projected once
-            g = b // kb
-            q = q.reshape(kb, g * lq, nh, hd).transpose(1, 2)
-        else:
-            q = q.reshape(b, lq, nh, hd).transpose(1, 2)
-        ctx = attend(q, k, v, attention_bias)
-        return ctx.transpose(1, 2).reshape(b, lq, h)
+            grouped = hidden_states.reshape(kb, (b // kb) * lq, h)
+            return self.attend_cached(grouped, k, v, attention_bias).reshape(b, lq, h)
+        return self.attend_cached(hidden_states, k, v, attention_bias)
 
 
 class BertSelfOutput(nn.Module):
@@ -181,8 +192,37 @@ class BertLayer(nn.Module):
             attention_output = self.crossattention(attention_output, encoder_attention_bias,
                                                    encoder_hidden_states)
         layer_output = self.output_dense(gelu(self.intermediate_dense(attention_output)))
-        ln = self.output_LayerNorm if layernorm_idx == 0 else self.output_LayerNorms[layernorm_idx - 1]
-        return ln(layer_output + attention_output)
+        return self._ffn_layernorm(layernorm_idx)(layer_output + attention_output)
+
+    def _ffn_layernorm(self, layernorm_idx: int) -> LayerNorm:
+        return self.output_LayerNorm if layernorm_idx == 0 else self.output_LayerNorms[layernorm_idx - 1]
+
+    # ---- KV-cache decode (inference only; JAX ``med.py:307-331``) ----
+
+    def decode_kv_init(self, encoder_hidden_states):
+        """The cross-attention's K/V from the encoder states, projected once
+        per generation instead of once per decode step."""
+        return self.crossattention.self.project_kv(encoder_hidden_states)
+
+    def decode_step(self, hidden, layer_cache: dict, pos: int, self_bias, cross_bias,
+                    layernorm_idx: int = 0):
+        """One token through the layer: write its self K/V into the cache
+        at ``pos``, attend over the cached prefix (``self_bias`` masks the
+        positions after ``pos``) and to the fixed cross K/V. The write goes
+        into ``layer_cache``'s buffers in place (JAX returns updated
+        copies): the beam search's reorder gives every step new buffers.
+        Returns (output (B, 1, H), the layer's cache)."""
+        k_new, v_new = self.attention.self.project_kv(hidden)
+        self_k, self_v = layer_cache["self_k"], layer_cache["self_v"]
+        self_k[:, :, pos:pos + 1] = k_new
+        self_v[:, :, pos:pos + 1] = v_new
+        ctx = self.attention.self.attend_cached(hidden, self_k, self_v, self_bias)
+        attention_output = self.attention.output(ctx, hidden)
+        cctx = self.crossattention.self.attend_cached(attention_output, layer_cache["cross_k"],
+                                                      layer_cache["cross_v"], cross_bias)
+        attention_output = self.crossattention.output(cctx, attention_output)
+        layer_output = self.output_dense(gelu(self.intermediate_dense(attention_output)))
+        return self._ffn_layernorm(layernorm_idx)(layer_output + attention_output), layer_cache
 
 
 class BertEncoder(nn.Module):
@@ -383,3 +423,41 @@ class BertLMHeadModel(nn.Module):
         return label_smoothed_loss_streaming(h_t, labels[:, 1:],
                                              param_as(word_embed, "weight", h_t.dtype),
                                              self.cls.bias)
+
+    # ---- KV-cache decode path (generation; see BertLayer.decode_step) ----
+
+    def init_cache(self, question_states, question_mask, max_length: int) -> dict:
+        """The decode cache: each layer's cross K/V projected once from the
+        question states (B, Lq, H), zeroed self K/V buffers (B, nh,
+        max_length, hd) in the compute dtype, the question mask's additive
+        bias and the position ``pos`` (a Python int: the decode loop runs on
+        the host). Not with ``config.remat``, as in JAX."""
+        c = self.config
+        if c.remat:
+            raise ValueError("KV-cache decode requires remat=False layers")
+        nh = c.num_attention_heads
+        hd = c.hidden_size // nh
+        b = question_states.shape[0]
+        layers = []
+        for layer in self.bert.encoder.layer:
+            ck, cv = layer.decode_kv_init(question_states)
+            layers.append({"self_k": ck.new_zeros((b, nh, max_length, hd)),
+                           "self_v": cv.new_zeros((b, nh, max_length, hd)),
+                           "cross_k": ck, "cross_v": cv})
+        return {"pos": 0, "layers": layers, "cross_bias": extend_attention_mask(question_mask)}
+
+    def decode_step(self, token_ids, cache: dict, layernorm_idx: int = 0):
+        """token_ids (B, 1) at position ``cache["pos"]`` -> (next-token logits
+        (B, V), the cache with ``pos`` one further). No host sync."""
+        pos = cache["pos"]
+        hidden = self.bert.embeddings(token_ids, position_offset=pos)
+        max_len = cache["layers"][0]["self_k"].shape[2]
+        positions = torch.arange(max_len, device=token_ids.device)
+        self_bias = torch.where(positions <= pos, 0.0, NEG_INF)[None, None, None, :]
+        layers = []
+        for layer, lc in zip(self.bert.encoder.layer, cache["layers"]):
+            hidden, lc = layer.decode_step(hidden, lc, pos, self_bias, cache["cross_bias"],
+                                           layernorm_idx)
+            layers.append(lc)
+        logits = self.cls(hidden, self.bert.embeddings.word_embeddings)
+        return logits[:, 0], {"pos": pos + 1, "layers": layers, "cross_bias": cache["cross_bias"]}

@@ -92,6 +92,36 @@ result is printed):
    one forward under ``torch.profiler``: the card's busy share, the casts'
    launches and time (``aten::copy_``), and the table by kernel in
    ``build/profile_main_path.txt``.
+6. generate: open-ended answers by KV-cached beam search,
+   ``BridgeQA.forward(batch, inference="generate")``, 2 x 5 beams a
+   question, answers of up to 20 tokens, the 2D decoder sharpened
+   (``sharpen_decoder``: the LM head bias plus ``RandomState(1).randn(V) *
+   4``, the attention's value and output kernels x10).
+   - Tiny, card against CPU (``phase_generate_reference``): the tiny config
+     in f32, the kernels on the card, the plain versions on the CPU: the ids
+     equal; lang_scores, cluster_ref and the best beams' scores (from
+     ``beam_search_cached`` called directly) within 1e-3; the detector and
+     ViT kernels launched on the card, the scoring attentions and the
+     vocabulary pass not.
+   - Full width (``phase_generate``): the main path's config and inputs at
+     batch 8 in bf16. Launch counts zeroed just before the forward and read
+     just after must equal those derived from the config (FPS 5, ball query
+     5, GEMM 48, ViT attention 12, LayerNorm 25, none of the scoring
+     attentions or the vocabulary pass); the ids (8, 20), bos first, only
+     pad after the first [SEP]; lang_scores and cluster_ref finite. KV-cache
+     consistency: ``beam_search_cached`` called directly on the forward's
+     encoded states gives the forward's ids as its best beams, and each of
+     its 80 beams' score equals a teacher-forced full-prefix pass of the 2D
+     decoder against its question's 2D states, summed up to and including
+     the first [SEP], within 2% relative per row (derived in
+     ``phase_generate``'s docstring).
+   - Times: the forward's wall (median of 5) and its QA pairs/s, the stages
+     by CUDA events and on the host (detector, ViT, twin encoder, cache
+     init, the decode loop, its decoder passes, per step, the heads), one
+     profiled forward (device time, busy share, casts; the table by kernel
+     in ``build/profile_generate.txt``), one profiled decode loop alone
+     (card records, device time, the cache reorder's;
+     ``build/profile_generate_loop.txt``) and peak memory.
 
 Bounds: the least time the card could take for a kernel's work, the larger
 of the bytes it must move (each input read once, each output written once)
@@ -102,8 +132,9 @@ causal prefixes) is counted for this run's data.
 
 Matrix products run in full f32 where f32 is used: TF32 is switched off
 for both cuBLAS and cuDNN, and the patch embedding is a matrix product.
-The last two lines are a ``{"kernels": [...]}`` JSON object and
-``{"ok": true, "device": {...}}``.
+The last two lines are a ``{"kernels": [...]}`` JSON object (each
+kernel's ``launches`` from the rank forward, ``launches_by_path`` from the
+rank and the generate forward) and ``{"ok": true, "device": {...}}``.
 """
 
 import copy
@@ -256,12 +287,17 @@ def phase_device():
         raise RuntimeError(f"the port imported {foreign[:5]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
-    log(smi.splitlines()[0])
+    log(card_name_and_power())
     return torch.device("cuda", 0)
+
+
+def card_name_and_power() -> str:
+    """``nvidia-smi``'s name and power limit of the first card."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    return smi.splitlines()[0]
 
 
 # the redesigned kernels whose ptxas lines phase 2 prints (parts of their
@@ -1244,6 +1280,385 @@ def phase_main_path(device, reps: int = 5):
     return launches
 
 
+# generate: 2 x 5 beams a question, answers of up to 20 tokens (the BLIP
+# config's defaults)
+GEN_BEAMS = 5
+GEN_MAX_LEN = 20
+# the rescored beams' tolerance (``phase_generate``)
+RESCORE_REL_TOL = 0.02
+
+
+# the 2D decoder's attention value and output kernels are scaled by this
+# (``sharpen_decoder``)
+ATTENTION_GAIN = 10.0
+
+
+def sharpen_decoder(blip) -> None:
+    """Make the drawn 2D decoder's choices decisive and dependent on what it
+    attends to: add ``RandomState(1).randn(V) * 4`` to its LM head bias (an
+    f32 parameter the head reads as it is), since random weights give
+    near-uniform logits over the vocabulary, whose beam choices sit on ~1e-5
+    ties that a sum in another order can flip; and scale its self- and
+    cross-attention's value and output kernels by ``ATTENTION_GAIN``, since
+    at the initialiser's std of 0.02 a layer's attention hardly moves its
+    output, and a cache that held the wrong keys and values would go
+    unseen. Call it before ``set_compute_dtype``."""
+    dec = blip.text_decoder
+    pattern = np.random.RandomState(1).randn(dec.cls.bias.shape[0]).astype(np.float32) * 4.0
+    with torch.no_grad():
+        dec.cls.bias += torch.from_numpy(pattern).to(dec.cls.bias.device)
+        for layer in dec.bert.encoder.layer:
+            for attention in (layer.attention, layer.crossattention):
+                attention.self.value.weight.mul_(ATTENTION_GAIN)
+                attention.output.dense.weight.mul_(ATTENTION_GAIN)
+
+
+class TwinStates:
+    """Keeps the twin encoder's (h2d, h3d) of the model's last forward."""
+
+    def __init__(self, model):
+        self.states = None
+        self.handle = model.blip_model.text_encoder.register_forward_hook(self._keep)
+
+    def _keep(self, _module, _args, out):
+        self.states = out
+
+    def remove(self):
+        self.handle.remove()
+
+
+def cached_beams(blip, h2d, h3d, question_mask, num_beams: int = GEN_BEAMS,
+                 max_length: int = GEN_MAX_LEN):
+    """``beam_search_cached`` called directly on the states generate
+    encoded: every beam of every question, best first, and its score."""
+    from bridgeqa_tpu_torch.models.generation import beam_search_cached, interleave_streams
+
+    c = blip.cfg
+    k = 2 * num_beams
+    cache = blip.text_decoder.init_cache(interleave_streams(h2d, h3d, num_beams),
+                                         question_mask.repeat_interleave(k, dim=0), max_length)
+    return beam_search_cached(blip.text_decoder.decode_step, cache, h2d.shape[0], k,
+                              bos_token_id=c.bos_token_id, eos_token_id=c.sep_token_id,
+                              pad_token_id=c.pad_token_id, max_length=max_length,
+                              min_length=c.generate_min_length)
+
+
+def phase_generate_reference(device):
+    """A tiny generate forward on the card (kernels, f32) against the same
+    weights on the CPU (plain versions, f32; ``vit_block.FUSED_MODE``
+    "force" there): 2 x 5 beams, answers of up to 20 tokens, the 2D
+    decoder sharpened (``sharpen_decoder``). The generated ids must be
+    equal; lang_scores, cluster_ref and the best beams' scores (from
+    ``beam_search_cached`` called directly on each side's encoded states)
+    within 1e-3 (the two devices sum matrix products in another order). The
+    detector and ViT kernels must launch on the card, the scoring attentions
+    and the vocabulary pass must not."""
+    from bridgeqa_tpu_torch.ops import vit_block as vb
+
+    cfg = tiny_config()
+    cpu_model = build_model(cfg, torch.device("cpu"), seed=5)
+    gen = torch.Generator().manual_seed(5)
+    perturb_affine(cpu_model.blip_model.text_decoder, gen)
+    perturb_affine(cpu_model.blip_model.visual_encoder, gen)
+    sharpen_decoder(cpu_model.blip_model)
+    card_model = copy.deepcopy(cpu_model).to(device)
+    batch = make_batch(cfg, 2, 4096, 64, 20, 6, torch.device("cpu"), seed=8)
+    results = []
+    for model, on_card in ((cpu_model, False), (card_model, True)):
+        states = TwinStates(model)
+        try:
+            with torch.inference_mode():
+                vb.FUSED_MODE = "auto" if on_card else "force"
+                reset_launches()
+                out = model({k: v.to(device) if on_card else v for k, v in batch.items()},
+                             inference="generate")
+                launches = read_launches()
+                h2d, h3d = states.states
+                _, scores = cached_beams(model.blip_model, h2d, h3d, batch["question_mask"]
+                                         .to(h2d.device))
+        finally:
+            vb.FUSED_MODE = "auto"
+            states.remove()
+        results.append((out, scores[:, 0], launches))
+    (want, want_best, _), (got, got_best, launches) = results
+    torch.cuda.synchronize()
+    idle = [k for k in ("fps", "ball_query_stripes", "scoring_gemm", "vit_attention",
+                        "scoring_layernorm") if launches[k] == 0]
+    off = [k for k in ("scoring_attention", "vocab_loss", "gather_rows") if launches[k]]
+    if idle or off:
+        raise AssertionError(f"generate reference: not launched {idle}, launched off the "
+                             f"generate path {off}")
+    if not torch.equal(got["generated_ids"].cpu(), want["generated_ids"]):
+        raise AssertionError(f"generate reference: ids differ: card {got['generated_ids']} "
+                             f"CPU {want['generated_ids']}")
+    worst = {key: float((got[key].cpu().float() - want[key].float()).abs().max())
+             for key in ("lang_scores", "cluster_ref")}
+    worst["best beam scores"] = float((got_best.cpu() - want_best).abs().max())
+    if not all(err <= 1e-3 for err in worst.values()):
+        raise AssertionError(f"generate reference: card and CPU differ by {worst}")
+    log(f"generate reference (tiny config, f32, 2 x {GEN_BEAMS} beams, card vs CPU): ids equal "
+        f"{want['generated_ids'].tolist()}; max abs err {json.dumps(worst)}; card launches "
+        f"{json.dumps(launches)}")
+
+
+def expected_generate_launches(cfg) -> dict:
+    """Kernel launches of one generate forward, from the config: one FPS and
+    one ball query per main-path shape and the ViT's blocks and final norm
+    (as ``expected_launches``); the decoder steps run the module path (JAX
+    decodes in plain XLA), so no scoring attention, no vocabulary pass, and
+    the GEMM and the LayerNorm only for the ViT."""
+    from bridgeqa_tpu_torch.ops.vit_block import LAUNCHES_PER_BLOCK
+
+    counts = {"fps": len(FPS_SHAPES), "ball_query_stripes": len(BQ_SHAPES),
+              "scoring_gemm": 0, "scoring_attention": 0, "scoring_layernorm": 1,
+              "vocab_loss": 0, "vit_attention": 0, "gather_rows": 0}
+    for k, n in LAUNCHES_PER_BLOCK.items():
+        counts[k] += n * vit_depth(cfg)
+    return counts
+
+
+def generate_stage_times(model, run, reps: int = 3) -> tuple[dict, dict]:
+    """ms of each stage of a generate ``run()`` on the card (CUDA events)
+    and on the host (its time to issue the stage's work), medians of
+    ``reps`` runs: detector, ViT and twin encoder (hooks on their modules),
+    cache init (``init_cache``), the decode loop (from the first decode
+    step to the heads: every step's decoder pass, top-k over the candidates
+    and reorder of the cache), of which the decoder passes alone, per step,
+    and the heads (from the 2D/3D fusion to the end of the forward: fusion,
+    lang_cls, the grounding head)."""
+    blip = model.blip_model
+    dec = blip.text_decoder
+    marks = {}
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.setdefault(name, []).append((ev, time.perf_counter()))
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            mark(f"{name} start")
+            result = fn(*args, **kwargs)
+            mark(f"{name} end")
+            return result
+        return call
+
+    handles = []
+    for name, mod in (("detector", model.detector), ("vit", blip.visual_encoder),
+                      ("twin encoder", blip.text_encoder)):
+        handles.append(mod.register_forward_pre_hook(lambda *_, n=name: mark(f"{n} start")))
+        handles.append(mod.register_forward_hook(lambda *_, n=name: mark(f"{n} end")))
+    handles.append(blip.lowrank_2d.register_forward_pre_hook(lambda *_: mark("heads start")))
+    dec.init_cache = timed("cache init", dec.init_cache)
+    dec.decode_step = timed("step", dec.decode_step)
+    runs, host_runs = [], []
+    try:
+        for _ in range(reps):
+            marks.clear()
+            torch.cuda.synchronize()
+            run()
+            mark("end")
+            torch.cuda.synchronize()
+
+            def span(a, b, i=0, j=-1):
+                (ea, ta), (eb, tb) = marks[a][i], marks[b][j]
+                return ea.elapsed_time(eb), (tb - ta) * 1e3
+
+            steps = len(marks["step start"])
+            spans = {name: span(f"{name} start", f"{name} end")
+                     for name in ("detector", "vit", "twin encoder", "cache init")}
+            spans["decode loop"] = span("step start", "heads start")
+            spans["decoder passes"] = tuple(
+                sum(span("step start", "step end", i, i)[h] for i in range(steps))
+                for h in (0, 1))
+            spans["decode step"] = tuple(x / steps for x in spans["decode loop"])
+            spans["heads"] = span("heads start", "end")
+            runs.append({k: v[0] for k, v in spans.items()})
+            host_runs.append({k: v[1] for k, v in spans.items()})
+    finally:
+        for handle in handles:
+            handle.remove()
+        del dec.init_cache, dec.decode_step
+    return ({k: statistics.median(r[k] for r in runs) for k in runs[0]},
+            {k: statistics.median(r[k] for r in host_runs) for k in runs[0]})
+
+
+def profile_table(prof, path: Path) -> tuple[float, int, int, float]:
+    """(device ms, card records, aten::copy_ calls, their device ms) of a
+    profiled region; its table by kernel into ``path``."""
+    from torch.autograd import DeviceType
+
+    work = [e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+    averages = prof.key_averages()
+    copies = [e for e in averages if e.key == "aten::copy_"]
+    path.write_text(averages.table(sort_by="cuda_time_total", row_limit=40))
+    return (sum(e.duration_ns() for e in work) / 1e6, len(work), sum(e.count for e in copies),
+            sum(e.device_time_total for e in copies) / 1e3)
+
+
+def phase_generate(device, reps: int = 5):
+    """Full-width open-ended generation: ``BridgeQA.forward(batch,
+    inference="generate")`` at batch 8 in bf16, 2 x 5 beams, answers of up
+    to 20 tokens, the main path's config and inputs, random weights from a
+    seed and the 2D decoder sharpened (``sharpen_decoder``). Launch counts
+    are zeroed just before the forward and read just after, and must equal
+    ``expected_generate_launches``; the ids must be well formed (bos first,
+    only pad after the first [SEP]) and lang_scores and cluster_ref finite.
+
+    KV-cache consistency: ``beam_search_cached`` called directly on the
+    states the forward encoded (under ``torch.cuda.set_sync_debug_mode(
+    "error")``: no step may wait for the card) must give the forward's ids
+    as its best beams; then every beam (each question's best among them)
+    is rescored by one teacher-forced full-prefix pass of the 2D decoder
+    against its question's 2D states (every beam descends from row 0, the
+    2D row: only beam 0 is alive at the first step, and a beam carries its
+    cross K/V), its log-probs summed up to and including the first [SEP].
+    Tolerance:
+    the two passes compute the same function in bf16, with products of
+    other shapes (one token a row against 20), so a stored activation may
+    round one bf16 step (2^-8 relative) the other way; allow each token's
+    log-prob five such steps, 5 x 2^-8 = 1.95%, rounded to
+    ``RESCORE_REL_TOL`` = 2% relative. A sum of terms of one sign (every
+    log-prob is negative) keeps the largest relative error of its terms, so
+    the bound holds per row. The same rescoring against the 3D states,
+    what a cache that kept the 3D rows' K/V would be held to, is printed
+    beside it: how far a stream mix-up moves the scores.
+
+    Times follow: the forward's wall (median of ``reps``, each ending in
+    ``torch.cuda.synchronize()``) and the QA pairs/s it implies, the stages
+    (``generate_stage_times``), one profiled forward (device time, busy
+    share, casts, the table by kernel in ``build/profile_generate.txt``) and
+    one profiled decode loop alone (``cached_beams``: its card records, its
+    device time and the cache reorder's, ``build/profile_generate_loop.txt``),
+    and peak memory."""
+    from bridgeqa_tpu_torch.models.layers import set_compute_dtype
+
+    cfg = main_config()
+    blip_cfg = cfg.blip
+    t0 = time.perf_counter()
+    model = build_model(cfg, device)
+    sharpen_decoder(model.blip_model)
+    set_compute_dtype(model, torch.bfloat16)
+    batch = make_batch(cfg, BATCH, NUM_POINTS, IMAGE_SIZE, QUESTION_LEN, ANSWER_LEN, device)
+    torch.cuda.synchronize()
+    log(f"generate: model built and weights drawn in {time.perf_counter() - t0:.1f} s")
+    expected = expected_generate_launches(cfg)
+
+    def forward():
+        return model(batch, inference="generate")
+
+    states = TwinStates(model)
+    with torch.inference_mode():
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        out = forward()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        states.remove()
+        ids = out["generated_ids"]
+        sep, pad = blip_cfg.sep_token_id, blip_cfg.pad_token_id
+        after_sep = (ids == sep).int().cumsum(1) - (ids == sep).int() > 0
+        checks = {
+            "generated_ids shape": tuple(ids.shape) == (BATCH, GEN_MAX_LEN),
+            "bos first": bool((ids[:, 0] == blip_cfg.bos_token_id).all()),
+            "only pad after the first [SEP]": bool((ids[after_sep] == pad).all()),
+            "cluster_ref shape": tuple(out["cluster_ref"].shape) == (BATCH, cfg.num_proposal),
+            "lang_scores shape": tuple(out["lang_scores"].shape) == (BATCH, cfg.num_object_class),
+            "finite": all(bool(torch.isfinite(out[k].float()).all())
+                          for k in ("cluster_ref", "lang_scores", "bbox_corner")),
+            **{f"{n} {k} launches": launches[k] == n for k, n in expected.items()},
+        }
+        log(f"generate: first forward {first_s:.3f} s, peak memory {peak_gb:.2f} GB, launches "
+            f"{json.dumps(launches)}, expected {json.dumps(expected)}")
+        log(f"generate: ids {ids.tolist()}")
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"generate checks failed: {failed}")
+
+        # KV-cache consistency: the direct call, then the teacher-forced rescoring
+        h2d, h3d = states.states
+        qmask = batch["question_mask"]
+        blip = model.blip_model
+        # no step may wait for the card: a synchronising call raises here
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            beams, scores = cached_beams(blip, h2d, h3d, qmask)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if not torch.equal(beams[:, 0], ids):
+            raise AssertionError("generate: beam_search_cached's best beams differ from the "
+                                 "forward's ids")
+        k = 2 * GEN_BEAMS
+        seqs = beams.reshape(BATCH * k, GEN_MAX_LEN)
+        is_sep = (seqs[:, 1:] == sep).int()
+        counted = is_sep.cumsum(1) - is_sep == 0  # up to and including the first [SEP]
+
+        def rescore(states):
+            logits, _ = blip.text_decoder(seqs, None, states.repeat_interleave(k, dim=0),
+                                          qmask.repeat_interleave(k, dim=0))
+            logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+            logp = logp.gather(-1, seqs[:, 1:].long()[..., None])[..., 0]
+            rescored = torch.where(counted, logp, 0.0).sum(1).reshape(BATCH, k)
+            return ((rescored - scores).abs() / scores.abs()).max(dim=1).values
+
+        rel = rescore(h2d)
+        # what the check would read if the cache had kept the 3D rows' states
+        rel_3d = rescore(h3d)
+        log(f"generate: KV-cache consistency, {BATCH * k} beams rescored by a full-prefix pass: "
+            f"max rel err per question {[round(float(x), 6) for x in rel]} (tol "
+            f"{RESCORE_REL_TOL}); against the 3D states instead "
+            f"{[round(float(x), 6) for x in rel_3d]}; best scores "
+            f"{[round(float(x), 4) for x in scores[:, 0]]}; tokens scored per beam "
+            f"{counted.sum(1).reshape(BATCH, k).tolist()}")
+        if not bool((rel <= RESCORE_REL_TOL).all()):
+            raise AssertionError(f"generate: cached scores differ from the rescoring by {rel}")
+
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        stages, host_stages = generate_stage_times(model, forward)
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        with torch.profiler.profile(activities=activities) as loop_prof:
+            cached_beams(blip, h2d, h3d, qmask)
+            torch.cuda.synchronize()
+    OUT_DIR.mkdir(exist_ok=True)
+    busy_ms, records, copies, copy_ms = profile_table(prof, OUT_DIR / "profile_generate.txt")
+    loop_ms, loop_records, _, _ = profile_table(loop_prof, OUT_DIR / "profile_generate_loop.txt")
+    reorder_ms = sum(e.device_time_total for e in loop_prof.key_averages()
+                     if e.key == "aten::index_select") / 1e3
+    log(f"generate profiles on {card_name_and_power()}:")
+    log("\n".join((OUT_DIR / "profile_generate.txt").read_text().splitlines()[:20]))
+    log(f"generate profiled forward: {busy_ms:.1f} ms of device time in {wall_ms:.1f} ms of wall "
+        f"time (busy {busy_ms / wall_ms:.0%}), {records} card records, aten::copy_ {copies} "
+        f"calls, {copy_ms:.2f} ms of device time")
+    log(f"generate profiled decode loop alone (init_cache + {GEN_MAX_LEN - 1} steps): "
+        f"{loop_ms:.2f} ms of device time, {loop_records} card records, cache reorder "
+        f"(index_select) {reorder_ms:.2f} ms")
+    latency = statistics.median(times)
+    log(f"generate timings on {card_name_and_power()}:")
+    log(f"generate: forward at batch {BATCH}, bf16, 2 x {GEN_BEAMS} beams, {GEN_MAX_LEN} tokens: "
+        f"median {latency * 1e3:.1f} ms over {reps} runs "
+        f"({', '.join(f'{t * 1e3:.1f}' for t in times)}), {BATCH / latency:.2f} QA pairs/s")
+    log(f"generate stages (ms of one forward on the card, median of 3): "
+        f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}")
+    log(f"generate stages on the host (ms to issue each stage's work, median of 3): "
+        f"{json.dumps({k: round(v, 3) for k, v in host_stages.items()})}")
+    return launches
+
+
 def report_ratios(kernels: dict) -> None:
     """Each product's time over ``F.linear``'s, and the per-forward sums of
     both (decoder and ViT shapes, each shape's ms times its calls); the ViT
@@ -1269,10 +1684,11 @@ def report_ratios(kernels: dict) -> None:
         f"(reps, launches, card records): {dropped_traces}")
 
 
-def summarize(kernel, launches: int) -> dict:
+def summarize(kernel, launches: int, by_path: dict) -> dict:
     """One kernel's record of the kernels line: its times and bound over
     the calls of one forward (each shape's median times its ``calls``), or
-    over what ``per`` names for a kernel no path runs."""
+    over what ``per`` names for a kernel no path runs; ``launches`` from the
+    rank forward and ``launches_by_path`` from each path's forward."""
     rows = kernel.pop("rows")
     per = kernel.pop("per", "one rank forward: each shape's median times the calls it gets")
 
@@ -1284,7 +1700,8 @@ def summarize(kernel, launches: int) -> dict:
     by = {}
     for r in rows:
         by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + r["bound_ms"] * r["calls"]
-    return dict(kernel, launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows),
+    return dict(kernel, launches=launches, launches_by_path=by_path,
+                max_abs_err=max(r["max_abs_err"] for r in rows),
                 ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
                 bound_by=max(by, key=by.get), library_ms=total("library_ms"), per=per,
                 shapes=rows)
@@ -1302,7 +1719,11 @@ def main() -> int:
     phase_vit_pass(device)
     phase_reference(device)
     launches = phase_main_path(device)
-    records = [summarize(k, launches[k["name"]]) for k in kernels]
+    phase_generate_reference(device)
+    generate_launches = phase_generate(device)
+    records = [summarize(k, launches[k["name"]], {"rank": launches[k["name"]],
+                                                  "generate": generate_launches[k["name"]]})
+               for k in kernels]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -781,3 +781,115 @@ def test_gather_rows_refuses_bad_inputs(card):
         gather.gather_rows(torch.zeros(2, 4, 50, device=card).transpose(1, 2), idx)
     with pytest.raises(ValueError):  # mixed devices
         gather.gather_rows(table, idx.cpu())
+
+
+def _tiny_generate_model(card_dtype=None):
+    """The tiny rank slice's config (hidden 128, 2 heads), weights drawn on
+    the CPU, the 2D decoder's LM head bias sharpened (random weights give
+    near-uniform logits whose beam choices a sum in another order can flip)."""
+    from bridgeqa_tpu_torch.models import blip_vqa3d, bridgeqa, med
+    from bridgeqa_tpu_torch.models.layers import init_weights
+
+    m = med.MedConfig(vocab_size=200, hidden_size=128, num_hidden_layers=2,
+                      num_attention_heads=2, intermediate_size=256, max_position_embeddings=64,
+                      encoder_width=128)
+    blip = blip_vqa3d.BlipVQA3DConfig(med=m, image_size=32, num_answers=30, scene_size=32,
+                                      bos_token_id=110, vit="custom", vit_custom_embed_dim=128,
+                                      vit_custom_depth=1, vit_custom_heads=2)
+    cfg = bridgeqa.BridgeQAConfig(num_answers=30, num_proposal=32, hidden_size=32, blip=blip,
+                                  mcan_num_layers=1, input_feature_dim=1)
+    model = init_weights(bridgeqa.BridgeQA(cfg, device="cpu"), torch.Generator().manual_seed(4))
+    bias = model.blip_model.text_decoder.cls.bias
+    with torch.no_grad():
+        bias += torch.from_numpy(np.random.RandomState(1).randn(200).astype(np.float32) * 4.0)
+    return model.eval()
+
+
+def test_generate_on_the_card_matches_the_cpu(card, monkeypatch):
+    """The tiny generate forward (2 x 3 beams, 8 tokens) in f32 through the
+    card's kernels against the plain versions on the CPU: the ids equal,
+    the heads within the f32 rule; the detector and ViT kernels launched,
+    the scoring attentions and the vocabulary pass not."""
+    import copy
+
+    cpu_model = _tiny_generate_model()
+    card_model = copy.deepcopy(cpu_model).to(card)
+    rng = np.random.RandomState(6)
+    pc = ((rng.rand(2, 2048, 3) - 0.5) * 6.0).astype(np.float32)
+    batch = dict(point_clouds=np.concatenate([pc, pc[..., 2:] + 3.0], -1),
+                 images=rng.rand(2, 32, 32, 3).astype(np.float32),
+                 question_ids=rng.randint(1, 100, (2, 12)),
+                 question_mask=np.ones((2, 12), np.int32))
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    kw = dict(inference="generate", num_beams=3, max_length=8)
+    with torch.inference_mode():
+        monkeypatch.setattr(vit_block, "FUSED_MODE", "force")
+        want = cpu_model(batch, **kw)
+        monkeypatch.setattr(vit_block, "FUSED_MODE", "auto")
+        before = (dict(scoring_layer.launches), vit_block.launches, vocab_loss.launches,
+                  sampling.launches, grouping.launches)
+        got = card_model({k: v.to(card) for k, v in batch.items()}, **kw)
+        torch.cuda.synchronize()
+    assert torch.equal(got["generated_ids"].cpu(), want["generated_ids"])
+    for key in ("lang_scores", "cluster_ref"):
+        _assert_close(got[key].cpu(), want[key], key)
+    assert scoring_layer.launches["scoring_attention"] == before[0]["scoring_attention"]
+    assert scoring_layer.launches["scoring_gemm"] > before[0]["scoring_gemm"]
+    assert vit_block.launches > before[1] and vocab_loss.launches == before[2]
+    assert sampling.launches > before[3] and grouping.launches > before[4]
+
+
+def test_bf16_decode_step_matches_f32(card):
+    """Three KV-cached decode steps of a 2-layer decoder at full width
+    (hidden 768, 12 heads, 30524 words) in bf16 against the same weights in
+    f32, 10 beam rows over 80 question tokens: the logits within the bf16
+    rule (of the f32 logits' largest)."""
+    import copy
+
+    from bridgeqa_tpu_torch.models import med
+    from bridgeqa_tpu_torch.models.layers import init_weights, set_compute_dtype
+
+    cfg = med.MedConfig(num_hidden_layers=2)
+    gen = torch.Generator(card).manual_seed(9)
+    f32 = init_weights(med.BertLMHeadModel(cfg).to(card), gen).eval()
+    bf16 = set_compute_dtype(copy.deepcopy(f32), torch.bfloat16)
+    rng = np.random.RandomState(9)
+    states = _randn(rng, 10, 80, 768, device=card)
+    mask = torch.ones(10, 80, dtype=torch.int32, device=card)
+    mask[5:, 60:] = 0
+    tokens = torch.from_numpy(rng.randint(1, 30000, (3, 10, 1))).to(card)
+    with torch.inference_mode():
+        c32 = f32.init_cache(states, mask, 20)
+        c16 = bf16.init_cache(states.to(torch.bfloat16), mask, 20)
+        assert c16["layers"][0]["self_k"].dtype == torch.bfloat16
+        for tok in tokens:
+            want, c32 = f32.decode_step(tok, c32)
+            got, c16 = bf16.decode_step(tok, c16)
+            err = float((got.float() - want).abs().max())
+            assert err <= 2.0**-6 * float(want.abs().max()), err
+
+
+def test_decode_loop_makes_no_host_sync(card):
+    """The cached beam search issues its 2 x 3 beams' 7 steps through the
+    tiny model's decoder without waiting for the card once: under
+    ``torch.cuda.set_sync_debug_mode("error")`` any synchronising call
+    raises."""
+    from bridgeqa_tpu_torch.models.generation import beam_search_cached, interleave_streams
+
+    blip = _tiny_generate_model().blip_model.to(card)
+    rng = np.random.RandomState(7)
+    h2d = _randn(rng, 2, 12, 128, device=card)
+    h3d = _randn(rng, 2, 12, 128, device=card)
+    mask = torch.ones(2 * 6, 12, dtype=torch.int32, device=card)
+    c = blip.cfg
+    with torch.inference_mode():
+        cache = blip.text_decoder.init_cache(interleave_streams(h2d, h3d, 3), mask, 8)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ids, scores = beam_search_cached(
+                blip.text_decoder.decode_step, cache, 2, 6, bos_token_id=c.bos_token_id,
+                eos_token_id=c.sep_token_id, pad_token_id=c.pad_token_id, max_length=8)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert ids.shape == (2, 6, 8) and bool(torch.isfinite(scores).all())
