@@ -12,6 +12,9 @@ crossattention.self.query``), so the mapping is a walk over the flax tree:
 - every other leaf (``cls_token``, ``pos_embed``, ``bilinear_fusion_*``,
   ``a_2``, ``b_2``, the LM head ``bias``) keeps its name and layout.
 
+``export_jax_variables`` walks the other way, from the port's modules to a
+flax tree of numpy arrays.
+
 A reference checkpoint reaches the port through
 ``bridgeqa_tpu.utils.bridgeqa_checkpoint.convert_scanqa`` and then
 ``load_jax_variables``, where JAX is installed; this module itself imports
@@ -21,6 +24,8 @@ no JAX.
 import numpy as np
 import torch
 from torch import nn
+
+from bridgeqa_tpu_torch.models.layers import BatchNorm, Dense, Embed, LayerNorm, PatchEmbed
 
 _RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight",
            "mean": "running_mean", "var": "running_var"}
@@ -67,3 +72,40 @@ def load_jax_variables(model: nn.Module, variables) -> nn.Module:
         raise KeyError(f"port entries with no JAX value: {missing[:10]}"
                        f"{' ...' if len(missing) > 10 else ''}")
     return model
+
+
+def _flax_leaf(module: nn.Module, name: str, value: np.ndarray):
+    """(collection, flax leaf name, value in the flax layout) of the
+    parameter or buffer ``name`` of ``module``."""
+    if isinstance(module, (BatchNorm, LayerNorm)):
+        if name in ("running_mean", "running_var"):
+            return "batch_stats", name[len("running_"):], value
+        return "params", "scale" if name == "weight" else name, value
+    if isinstance(module, Dense) and name == "weight":
+        return "params", "kernel", value.T
+    if isinstance(module, PatchEmbed) and name == "weight":
+        return "params", "kernel", value.transpose(2, 3, 1, 0)
+    if isinstance(module, Embed) and name == "weight":
+        return "params", "embedding", value
+    return "params", name, value
+
+
+@torch.no_grad()
+def export_jax_variables(model: nn.Module) -> dict:
+    """The flax ``{"params", "batch_stats"}`` tree of ``model``'s parameters
+    and persistent buffers, as numpy copies in their own dtype: the inverse
+    of ``load_jax_variables``."""
+    out = {"params": {}, "batch_stats": {}}
+    for mod_name, module in model.named_modules():
+        entries = list(module._parameters.items()) + [
+            (k, v) for k, v in module._buffers.items()
+            if k not in module._non_persistent_buffers_set]
+        for name, tensor in entries:
+            if tensor is None:
+                continue
+            collection, leaf, value = _flax_leaf(module, name, tensor.detach().cpu().numpy())
+            node = out[collection]
+            for part in mod_name.split(".") if mod_name else ():
+                node = node.setdefault(part, {})
+            node[leaf] = np.array(value, copy=True)
+    return out

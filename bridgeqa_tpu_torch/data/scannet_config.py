@@ -1,11 +1,11 @@
-"""ScanNet's size-cluster means, the one piece of the dataset configuration
-the rank path needs.
+"""ScanNet's size-cluster means and the detection constants the losses read
+(``ScannetDatasetConfig``: 18 classes, one heading bin, 18 size clusters).
 
 The values are the standard VoteNet/ScanRefer ScanNet v2 mean box sizes
 (``scannet_means.npz``), rows indexed by size class (which equals the
 semantic class for ScanNet): the same 18 rows as
 ``bridgeqa_tpu/data/scannet_config.py::MEAN_SIZE_ARR``, kept here so that the
-port imports nothing of the JAX package. A test holds the two equal.
+port imports nothing of the JAX package. Tests hold the two equal.
 """
 
 import numpy as np
@@ -33,3 +33,14 @@ MEAN_SIZE_ARR = np.array(
     ],
     dtype=np.float32,
 )
+
+
+class ScannetDatasetConfig:
+    """The fields of ``bridgeqa_tpu.data.scannet_config.ScannetDatasetConfig``
+    that the detection losses read."""
+
+    def __init__(self):
+        self.num_class = 18
+        self.num_heading_bin = 1
+        self.num_size_cluster = 18
+        self.mean_size_arr = MEAN_SIZE_ARR.copy()

@@ -21,23 +21,23 @@ class Pointnet2Backbone(nn.Module):
         self.fp1 = PointnetFPModule(512 * w, [256 * w, 256 * w])
         self.fp2 = PointnetFPModule(512 * w, [256 * w, seed_feat_dim])
 
-    def forward(self, point_clouds):
+    def forward(self, point_clouds, bn_momentum: float = 0.1):
         """point_clouds (B, N, 3 + input_feature_dim) -> dict of the sa1..sa4
         and fp2 xyz/features (+ inds), channel-last."""
         xyz = point_clouds[..., :3]
         features = point_clouds[..., 3:] if point_clouds.shape[-1] > 3 else None
         out = {}
-        xyz1, feat1, inds1 = self.sa1(xyz, features)
+        xyz1, feat1, inds1 = self.sa1(xyz, features, bn_momentum)
         out["sa1_inds"], out["sa1_xyz"], out["sa1_features"] = inds1, xyz1, feat1
-        xyz2, feat2, inds2 = self.sa2(xyz1, feat1)
+        xyz2, feat2, inds2 = self.sa2(xyz1, feat1, bn_momentum)
         out["sa2_inds"], out["sa2_xyz"], out["sa2_features"] = inds2, xyz2, feat2
-        xyz3, feat3, _ = self.sa3(xyz2, feat2)
+        xyz3, feat3, _ = self.sa3(xyz2, feat2, bn_momentum)
         out["sa3_xyz"], out["sa3_features"] = xyz3, feat3
-        xyz4, feat4, _ = self.sa4(xyz3, feat3)
+        xyz4, feat4, _ = self.sa4(xyz3, feat3, bn_momentum)
         out["sa4_xyz"], out["sa4_features"] = xyz4, feat4
 
-        feat_fp1 = self.fp1(xyz3, xyz4, feat3, feat4)
-        out["fp2_features"] = self.fp2(xyz2, xyz3, feat2, feat_fp1)
+        feat_fp1 = self.fp1(xyz3, xyz4, feat3, feat4, bn_momentum)
+        out["fp2_features"] = self.fp2(xyz2, xyz3, feat2, feat_fp1, bn_momentum)
         out["fp2_xyz"] = xyz2
         out["fp2_inds"] = inds1[:, : xyz2.shape[1]]  # indices into the raw cloud
         return out

@@ -2,10 +2,11 @@
 and generate paths of ``bridgeqa_tpu/models/blip_vqa3d.py``): ViT image
 encoder, twin med-BERT question encoder (the 2D stream attends to the image,
 the 3D stream to the projected scene proposals), two causal LM decoders that
-rank a fixed answer list, beam-search generation of open-ended answers, and
-the low-rank bilinear 2D/3D fusion.
+rank a fixed answer list, beam-search generation of open-ended answers, the
+low-rank bilinear 2D/3D fusion, and the training forward (both decoders'
+label-smoothed LM losses).
 
-Classifier mode and the training loss are later parts of the port."""
+Classifier mode is a later part of the port."""
 
 import dataclasses
 import warnings
@@ -19,7 +20,7 @@ from bridgeqa_tpu_torch.models.generation import (
     interleave_streams,
     top_k_stable,
 )
-from bridgeqa_tpu_torch.models.layers import Dense, LayerNorm, gelu
+from bridgeqa_tpu_torch.models.layers import Dense, LayerNorm, dropout, gelu
 from bridgeqa_tpu_torch.models.med import IGNORE_INDEX, BertLMHeadModel, BertModelTwin, MedConfig
 from bridgeqa_tpu_torch.models.vit import create_vit
 
@@ -31,8 +32,10 @@ class BlipVQA3DConfig:
     layer counts, the token ids, ``scene_ensemble_weight`` and
     ``rank_loss_chunk_size``; generate reads the widths, the layer counts,
     the token ids (bos, ``sep_token_id`` as eos, pad), ``num_beams``,
-    ``use_kv_cache``, ``generate_max_length`` and ``generate_min_length``.
-    The rest are kept so a JAX config carries over unchanged."""
+    ``use_kv_cache``, ``generate_max_length`` and ``generate_min_length``;
+    training also ``vit_drop_path_rate``, ``adapter_pdrop``, ``remat`` and
+    ``remat_mode``. The classifier fields are kept so a JAX config carries
+    over unchanged."""
 
     med: MedConfig = dataclasses.field(default_factory=MedConfig)
     image_size: int = 480
@@ -66,17 +69,19 @@ class BlipVQA3DConfig:
 
 
 class MlpAdapter(nn.Module):
-    """Dense, GELU, Dense, GELU, LayerNorm (eps 1e-5, torch's default as in
-    the reference's ``linear_scene_object``)."""
+    """Dense, GELU, dropout, Dense, GELU, LayerNorm (eps 1e-5, torch's
+    default as in the reference's ``linear_scene_object``)."""
 
-    def __init__(self, in_features: int, hidden_size: int):
+    def __init__(self, in_features: int, hidden_size: int, drop: float = 0.1):
         super().__init__()
+        self.drop = drop
         self.fc1 = Dense(in_features, hidden_size)
         self.fc2 = Dense(hidden_size, hidden_size)
         self.norm = LayerNorm(hidden_size, 1e-5)
 
     def forward(self, x):
-        return self.norm(gelu(self.fc2(gelu(self.fc1(x)))))
+        x = dropout(gelu(self.fc1(x)), self.drop, self.training)
+        return self.norm(gelu(self.fc2(x)))
 
 
 class BLIPVQA3D(nn.Module):
@@ -86,8 +91,11 @@ class BLIPVQA3D(nn.Module):
         med = c.med
         if c.encoder_layers is not None:
             med = dataclasses.replace(med, num_hidden_layers=c.encoder_layers)
+        if c.remat:
+            med = dataclasses.replace(med, remat=True, remat_mode=c.remat_mode)
         self.visual_encoder, vision_width = create_vit(
-            c.vit, c.image_size, c.vit_custom_embed_dim, c.vit_custom_depth, c.vit_custom_heads)
+            c.vit, c.image_size, c.vit_custom_embed_dim, c.vit_custom_depth, c.vit_custom_heads,
+            c.vit_drop_path_rate, c.remat, c.remat_mode)
         if vision_width != med.hidden_size:
             raise ValueError("twin exchange concatenates image embeds with BERT hidden states; "
                              f"vision width ({vision_width}) must equal med hidden size "
@@ -112,7 +120,7 @@ class BLIPVQA3D(nn.Module):
         # torch nn.Bilinear(lowrank, lowrank, h): out_o = x W_o y + b_o
         self.bilinear_fusion_kernel = nn.Parameter(torch.empty(h, lowrank, lowrank))
         self.bilinear_fusion_bias = nn.Parameter(torch.zeros(h))
-        self.linear_scene_object = MlpAdapter(c.scene_size, h)
+        self.linear_scene_object = MlpAdapter(c.scene_size, h, c.adapter_pdrop)
 
     @torch.no_grad()
     def init_weights_(self, generator: torch.Generator) -> None:
@@ -148,6 +156,24 @@ class BLIPVQA3D(nn.Module):
         y = self.lowrank_3d(h3d)
         bilinear = torch.einsum("...i,oij,...j->...o", x, self.bilinear_fusion_kernel.to(x.dtype), y)
         return bilinear + self.bilinear_fusion_bias.to(x.dtype) + (h2d + h3d) / 2.0
+
+    def forward(self, image, question_ids, question_mask, answer_ids, answer_mask,
+                scene_object_embeds, scene_object_mask):
+        """The training forward (JAX's ``__call__``): the twin encoding, then
+        both decoders' label-smoothed LM losses over the answers (padding
+        ignored), summed and divided by the batch. In eval mode the same
+        losses without dropout (the JAX package's ``inference="loss"``).
+        Returns (loss, fused_hidden, question_mask)."""
+        image_embeds = self.encode_image(image)
+        h2d, h3d = self.encode_question(image_embeds, question_ids, question_mask,
+                                        scene_object_embeds, scene_object_mask)
+        targets = torch.where(answer_ids == self.cfg.pad_token_id, IGNORE_INDEX, answer_ids)
+        _, loss_2d = self.text_decoder(answer_ids, answer_mask, h2d, question_mask, labels=targets)
+        _, loss_3d = self._decoder_scene()(answer_ids, answer_mask, h3d, question_mask,
+                                           labels=targets,
+                                           layernorm_idx=self._scene_layernorm_idx())
+        loss = (loss_2d.sum() + loss_3d.sum()) / image_embeds.shape[0]
+        return loss, self.fuse_2d3d(h2d, h3d), question_mask
 
     def _rank_with_decoder(self, decoder, question_states, question_mask, answer_ids, answer_mask,
                            k: int, layernorm_idx: int = 0):

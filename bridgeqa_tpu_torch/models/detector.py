@@ -23,17 +23,20 @@ class VoteNetDetector(nn.Module):
         self.proposal = ProposalModule(num_class, num_heading_bin, num_size_cluster, mean_size_arr,
                                        num_proposal, seed_feat_dim, proposal_size)
 
-    def forward(self, point_clouds):
-        """point_clouds (B, N, 3 + C) -> dict of detector outputs."""
-        out = self.backbone_net(point_clouds)
+    def forward(self, point_clouds, bn_momentum: float = 0.1):
+        """point_clouds (B, N, 3 + C) -> dict of detector outputs. In train
+        mode every BatchNorm normalises with the batch statistics and moves
+        its running ones by ``bn_momentum`` (JAX's ``detector(..., train=,
+        bn_momentum=)``)."""
+        out = self.backbone_net(point_clouds, bn_momentum)
         out["seed_inds"] = out["fp2_inds"]
         out["seed_xyz"] = out["fp2_xyz"]
         out["seed_features"] = out["fp2_features"]
-        vote_xyz, vote_features = self.vgen(out["seed_xyz"], out["seed_features"])
+        vote_xyz, vote_features = self.vgen(out["seed_xyz"], out["seed_features"], bn_momentum)
         # L2 norm over the features; an all-zero row stays zero instead of 0/0
         norm = torch.linalg.vector_norm(vote_features, dim=-1, keepdim=True)
         vote_features = vote_features / torch.where(norm == 0.0, 1.0, norm)
         out["vote_xyz"] = vote_xyz
         out["vote_features"] = vote_features
-        out.update(self.proposal(vote_xyz, vote_features))
+        out.update(self.proposal(vote_xyz, vote_features, bn_momentum))
         return out

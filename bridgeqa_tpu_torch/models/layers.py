@@ -12,15 +12,28 @@ inside the graph (flax casts at each call), so the gradients reach them
 (``param_as``). The fused paths run only without grad and read the copies
 of the weights and the f32 biases.
 ``init_weights`` fills every parameter from a ``torch.Generator`` with the
-JAX package's initialisers. Inference only: no dropout, no batch statistics
-updates.
+JAX package's initialisers.
+
+Training: ``model.train()`` stands for JAX's ``train=True``
+(``deterministic=False``) and ``model.eval()`` for ``train=False``.
+``BridgeQA`` leaves its constructor in eval mode; a module built on its own
+starts in ``nn.Module``'s train mode, so its caller sets the mode. In train mode
+``BatchNorm`` normalises with the batch statistics and updates its running
+ones with the momentum its caller passes, and ``dropout``/``drop_path`` draw
+their masks from the generator that ``dropout_rng`` makes current (JAX's
+``rngs={"dropout": key}``); no mask ever comes from PyTorch's global
+generator. ``remat`` is JAX's ``nn.remat``: ``torch.utils.checkpoint`` that
+redraws the same masks when it recomputes.
 """
 
+import contextlib
+import contextvars
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def _trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
@@ -85,9 +98,15 @@ class Embed(nn.Module):
         self.weight.normal_(0.0, 0.02, generator=generator)
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in ``promote_types(x.dtype, f32)``: f32 for bf16 and f32 inputs,
+    f64 kept (the JAX package's statistics and softmaxes)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 class LayerNorm(nn.Module):
-    """``flax.linen.LayerNorm``: f32 statistics, output in the input's
-    dtype; ``weight``/``bias`` are the flax ``scale``/``bias``."""
+    """``flax.linen.LayerNorm``: statistics in at least f32, output in the
+    input's dtype; ``weight``/``bias`` are the flax ``scale``/``bias``."""
 
     def __init__(self, features: int, eps: float):
         super().__init__()
@@ -96,7 +115,8 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.weight.shape, self.weight.float(), self.bias.float(),
+        xf = at_least_f32(x)
+        y = F.layer_norm(xf, self.weight.shape, self.weight.to(xf.dtype), self.bias.to(xf.dtype),
                          self.eps)
         return y.to(x.dtype)
 
@@ -107,9 +127,16 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval path of the JAX ``BatchNorm`` over the trailing axis, eps 1e-5:
-    ``(x - mean) * rsqrt(var + eps) * weight + bias`` with the running
-    statistics, computed in f32, output in the input's dtype."""
+    """The JAX ``BatchNorm`` over the trailing axis, eps 1e-5:
+    ``(x - mean) * rsqrt(var + eps) * weight + bias``, computed in
+    ``promote_types(x, f32)``, output in the input's dtype.
+
+    In eval mode ``mean`` and ``var`` are the running statistics. In train
+    mode they are the batch's, the variance taken in one pass as
+    ``E[x^2] - mean^2`` (biased); the running statistics then move by
+    torch's convention, ``running = (1 - m) * running + m * batch``, with
+    the unbiased batch variance. ``momentum`` is a call argument, as in
+    JAX, so a schedule needs no rebuild."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -119,9 +146,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = (x.float() - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
-        return (y * self.weight + self.bias).to(x.dtype)
+    def forward(self, x: torch.Tensor, momentum: float = 0.1) -> torch.Tensor:
+        xf = at_least_f32(x)
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = xf.mean(dims)
+            var = (xf * xf).mean(dims) - mean * mean
+            n = x.numel() // x.shape[-1]
+            with torch.no_grad():
+                unbiased = var * (n / max(n - 1, 1))
+                self.running_mean.copy_((1.0 - momentum) * self.running_mean + momentum * mean)
+                self.running_var.copy_((1.0 - momentum) * self.running_var + momentum * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return y.to(x.dtype)
 
     @torch.no_grad()
     def init_weights_(self, generator: torch.Generator) -> None:
@@ -149,11 +188,11 @@ class SharedMLP(nn.Module):
                 self.add_module(f"bn{i}", BatchNorm(width))
             cin = width
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_momentum: float = 0.1) -> torch.Tensor:
         for i in range(self.depth):
             x = getattr(self, f"layer{i}")(x)
             if self.bn:
-                x = getattr(self, f"bn{i}")(x)
+                x = getattr(self, f"bn{i}")(x, bn_momentum)
             x = F.relu(x)
         return x
 
@@ -161,6 +200,83 @@ class SharedMLP(nn.Module):
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU, flax ``nn.gelu(approximate=False)``."""
     return F.gelu(x, approximate="none")
+
+
+# the generator ``dropout_rng`` made current (per thread: autograd may run a
+# recompute on a thread of its own, where ``remat`` sets it again)
+_current_generator = contextvars.ContextVar("dropout_generator", default=None)
+
+
+@contextlib.contextmanager
+def dropout_rng(generator: torch.Generator | None):
+    """Make ``generator`` the one the dropout masks inside the block are
+    drawn from (JAX's ``rngs={"dropout": key}``). It lies on the device of
+    the tensors it masks."""
+    token = _current_generator.set(generator)
+    try:
+        yield
+    finally:
+        _current_generator.reset(token)
+
+
+def _generator() -> torch.Generator:
+    gen = _current_generator.get()
+    if gen is None:
+        raise RuntimeError("dropout in train mode needs a generator: pass one to "
+                           "BridgeQA.forward(..., generator=) or draw under layers.dropout_rng")
+    return gen
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+    """flax ``nn.Dropout``: in train mode each element is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``, else zeroed;
+    otherwise ``x`` itself."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=_generator(), device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+    """Stochastic depth (the JAX ViT's ``DropPath``): ``dropout`` with one
+    draw per sample, over the leading axis."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    mask = torch.rand(shape, generator=_generator(), device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward instead of
+    kept (JAX's ``nn.remat``): ``torch.utils.checkpoint`` without the
+    reentrant autograd. The checkpoint restores only PyTorch's global
+    generators, and the masks here come from ``dropout_rng``'s: the
+    recompute sets that generator back to where the forward found it, draws
+    the same masks, and leaves it where it was. Without grad, a plain
+    call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    gen = _current_generator.get()
+    start = None if gen is None else gen.get_state()
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if gen is None or calls[0] == 1:
+            with dropout_rng(gen):
+                return fn(*a)
+        resume = gen.get_state()
+        gen.set_state(start)
+        try:
+            with dropout_rng(gen):
+                return fn(*a)
+        finally:
+            gen.set_state(resume)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def add_indexed(parent: nn.Module, prefix: str, modules) -> list:
@@ -197,6 +313,21 @@ def param_as(m: nn.Module, name: str, dtype: torch.dtype) -> torch.Tensor:
     return getattr(m, name).to(dtype)
 
 
+def _make_copies(model: nn.Module, dtype_of) -> nn.Module:
+    # each Dense, Embed and PatchEmbed weight and bias gets a copy in
+    # ``dtype_of(its current copy or None, the parameter)``; none where that
+    # is None or the parameter's own dtype
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (Dense, Embed, PatchEmbed)):
+                for name in ("weight", "bias"):
+                    p = getattr(m, name, None)
+                    dtype = None if p is None else dtype_of(getattr(m, f"{name}_cast"), p)
+                    cast = None if dtype is None or dtype == p.dtype else p.detach().to(dtype)
+                    setattr(m, f"{name}_cast", cast)
+    return model
+
+
 def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Give every ``Dense``, ``Embed`` and ``PatchEmbed`` of ``model`` the
     compute dtype ``dtype``. Every parameter stays as it is, in f32 as flax
@@ -205,15 +336,17 @@ def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     ``convert.load_jax_variables`` see the f32 parameters). Without grad the
     products read the copies; under grad they cast the parameters in the
     graph. The copies are made now: after the weights are loaded, drawn or
-    changed by an optimizer step they are stale until this runs again."""
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, (Dense, Embed, PatchEmbed)):
-                for name in ("weight", "bias"):
-                    p = getattr(m, name, None)
-                    cast = None if p is None or dtype == p.dtype else p.detach().to(dtype)
-                    setattr(m, f"{name}_cast", cast)
-    return model
+    changed by an optimizer step they are stale until this runs again (or
+    ``refresh_compute_copies``, which ``train_step`` calls)."""
+    return _make_copies(model, lambda cast, p: dtype)
+
+
+def refresh_compute_copies(model: nn.Module) -> nn.Module:
+    """Make the compute-dtype copies that ``set_compute_dtype`` made again,
+    each in its own dtype, from the parameters as they are now, so that a
+    forward without grad reads them: after an optimizer step the copies are
+    stale until this runs."""
+    return _make_copies(model, lambda cast, p: None if cast is None else cast.dtype)
 
 
 @torch.no_grad()

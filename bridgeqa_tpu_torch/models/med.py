@@ -9,7 +9,14 @@ where ``MedConfig.fused_scoring`` lets it (``_fused_scoring_loss``):
 ``ops/scoring_layer.py`` and ``ops/vocab_loss.py``, hand-written kernels on
 the card. Generation decodes one token at a time against a KV cache
 (``BertLMHeadModel.init_cache`` and ``decode_step``), in plain PyTorch as the
-JAX package decodes in plain XLA. Inference only: no dropout.
+JAX package decodes in plain XLA.
+
+Training (``model.train()``, JAX's ``deterministic=False``): dropout after
+the embeddings, on the attention probabilities and after the attention and
+FFN output products, as the JAX modules place it, drawn from the generator
+``layers.dropout_rng`` makes current; with ``remat`` each layer ("block"),
+or only its attention scores and probabilities ("attn"), is recomputed in
+the backward (``layers.remat``). The fused path runs only in eval mode.
 """
 
 import dataclasses
@@ -23,9 +30,12 @@ from bridgeqa_tpu_torch.models.layers import (
     Embed,
     LayerNorm,
     add_indexed,
+    at_least_f32,
     compute_dtype,
+    dropout,
     gelu,
     param_as,
+    remat,
 )
 from bridgeqa_tpu_torch.ops.scoring_layer import fused_scoring_capable, scoring_decoder_body
 from bridgeqa_tpu_torch.ops.vocab_loss import label_smoothed_loss_streaming
@@ -37,9 +47,8 @@ IGNORE_INDEX = -100
 @dataclasses.dataclass(frozen=True)
 class MedConfig:
     """configs/med_config.json values; the JAX ``MedConfig``'s fields and
-    defaults. The port reads the model widths, ``layer_norm_eps``,
-    ``add_cross_attention``, ``parallel_layernorms`` and ``fused_scoring``;
-    dropout and remat are kept so a JAX config carries over unchanged.
+    defaults. The port reads every field; ``remat`` and the dropout rates
+    act in train mode only.
 
     ``fused_scoring`` routes the answer-scoring call (labels, a grouped
     batch): "auto" takes the fused kernels on a CUDA tensor and the module
@@ -83,14 +92,15 @@ def causal_attention_bias(mask: torch.Tensor) -> torch.Tensor:
     return ((1.0 - combined) * NEG_INF)[:, None]
 
 
-def attend(q, k, v, bias=None):
+def attend(q, k, v, bias=None, drop: float = 0.0):
     """q (B, H, Lq, D), k/v (B, H, Lk, D), bias broadcastable to
-    (B, H, Lq, Lk) -> context (B, H, Lq, D)."""
+    (B, H, Lq, Lk) -> context (B, H, Lq, D); ``drop``: the dropout rate of
+    the probabilities (0 outside training)."""
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(q.shape[-1])
     if bias is not None:
         scores = scores + bias.to(scores.dtype)
-    probs = torch.softmax(scores.float(), dim=-1).to(scores.dtype)
-    return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+    probs = torch.softmax(at_least_f32(scores), dim=-1).to(scores.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", dropout(probs, drop, drop > 0.0), v)
 
 
 class BertEmbeddings(nn.Module):
@@ -99,11 +109,13 @@ class BertEmbeddings(nn.Module):
         self.word_embeddings = Embed(c.vocab_size, c.hidden_size)
         self.position_embeddings = Embed(c.max_position_embeddings, c.hidden_size)
         self.LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps)
+        self.drop = c.hidden_dropout_prob
 
     def forward(self, input_ids, position_offset: int = 0):
         x = self.word_embeddings(input_ids)
         pos = torch.arange(input_ids.shape[1], device=input_ids.device) + position_offset
-        return self.LayerNorm(x + self.position_embeddings(pos)[None])
+        return dropout(self.LayerNorm(x + self.position_embeddings(pos)[None]), self.drop,
+                       self.training)
 
 
 class BertSelfAttention(nn.Module):
@@ -115,6 +127,9 @@ class BertSelfAttention(nn.Module):
         self.query = Dense(c.hidden_size, c.hidden_size)
         self.key = Dense(kv_width, c.hidden_size)
         self.value = Dense(kv_width, c.hidden_size)
+        self.drop = c.attention_probs_dropout_prob
+        # recompute the scores and probabilities in the backward ("attn" remat)
+        self.remat_probs = c.remat and c.remat_mode == "attn"
 
     def project_kv(self, kv_src):
         """(B, Lk, *) -> K, V (B, nh, Lk, hd): the cacheable half."""
@@ -125,26 +140,33 @@ class BertSelfAttention(nn.Module):
         v = self.value(kv_src).reshape(kb, lk, nh, hd).transpose(1, 2)
         return k, v
 
-    def attend_cached(self, hidden_states, k, v, attention_bias=None):
+    def attend_cached(self, hidden_states, k, v, attention_bias=None, drop: float = 0.0):
         """Queries from ``hidden_states`` (B, Lq, H) against K/V already
-        projected (``project_kv``, or a KV cache) -> context (B, Lq, H)."""
+        projected (``project_kv``, or a KV cache) -> context (B, Lq, H).
+        ``drop``: the probabilities' dropout rate (the forward's; 0 when
+        decoding)."""
         b, lq, h = hidden_states.shape
         nh = self.num_heads
         q = self.query(hidden_states).reshape(b, lq, nh, h // nh).transpose(1, 2)
-        return attend(q, k, v, attention_bias).transpose(1, 2).reshape(b, lq, h)
+        if self.remat_probs:
+            ctx = remat(attend, q, k, v, attention_bias, drop)
+        else:
+            ctx = attend(q, k, v, attention_bias, drop)
+        return ctx.transpose(1, 2).reshape(b, lq, h)
 
     def forward(self, hidden_states, attention_bias=None, encoder_hidden_states=None):
         b, lq, h = hidden_states.shape
         k, v = self.project_kv(encoder_hidden_states if self.is_cross_attention
                                else hidden_states)
         kb = k.shape[0]
+        drop = self.drop if self.training else 0.0
         if self.is_cross_attention and kb != b:
             # grouped cross-attention: g query rows per encoder row (the k
             # answers ranked against one question) fold into the query
             # length, so each question's K/V is projected once
             grouped = hidden_states.reshape(kb, (b // kb) * lq, h)
-            return self.attend_cached(grouped, k, v, attention_bias).reshape(b, lq, h)
-        return self.attend_cached(hidden_states, k, v, attention_bias)
+            return self.attend_cached(grouped, k, v, attention_bias, drop).reshape(b, lq, h)
+        return self.attend_cached(hidden_states, k, v, attention_bias, drop)
 
 
 class BertSelfOutput(nn.Module):
@@ -152,9 +174,11 @@ class BertSelfOutput(nn.Module):
         super().__init__()
         self.dense = Dense(c.hidden_size, c.hidden_size)
         self.LayerNorm = LayerNorm(c.hidden_size, c.layer_norm_eps)
+        self.drop = c.hidden_dropout_prob
 
     def forward(self, hidden_states, input_tensor):
-        return self.LayerNorm(self.dense(hidden_states) + input_tensor)
+        hidden_states = dropout(self.dense(hidden_states), self.drop, self.training)
+        return self.LayerNorm(hidden_states + input_tensor)
 
 
 class BertAttention(nn.Module):
@@ -184,6 +208,7 @@ class BertLayer(nn.Module):
         self.output_LayerNorms = add_indexed(
             self, "output_LayerNorms_",
             (LayerNorm(c.hidden_size, c.layer_norm_eps) for _ in range(c.parallel_layernorms)))
+        self.drop = c.hidden_dropout_prob
 
     def forward(self, hidden_states, attention_bias=None, encoder_hidden_states=None,
                 encoder_attention_bias=None, multimodal: bool = True, layernorm_idx: int = 0):
@@ -191,7 +216,8 @@ class BertLayer(nn.Module):
         if multimodal and encoder_hidden_states is not None:
             attention_output = self.crossattention(attention_output, encoder_attention_bias,
                                                    encoder_hidden_states)
-        layer_output = self.output_dense(gelu(self.intermediate_dense(attention_output)))
+        layer_output = dropout(self.output_dense(gelu(self.intermediate_dense(attention_output))),
+                               self.drop, self.training)
         return self._ffn_layernorm(layernorm_idx)(layer_output + attention_output)
 
     def _ffn_layernorm(self, layernorm_idx: int) -> LayerNorm:
@@ -225,16 +251,25 @@ class BertLayer(nn.Module):
         return self._ffn_layernorm(layernorm_idx)(layer_output + attention_output), layer_cache
 
 
+def _remat_whole_layers(c: MedConfig) -> bool:
+    """Whether each layer is recomputed whole in the backward ("block")."""
+    if c.remat_mode not in ("block", "attn"):
+        raise ValueError(f"remat_mode must be 'block' or 'attn', got {c.remat_mode!r}")
+    return c.remat and c.remat_mode == "block"
+
+
 class BertEncoder(nn.Module):
     def __init__(self, c: MedConfig):
         super().__init__()
+        self.remat_layers = _remat_whole_layers(c)
         self.layer = add_indexed(self, "layer_", (BertLayer(c) for _ in range(c.num_hidden_layers)))
 
     def forward(self, hidden_states, attention_bias=None, encoder_hidden_states=None,
                 encoder_attention_bias=None, multimodal: bool = True, layernorm_idx: int = 0):
         for layer in self.layer:
-            hidden_states = layer(hidden_states, attention_bias, encoder_hidden_states,
-                                  encoder_attention_bias, multimodal, layernorm_idx)
+            args = (hidden_states, attention_bias, encoder_hidden_states, encoder_attention_bias,
+                    multimodal, layernorm_idx)
+            hidden_states = remat(layer, *args) if self.remat_layers else layer(*args)
         return hidden_states
 
 
@@ -246,19 +281,23 @@ class BertEncoderTwin(nn.Module):
 
     def __init__(self, c: MedConfig):
         super().__init__()
+        self.remat_layers = _remat_whole_layers(c)
         self.layer = add_indexed(self, "layer_", (BertLayer(c) for _ in range(c.num_hidden_layers)))
         self.layer_twin = add_indexed(self, "layer_twin_", (BertLayer(c) for _ in range(c.twin_layers)))
 
     def forward(self, hidden_states, attention_bias, encoder_hidden_states, encoder_attention_bias,
                 encoder_hidden_states_twin, encoder_attention_bias_twin):
+        def run(layer, *args):
+            return remat(layer, *args) if self.remat_layers else layer(*args)
+
         hidden_twin = hidden_states
         for i, layer in enumerate(self.layer):
             cross_mix = torch.cat([encoder_hidden_states, hidden_twin], dim=1)
             cross_mix_twin = torch.cat([encoder_hidden_states_twin, hidden_states], dim=1)
-            new_hidden = layer(hidden_states, attention_bias, cross_mix, encoder_attention_bias)
+            new_hidden = run(layer, hidden_states, attention_bias, cross_mix, encoder_attention_bias)
             if i < len(self.layer_twin):
-                hidden_twin = self.layer_twin[i](hidden_twin, attention_bias, cross_mix_twin,
-                                                 encoder_attention_bias_twin)
+                hidden_twin = run(self.layer_twin[i], hidden_twin, attention_bias, cross_mix_twin,
+                                  encoder_attention_bias_twin)
             hidden_states = new_hidden
         return hidden_states, hidden_twin
 
@@ -328,12 +367,12 @@ class BertLMPredictionHead(nn.Module):
 def label_smoothed_from_shifted(shifted_logits, shifted_labels, epsilon: float = 0.1):
     """Per-sequence sum of the label-smoothed (0.1) cross entropy, ignore
     index -100, in logsumexp form: ``nll = lse - logit_target``,
-    ``smooth = lse - mean(logits)``; the reductions run in f32."""
+    ``smooth = lse - mean(logits)``; the reductions run in at least f32."""
     valid = shifted_labels != IGNORE_INDEX
     safe = torch.where(valid, shifted_labels, 0)
-    logits32 = shifted_logits.float()
+    logits32 = at_least_f32(shifted_logits)
     lse = torch.logsumexp(logits32, dim=-1)
-    target = shifted_logits.gather(-1, safe[..., None].long())[..., 0].float()
+    target = at_least_f32(shifted_logits.gather(-1, safe[..., None].long())[..., 0])
     per_token = (1.0 - epsilon) * (lse - target) + epsilon * (lse - logits32.mean(dim=-1))
     return torch.where(valid, per_token, 0.0).sum(dim=-1)
 
@@ -394,9 +433,10 @@ class BertLMHeadModel(nn.Module):
 
         It runs for a call with labels and encoder states over a grouped
         batch (``fused_scoring_capable``), as ``fused_scoring`` allows, and
-        never where a gradient is wanted (``torch.is_grad_enabled()``, the
-        port's counterpart of JAX's ``not deterministic``) or with
-        ``remat``: the kernels have no backward. It drops the answer padding
+        never in train mode or where a gradient is wanted
+        (``torch.is_grad_enabled()``; together the port's counterpart of
+        JAX's ``not deterministic``) or with ``remat``: the kernels have no
+        backward. It drops the answer padding
         mask (equivalent for right-padded answers) and projects the
         vocabulary in f32 where the module path rounds the logits to the
         working type."""
@@ -405,7 +445,7 @@ class BertLMHeadModel(nn.Module):
             raise ValueError(f"fused_scoring must be 'auto', 'force' or 'off', got "
                              f"{c.fused_scoring!r}")
         if (labels is None or encoder_hidden_states is None or c.fused_scoring == "off"
-                or c.remat or torch.is_grad_enabled()):
+                or c.remat or self.training or torch.is_grad_enabled()):
             return None
         if c.fused_scoring == "auto" and input_ids.device.type != "cuda":
             return None

@@ -35,7 +35,8 @@ class PointnetSAModuleVotes(nn.Module):
         self.nsample = nsample
         self.mlp_module = SharedMLP(3 + in_features, mlp)
 
-    def forward(self, xyz: torch.Tensor, features: torch.Tensor | None = None):
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor | None = None,
+                bn_momentum: float = 0.1):
         """xyz (B, N, 3); features (B, N, C) or None. Returns new_xyz
         (B, npoint, 3), new_features (B, npoint, mlp[-1]), inds (B, npoint)
         int32."""
@@ -48,7 +49,7 @@ class PointnetSAModuleVotes(nn.Module):
             grouped = group_points(features, idx) if nf else None
         rel = rel / self.radius
         x = rel if grouped is None else torch.cat([rel.to(grouped.dtype), grouped], dim=-1)
-        new_features = self.mlp_module(x).amax(dim=2)
+        new_features = self.mlp_module(x, bn_momentum).amax(dim=2)
         return new_xyz, new_features, inds
 
 
@@ -60,11 +61,11 @@ class PointnetFPModule(nn.Module):
         super().__init__()
         self.mlp = SharedMLP(in_features, mlp)
 
-    def forward(self, unknown, known, unknown_feats, known_feats):
+    def forward(self, unknown, known, unknown_feats, known_feats, bn_momentum: float = 0.1):
         dist, idx = three_nn(unknown, known)
         dist_recip = 1.0 / (dist + 1e-8)
         weight = dist_recip / dist_recip.sum(dim=2, keepdim=True)
         interpolated = three_interpolate(known_feats, idx, weight)
         if unknown_feats is not None:
             interpolated = torch.cat([interpolated, unknown_feats.to(interpolated.dtype)], dim=-1)
-        return self.mlp(interpolated)
+        return self.mlp(interpolated, bn_momentum)

@@ -29,15 +29,15 @@ class ProposalModule(nn.Module):
         out_dim = 2 + 3 + num_heading_bin * 2 + num_size_cluster * 4 + num_class
         self.proposal_out = Dense(p, out_dim, init="kaiming")
 
-    def forward(self, xyz, features):
+    def forward(self, xyz, features, bn_momentum: float = 0.1):
         """xyz (B, K, 3) votes, features (B, K, C) -> dict of proposal fields."""
-        agg_xyz, agg_features, fps_inds = self.vote_aggregation(xyz, features)
+        agg_xyz, agg_features, fps_inds = self.vote_aggregation(xyz, features, bn_momentum)
         out = {
             "aggregated_vote_xyz": agg_xyz,
             "aggregated_vote_features": agg_features,
             "aggregated_vote_inds": fps_inds,
         }
-        net = self.proposal_out(self.proposal_mlp(agg_features))
+        net = self.proposal_out(self.proposal_mlp(agg_features, bn_momentum))
         out.update(self.decode_scores(net, agg_xyz))
         return out
 

@@ -19,14 +19,14 @@ class VotingModule(nn.Module):
         self.bn2 = BatchNorm(c)
         self.conv3 = Dense(c, (3 + c) * vote_factor, init="kaiming")
 
-    def forward(self, seed_xyz, seed_features):
+    def forward(self, seed_xyz, seed_features, bn_momentum: float = 0.1):
         """seed_xyz (B, S, 3), seed_features (B, S, C) -> vote_xyz
         (B, S * vote_factor, 3), vote_features (B, S * vote_factor, C)."""
         b, num_seed, _ = seed_xyz.shape
         c = self.seed_feature_dim
         num_vote = num_seed * self.vote_factor
-        net = F.relu(self.bn1(self.conv1(seed_features)))
-        net = F.relu(self.bn2(self.conv2(net)))
+        net = F.relu(self.bn1(self.conv1(seed_features), bn_momentum))
+        net = F.relu(self.bn2(self.conv2(net), bn_momentum))
         net = self.conv3(net).reshape(b, num_seed, self.vote_factor, 3 + c)
         vote_xyz = (seed_xyz[:, :, None, :] + net[..., 0:3]).reshape(b, num_vote, 3)
         vote_features = (seed_features[:, :, None, :] + net[..., 3:]).reshape(b, num_vote, c)

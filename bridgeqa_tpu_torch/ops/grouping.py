@@ -14,6 +14,18 @@ tensor it runs ``ball_query_stripes_plain``, which follows
 - a slot whose stripe is empty takes the first qualifier of the whole ball,
   a ball with no qualifier takes index 0, with rel 0 and point 0's
   features.
+
+Gradients. On the card the query is an autograd Function whose backward is
+the hand-written kernel in ``csrc/ball_query_backward.cu``: the rel and
+grouped-feature cotangents scattered onto the picked points, their negated
+sum onto each centre (the JAX op's custom VJP, ``_ball_query_stripes_bwd``
+and ``_ball_query_stripes_feats_bwd``). On the CPU autograd runs through the
+plain version, as XLA differentiates ``_ball_query_stripes_xla`` on JAX's
+CPU. The two differ on an all-empty ball, as the JAX package's two paths
+do: its slots hold index 0 and rel 0, and the kernel's VJP still sends
+their cotangents to point 0 and the centre, where the plain version's rel
+is a constant 0 and takes none. On the model path every centre is one of
+its cloud's points, so no ball is empty and the two agree.
 """
 
 import ctypes
@@ -29,8 +41,10 @@ MAX_KERNEL_FEATS = 4
 # centres per distance tile of the plain version
 _PLAIN_BLOCK = 256
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
+# kernel launches since the last reset, forward and backward (chip_smoke.py
+# reads and resets them)
 launches = 0
+backward_launches = 0
 # what the last kernel launch was, as its C entry reports it: {"kernel":
 # "staged" (stripes staged in shared memory) or "warp" (a warp per centre),
 # "blocks", "centres_per_warp", "staged_whole" (the cloud staged once)}
@@ -62,11 +76,12 @@ def ball_query_stripes(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: 
     xyz (B, N, 3), new_xyz (B, M, 3), feats (B, N, F) with F <= 4 or None.
     Returns (idx (B, M, nsample) int32, rel (B, M, nsample, 3) f32,
     grouped feats (B, M, nsample, F) f32 or None). Inputs are cast to f32 on
-    entry, as the JAX op does under any compute dtype.
+    entry, as the JAX op does under any compute dtype. On the card, where a
+    gradient is wanted of xyz, new_xyz or feats, the backward kernel gives
+    it (``ball_query_stripes_backward``).
     ``centres_per_warp`` (1, 2, 4 or 8) runs the kernel that stages the
     stripes with that many centres a warp instead of its own choice, at any
     cloud size, for the card tests."""
-    global launches, last_launch
     if nsample % 2:
         raise ValueError(f"the stripe rule needs an even nsample, got {nsample}")
     if centres_per_warp is not None and centres_per_warp not in CENTRES_PER_WARP:
@@ -90,7 +105,33 @@ def ball_query_stripes(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: 
         return ball_query_stripes_plain(radius, nsample, xyz, new_xyz, feats)
     if xyz.device.type != "cuda":
         raise ValueError(f"unsupported device {xyz.device}")
-    cuda_lib.refuse_grad("ball_query_stripes", xyz, new_xyz, feats)
+    if feats is None:
+        idx, rel = _BallQueryStripes.apply(xyz, new_xyz, None, radius, nsample, centres_per_warp)
+        return idx, rel, None
+    return _BallQueryStripes.apply(xyz, new_xyz, feats, radius, nsample, centres_per_warp)
+
+
+class _BallQueryStripes(torch.autograd.Function):
+    """The kernel's forward and ``ball_query_stripes_backward`` as its
+    backward (JAX's ``custom_vjp`` around the Pallas kernel)."""
+
+    @staticmethod
+    def forward(ctx, xyz, new_xyz, feats, radius, nsample, centres_per_warp):
+        idx, rel, fout = _launch(radius, nsample, xyz, new_xyz, feats, centres_per_warp)
+        ctx.save_for_backward(idx)
+        ctx.n = xyz.shape[1]
+        ctx.mark_non_differentiable(idx)
+        return (idx, rel) if fout is None else (idx, rel, fout)
+
+    @staticmethod
+    def backward(ctx, _g_idx, g_rel, g_grouped=None):
+        (idx,) = ctx.saved_tensors
+        g_xyz, g_center, g_feats = ball_query_stripes_backward(idx, g_rel, g_grouped, ctx.n)
+        return g_xyz, g_center, g_feats, None, None, None
+
+
+def _launch(radius, nsample, xyz, new_xyz, feats, centres_per_warp):
+    global launches, last_launch
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
     nf = 0 if feats is None else feats.shape[-1]
@@ -113,9 +154,63 @@ def ball_query_stripes(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: 
     return idx, rel, fout
 
 
+def ball_query_stripes_backward(idx: torch.Tensor, g_rel: torch.Tensor,
+                                g_grouped: torch.Tensor | None, n: int):
+    """Cotangents of the stripe ball query's inputs from those of its
+    outputs: idx (B, M, S) from the forward, g_rel (B, M, S, 3), g_grouped
+    (B, M, S, F) or None, n the cloud's length. Returns (g_xyz (B, N, 3),
+    g_center (B, M, 3), g_feats (B, N, F) or None), f32: the rel and
+    feature cotangents added onto the points each slot picked and the rel
+    cotangents' negated sum on each centre. On a CUDA tensor one launch of
+    ``csrc/ball_query_backward.cu`` (f32 atomics, so not bitwise repeatable);
+    on a CPU tensor ``ball_query_stripes_backward_plain``."""
+    global backward_launches
+    b, m, s = idx.shape
+    if tuple(g_rel.shape) != (b, m, s, 3) or (g_grouped is not None and (
+            g_grouped.dim() != 4 or tuple(g_grouped.shape[:3]) != (b, m, s)
+            or not 0 < g_grouped.shape[-1] <= MAX_KERNEL_FEATS)):
+        raise ValueError(f"cotangents {tuple(g_rel.shape)}, "
+                         f"{None if g_grouped is None else tuple(g_grouped.shape)} do not fit "
+                         f"idx {tuple(idx.shape)}")
+    g_rel = g_rel.float().contiguous()
+    g_grouped = None if g_grouped is None else g_grouped.float().contiguous()
+    if idx.device.type == "cpu":
+        return ball_query_stripes_backward_plain(idx, g_rel, g_grouped, n)
+    tensors = [idx.contiguous(), g_rel] + ([g_grouped] if g_grouped is not None else [])
+    cuda_lib.check_cuda("ball_query_stripes_backward", torch.float32, *tensors)
+    nf = 0 if g_grouped is None else g_grouped.shape[-1]
+    g_xyz = torch.zeros((b, n, 3), dtype=torch.float32, device=idx.device)
+    g_center = torch.empty((b, m, 3), dtype=torch.float32, device=idx.device)
+    g_feats = torch.zeros((b, n, nf), dtype=torch.float32, device=idx.device) if nf else None
+    rc = cuda_lib.lib().bq_ball_query_backward(
+        tensors[0].data_ptr(), g_rel.data_ptr(), g_grouped.data_ptr() if nf else None,
+        g_xyz.data_ptr(), g_center.data_ptr(), g_feats.data_ptr() if nf else None,
+        b, n, m, s, nf, cuda_lib.stream_handle(idx.device))
+    cuda_lib.check(rc, "bq_ball_query_backward")
+    backward_launches += 1
+    return g_xyz, g_center, g_feats
+
+
+def ball_query_stripes_backward_plain(idx, g_rel, g_grouped, n: int):
+    """Plain PyTorch version of ``ball_query_stripes_backward`` on any
+    device (``index_add_`` over the flattened clouds, and a sum); the
+    kernel's reference, used by the tests."""
+    b, m, s = idx.shape
+    rows = (idx.long() + n * torch.arange(b, device=idx.device)[:, None, None]).reshape(-1)
+    g_xyz = g_rel.new_zeros((b * n, 3)).index_add_(0, rows, g_rel.reshape(-1, 3))
+    g_center = -g_rel.sum(dim=2)
+    g_feats = None
+    if g_grouped is not None:
+        nf = g_grouped.shape[-1]
+        g_feats = g_grouped.new_zeros((b * n, nf)).index_add_(0, rows, g_grouped.reshape(-1, nf))
+        g_feats = g_feats.reshape(b, n, nf)
+    return g_xyz.reshape(b, n, 3), g_center, g_feats
+
+
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """sum_k (a[..., i, k] - b[..., j, k])^2, one coordinate at a time in the
-    JAX order (``pairwise_sqdist``)."""
+    """sum_k (a[..., i, k] - b[..., j, k])^2 in f32, one coordinate at a time
+    in the JAX order (``pairwise_sqdist``)."""
+    a, b = a.float(), b.float()
     d2 = torch.zeros(a.shape[:-1] + (b.shape[-2],), dtype=torch.float32, device=a.device)
     for k in range(a.shape[-1]):
         diff = a[..., k][..., :, None] - b[..., k][..., None, :]

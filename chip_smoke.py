@@ -12,7 +12,8 @@ result is printed):
 2. build: compile every ``bridgeqa_tpu_torch/csrc/*.cu`` for sm_90a; print
    ptxas's register, spill and shared-memory lines for the redesigned
    kernels (the bf16 GEMM, the ViT attention, FPS's cluster kernel, the
-   vocabulary pass, the scoring attentions' pipeline and the ball query);
+   vocabulary pass, the scoring attentions' pipeline, the ball query and its
+   backward);
    disassemble the library (``cuobjdump -sass``) and fail unless every
    instantiation of the bf16 GEMM and the vocabulary pass's bf16 kernel
    hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads), and every
@@ -123,6 +124,36 @@ result is printed):
      (card records, device time, the cache reorder's;
      ``build/profile_generate_loop.txt``) and peak memory.
 
+7. train: ``train_step`` (``BridgeQA.forward(batch, inference="loss")`` in
+   train mode, ``get_loss``, the backward, the 3-group AdamW of
+   ``train.optim.build_optimizer``).
+   - The stripe ball query's backward kernel (``csrc/ball_query_backward.cu``)
+     against its plain version at the vote aggregation's shape (batch 16,
+     1024 votes, 256 centres, 16 slots) and SA1's (40000 points, 2048
+     centres, 64 slots, one feature channel), with duplicate points,
+     all-empty balls and stripes filled by the ball's first qualifier: g_xyz,
+     g_center and g_feats each within 1e-5 of their largest value (f32
+     atomics add in another order); card times beside the bound and one
+     ``index_add_``.
+   - Tiny, card against CPU (``phase_train_reference``): one step of the
+     tiny config in f64 (the point kernels in f32, as always; in f32 the
+     detector's BatchNorm gradients carry more than 1e-3 of rounding on
+     either device, and the f32 step's distance from it is printed), dropout
+     0, BatchNorm in train mode: losses within 1e-4
+     relative, gradients within 1e-3 relative L2 (those 0 by construction
+     within 1e-5 of the largest), running statistics within 1e-5; FPS, the
+     ball query and its backward launched on the card, the fused scoring and
+     ViT kernels not.
+   - Full width (``phase_train``): the main path's config at batch 16 with
+     remat "block", bf16 compute over f32 parameters, the config's dropout
+     from a seeded generator, ``OptimConfig()``, BN momentum 0.1: one
+     warm-up step and 5 steps with finite losses and gradients, each
+     step's launch counts equal to ``expected_train_launches`` (FPS 5, ball
+     query 5, its backward 1, every fused kernel 0), every parameter group
+     changed; the step's wall and samples/s, forward, backward and optimizer
+     by CUDA events, one profiled step (``build/profile_train_step.txt``),
+     and peak memory with remat and without it.
+
 Bounds: the least time the card could take for a kernel's work, the larger
 of the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its operations over the peak rate for their type
@@ -133,11 +164,14 @@ causal prefixes) is counted for this run's data.
 Matrix products run in full f32 where f32 is used: TF32 is switched off
 for both cuBLAS and cuDNN, and the patch embedding is a matrix product.
 The last two lines are a ``{"kernels": [...]}`` JSON object (each
-kernel's ``launches`` from the rank forward, ``launches_by_path`` from the
-rank and the generate forward) and ``{"ok": true, "device": {...}}``.
+kernel's ``launches`` from the path it serves, named by ``launches_path``:
+the rank forward, or the train step for the backward kernel;
+``launches_by_path`` from the rank forward, the generate forward and a train
+step) and ``{"ok": true, "device": {...}}``.
 """
 
 import copy
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -230,9 +264,14 @@ def device_ms(fn, reps: int) -> float:
     (and copy) that a loop of ``reps`` back-to-back calls runs, read from
     ``torch.profiler``'s records of the card, over ``reps``. For kernels that
     take the card less time than their wrapper takes the host, where
-    ``time_ms`` reads the host. A trace is used only if it holds a card
-    record for every launch the host made in it; one that lost some
-    (``dropped_traces``) is taken again, up to five times."""
+    ``time_ms`` reads the host. One more call runs first inside the trace, and
+    only the loop's records count (the last ones by start time, as many as
+    the loop launched). A trace is used only if it holds a card record for
+    every launch of the loop; one that lost some (``dropped_traces``) is
+    taken again, up to five times, with the names of what it held and what
+    was launched printed, and then the reading fails."""
+    from collections import Counter
+
     from torch.autograd import DeviceType
 
     fn()
@@ -240,19 +279,63 @@ def device_ms(fn, reps: int) -> float:
     for _ in range(5):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         events = prof.profiler.kineto_results.events()
-        work = [e for e in events if e.device_type() == DeviceType.CUDA]
-        calls = sum(1 for e in events if e.device_type() == DeviceType.CPU
-                    and e.name().startswith(_LAUNCH_CALLS))
-        if work and len(work) >= calls:
-            return sum(e.duration_ns() for e in work) / 1e6 / reps
-        dropped_traces.append((reps, calls, len(work)))
-        log(f"device_ms: a trace of {reps} calls held {len(work)} card records for {calls} "
-            "launches; taken again")
+        work = sorted((e for e in events if e.device_type() == DeviceType.CUDA),
+                      key=lambda e: e.start_ns())
+        launched = [e.name() for e in events if e.device_type() == DeviceType.CPU
+                    and e.name().startswith(_LAUNCH_CALLS)]
+        # the loop's launches, when every call launches alike; else all of them
+        loop = (len(launched) // (reps + 1) * reps if len(launched) % (reps + 1) == 0
+                else len(launched))
+        if work and len(work) >= loop:
+            return sum(e.duration_ns() for e in work[len(work) - loop:]) / 1e6 / reps
+        dropped_traces.append((reps, loop, len(work)))
+        log(f"device_ms: a trace of {reps} calls held {len(work)} card records for {loop} "
+            f"launches of the loop; taken again. Records "
+            f"{dict(Counter(e.name()[:40] for e in work))}, launches {dict(Counter(launched))}")
     raise RuntimeError("device_ms: torch.profiler lost the card's records five times in a row")
+
+
+def queued_ms(fn, reps: int, loops: int = 3) -> float:
+    """ms of card time per call of ``fn``, by CUDA events and no profiler:
+    each loop of ``reps`` calls is queued behind a spin kernel
+    (``torch.cuda._sleep``) that holds the card until the host has queued
+    the whole loop, so the events read the card running the calls back to
+    back (the gaps between its kernels included), not the host issuing
+    them. A loop counts only if the host queued it within the spin's card
+    time; else the spin is doubled and the loop taken again, up to five
+    times, and then the reading fails. The median of ``loops`` loops. For
+    the backward kernel's rows: late in a long run ``torch.profiler`` has
+    been seen to lose a few of their short kernels' records in every trace,
+    so ``device_ms`` cannot read them."""
+    fn()
+    torch.cuda.synchronize()
+    cycles, times = 1 << 20, []
+    while len(times) < loops:
+        for _ in range(5):
+            spun, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+            spun_from = time.perf_counter()
+            spun.record()
+            torch.cuda._sleep(cycles)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            queued_s = time.perf_counter() - spun_from
+            end.synchronize()
+            if queued_s * 1e3 < spun.elapsed_time(start):
+                times.append(start.elapsed_time(end) / reps)
+                break
+            cycles *= 2
+        else:
+            raise RuntimeError(f"queued_ms: the host took longer to queue {reps} calls than a "
+                               f"spin of {cycles} cycles held the card")
+    return statistics.median(times)
 
 
 def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
@@ -303,7 +386,8 @@ def card_name_and_power() -> str:
 # the redesigned kernels whose ptxas lines phase 2 prints (parts of their
 # mangled names)
 PTXAS_KERNELS = ("gemm_kernel", "vit_attention_bf16_kernel", "fps_cluster_kernel",
-                 "vocab_wgmma_kernel", "attention_pipe_kernel", "ball_query_stripes_kernel")
+                 "vocab_wgmma_kernel", "attention_pipe_kernel", "ball_query_stripes_kernel",
+                 "ball_query_backward_kernel")
 # kernels whose SASS must hold Hopper instructions (parts of their mangled
 # names: wg::gemm_kernel<...>, the vocabulary pass, the scoring attentions'
 # pipeline), and which: the wgmma product (HGMMA) and the TMA tile load
@@ -1045,7 +1129,7 @@ def reset_launches() -> None:
     from bridgeqa_tpu_torch.ops import vocab_loss
 
     sampling.launches = grouping.launches = vocab_loss.launches = 0
-    vit_block.launches = gather.launches = 0
+    vit_block.launches = gather.launches = grouping.backward_launches = 0
     for name in scoring_layer.launches:
         scoring_layer.launches[name] = 0
 
@@ -1056,11 +1140,14 @@ def read_launches() -> dict:
 
     return {"fps": sampling.launches, "ball_query_stripes": grouping.launches,
             **scoring_layer.launches, "vocab_loss": vocab_loss.launches,
-            "vit_attention": vit_block.launches, "gather_rows": gather.launches}
+            "vit_attention": vit_block.launches, "gather_rows": gather.launches,
+            "ball_query_backward": grouping.backward_launches}
 
 
 # kernels no path runs: checked in phase 3 only
 OFF_PATH = ("gather_rows",)
+# kernels only a backward runs: the train path's
+BACKWARD_ONLY = ("ball_query_backward",)
 
 
 def phase_reference(device):
@@ -1095,7 +1182,7 @@ def phase_reference(device):
         got = card_model({k: v.to(device) for k, v in batch.items()}, k_test=cfg.num_answers)
         torch.cuda.synchronize()
         launches = read_launches()
-    idle = [k for k, n in launches.items() if n == 0 and k not in OFF_PATH]
+    idle = [k for k, n in launches.items() if n == 0 and k not in OFF_PATH + BACKWARD_ONLY]
     if idle:
         raise AssertionError(f"reference: kernels not launched on the card: {idle}")
     for key in ("sa1_inds", "sa2_inds", "fp2_inds"):
@@ -1169,7 +1256,8 @@ def expected_launches(cfg) -> dict:
     layers, depth = decoder_layers(cfg), vit_depth(cfg)
     counts = {"fps": len(FPS_SHAPES), "ball_query_stripes": len(BQ_SHAPES),
               **{k: n * layers * SCORING_PASSES for k, n in LAUNCHES_PER_LAYER.items()},
-              "vocab_loss": SCORING_PASSES, "vit_attention": 0, "gather_rows": 0}
+              "vocab_loss": SCORING_PASSES, "vit_attention": 0, "gather_rows": 0,
+              "ball_query_backward": 0}
     for k, n in LAUNCHES_PER_BLOCK.items():
         counts[k] += n * depth
     counts["scoring_layernorm"] += 1
@@ -1384,7 +1472,8 @@ def phase_generate_reference(device):
     torch.cuda.synchronize()
     idle = [k for k in ("fps", "ball_query_stripes", "scoring_gemm", "vit_attention",
                         "scoring_layernorm") if launches[k] == 0]
-    off = [k for k in ("scoring_attention", "vocab_loss", "gather_rows") if launches[k]]
+    off = [k for k in ("scoring_attention", "vocab_loss", "gather_rows", "ball_query_backward")
+           if launches[k]]
     if idle or off:
         raise AssertionError(f"generate reference: not launched {idle}, launched off the "
                              f"generate path {off}")
@@ -1411,7 +1500,7 @@ def expected_generate_launches(cfg) -> dict:
 
     counts = {"fps": len(FPS_SHAPES), "ball_query_stripes": len(BQ_SHAPES),
               "scoring_gemm": 0, "scoring_attention": 0, "scoring_layernorm": 1,
-              "vocab_loss": 0, "vit_attention": 0, "gather_rows": 0}
+              "vocab_loss": 0, "vit_attention": 0, "gather_rows": 0, "ball_query_backward": 0}
     for k, n in LAUNCHES_PER_BLOCK.items():
         counts[k] += n * vit_depth(cfg)
     return counts
@@ -1659,6 +1748,408 @@ def phase_generate(device, reps: int = 5):
     return launches
 
 
+# train: the full-width train step at the JAX bench's batch (bench.py's
+# train phase) and the ball query's backward at its shapes
+TRAIN_BATCH = 16
+TRAIN_STEPS = 5
+TRAIN_MAX_OBJ = 8
+# (name, N, M, nsample, radius, feature channels, calls a train step): the
+# vote aggregation's query is the only one whose inputs want a gradient;
+# SA1's (with its height channel) is checked, not run by the path
+BQ_BACKWARD_SHAPES = [("votes", 1024, 256, 16, 0.3, 0, 1),
+                      ("sa1", NUM_POINTS, 2048, 64, 0.2, 1, 0)]
+BQ_BACKWARD_TOL = 1e-5
+
+
+def phase_train_kernels(device, batch: int = TRAIN_BATCH, reps: int = 20):
+    """The stripe ball query's backward kernel against its plain version on
+    the card, at the vote aggregation's shape and SA1's (with its feature
+    channel): the clouds hold padding and duplicate points, the first four
+    centres of each cloud sit far from every point (all-empty balls: their
+    slots hold index 0 and send their cotangents to point 0), and the
+    other balls have stripes with no qualifier of their own, which take the
+    ball's first qualifier. The indices come from the forward kernel on the
+    same inputs; the cotangents are drawn from a seed. Each of g_xyz,
+    g_center and g_feats within ``BQ_BACKWARD_TOL`` of its largest value:
+    the kernel adds with f32 atomics in an order that changes from run to
+    run, the plain version with ``index_add_`` and a sum. Times are card
+    time (``queued_ms``, the outputs' zeroing included); ``library_ms`` is
+    one ``index_add_`` of the xyz cotangents, the scatter part alone (no
+    PyTorch call also gives the centres' sums)."""
+    from bridgeqa_tpu_torch.ops import grouping
+
+    rng = np.random.RandomState(11)
+    rows = []
+    for name, n, m, ns, radius, nf, calls in BQ_BACKWARD_SHAPES:
+        xyz_np = make_cloud(rng, batch, n)
+        centres = xyz_np[:, rng.permutation(n)[:m]].copy()
+        centres[:, :4] += 100.0  # empty balls
+        xyz = torch.from_numpy(xyz_np).to(device)
+        ctr = torch.from_numpy(centres).to(device)
+        feats = torch.from_numpy(rng.rand(batch, n, nf).astype(np.float32)).to(device) if nf else None
+        with torch.no_grad():
+            idx, _, _ = grouping.ball_query_stripes(radius, ns, xyz, ctr, feats)
+        picks, np_padded = grouping.stripe_plan(n, ns)
+        stripes = ns // picks
+        g_rel = torch.randn(batch, m, ns, 3, device=device)
+        g_grouped = torch.randn(batch, m, ns, nf, device=device) if nf else None
+        before = grouping.backward_launches
+        got = grouping.ball_query_stripes_backward(idx, g_rel, g_grouped, n)
+        launched = grouping.backward_launches - before
+        want = grouping.ball_query_stripes_backward_plain(idx, g_rel, g_grouped, n)
+        torch.cuda.synchronize()
+        errs, rel = {}, {}
+        for key, g, w in zip(("g_xyz", "g_center", "g_feats"), got, want):
+            if w is None:
+                continue
+            errs[key] = max_err(g, w)
+            rel[key] = errs[key] / float(w.abs().max())
+        empty = bool((idx[:, :4] == 0).all())
+        # slots that took the ball's first qualifier: their stripe had none
+        slot_stripe = torch.arange(ns, device=device) // picks
+        filled = int(((idx // (np_padded // stripes)) != slot_stripe).sum())
+        ms = queued_ms(lambda: grouping.ball_query_stripes_backward(idx, g_rel, g_grouped, n),
+                       reps)
+        plain_ms = queued_ms(lambda: grouping.ball_query_stripes_backward_plain(
+            idx, g_rel, g_grouped, n), reps)
+        rows_idx = (idx.long() + n * torch.arange(batch, device=device)[:, None, None]).reshape(-1)
+        g_rel_flat = g_rel.reshape(-1, 3)
+        target = torch.zeros(batch * n, 3, device=device)
+        library_ms = queued_ms(lambda: target.index_add_(0, rows_idx, g_rel_flat), reps)
+        slots = batch * m * ns
+        nbytes = slots * (4 + 12 + 4 * nf) + batch * n * (12 + 4 * nf) + batch * m * 12
+        bound_ms, bound_by = bound(slots * (3 + nf + 3), nbytes, PEAK_F32)
+        ok = launched == 1 and empty and all(r <= BQ_BACKWARD_TOL for r in rel.values())
+        rows.append(dict(shape=f"{name}: B={batch}, N={n}, M={m}, nsample={ns}, nf={nf}",
+                         calls=calls, ok=ok, max_abs_err=max(errs.values()), rel_err=rel, ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, filled_slots=filled))
+        log(f"ball query backward {name}: B={batch}, N={n}, M={m}, ns={ns}, nf={nf}: err / largest "
+            f"{json.dumps({k: float(f'{v:.3g}') for k, v in rel.items()})} (tol "
+            f"{BQ_BACKWARD_TOL}), empty balls {empty}, {filled} slots filled by the ball's first "
+            f"qualifier; kernel {ms:.4f} ms card time, plain {plain_ms:.4f} ms, index_add_ of "
+            f"the xyz cotangents {library_ms:.4f} ms (card time, queued_ms), bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"ball query backward: kernel and plain version disagree: {bad}")
+    return [dict(name="ball_query_backward", route="cuda",
+                 source="bridgeqa_tpu_torch/csrc/ball_query_backward.cu",
+                 replaces="bridgeqa_tpu/ops/grouping.py:314",
+                 replaces_note="the backward of _ball_query_stripes (custom VJP "
+                               "_ball_query_stripes_bwd, :314, and _feats_bwd, :354): XLA in "
+                               "JAX, no TPU kernel",
+                 library_call="index_add_ of the xyz cotangents (the centres' sums not included)",
+                 per="one train step: each shape's median times the calls it gets",
+                 rows=rows)]
+
+
+def no_dropout(cfg):
+    """``cfg`` with every dropout and drop-path rate 0."""
+    med = dataclasses.replace(cfg.blip.med, hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0)
+    blip = dataclasses.replace(cfg.blip, med=med, adapter_pdrop=0.0, vit_drop_path_rate=0.0)
+    return dataclasses.replace(cfg, blip=blip, head_pdrop=0.0, mcan_pdrop=0.0)
+
+
+def make_train_batch(cfg, batch: int, num_points: int, image_size: int, question_len: int,
+                     answer_len: int, device, seed: int = 0):
+    """``make_batch``'s inputs and the labels a train step reads, as
+    ``bench.py``'s train phase draws them (``TRAIN_MAX_OBJ`` objects)."""
+    out = make_batch(cfg, batch, num_points, image_size, question_len, answer_len, device, seed)
+    del out["answer_list_ids"], out["answer_list_mask"]
+    rng = np.random.RandomState(seed + 1)
+    vmax = min(30000, cfg.blip.med.vocab_size - 2)
+    k, na = TRAIN_MAX_OBJ, cfg.num_answers
+    f, i = np.float32, np.int32
+    arrays = dict(
+        answer_ids=rng.randint(1, vmax, (batch, answer_len)),
+        answer_mask=np.ones((batch, answer_len), i),
+        answer_cat=rng.randint(0, na, (batch,)).astype(i),
+        answer_cat_scores=rng.rand(batch, na).astype(f),
+        vote_label=(rng.randn(batch, num_points, 9) * 0.1).astype(f),
+        vote_label_mask=rng.randint(0, 2, (batch, num_points)).astype(f),
+        center_label=rng.randn(batch, k, 3).astype(f),
+        box_label_mask=np.ones((batch, k), f),
+        sem_cls_label=rng.randint(0, 18, (batch, k)).astype(i),
+        size_class_label=rng.randint(0, 18, (batch, k)).astype(i),
+        size_residual_label=(rng.randn(batch, k, 3) * 0.1).astype(f),
+        heading_class_label=np.zeros((batch, k), i),
+        heading_residual_label=np.zeros((batch, k), f),
+        ref_center_label=rng.randn(batch, 3).astype(f),
+        ref_heading_class_label=np.zeros((batch,), i),
+        ref_heading_residual_label=np.zeros((batch,), f),
+        ref_size_class_label=rng.randint(0, 18, (batch,)).astype(i),
+        ref_size_residual_label=(rng.randn(batch, 3) * 0.1).astype(f),
+        ref_obj_mask=np.ones((batch,), i),
+        object_cat=rng.randint(0, 18, (batch,)).astype(i),
+    )
+    out["answer_ids"] = out["question_ids"].new_tensor(arrays.pop("answer_ids"))
+    out["answer_ids"][:, 0] = cfg.blip.bos_token_id
+    out.update({k: torch.from_numpy(v).to(device) for k, v in arrays.items()})
+    return out
+
+
+# the losses a train step reports and holds finite
+TRAIN_LOSSES = ("loss", "vote_loss", "objectness_loss", "box_loss", "sem_cls_loss", "ref_loss",
+                "lang_loss", "answer_loss")
+
+
+# parameters whose gradient is 0 by construction: a softmax ignores a key
+# bias (the med-BERT's and the grounding SGA's: a constant shift of a
+# query's scores) and the grounding head's output bias (a shift of every
+# proposal's logit), and a BatchNorm takes out a bias added before it; their
+# gradients are rounding noise on both devices
+ZERO_GRADIENT = ("attention.self.key.bias", "crossattention.self.key.bias", "linear_k.bias",
+                 "vgen.conv1.bias", "vgen.conv2.bias", "object_cls.fc2.bias")
+
+
+def _grads(model) -> dict:
+    return {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def phase_train_reference(device):
+    """One train step of the tiny config (``tiny_config``), every dropout
+    rate 0, BatchNorm in train mode (momentum 0.1), on the card (kernels:
+    FPS, the ball query and its backward) and on the CPU (plain versions),
+    same weights and batch, ``OptimConfig()``. The model runs in f64; the
+    point kernels and their plain versions compute in f32 on both sides, as
+    always. In f32 the comparison could not read the kernels: the detector's
+    BatchNorm gradients are cancelling sums that f32 gets wrong by up to a
+    few percent relative L2 on either device; the same step in f32 on both
+    runs too, and its worst gradient against the CPU's f64 step is printed
+    (not held), beside the f64 comparison that is.
+    Held to: the loss and each sub-loss within 1e-4 relative; every
+    parameter's gradient (after the clip) within 1e-3 relative L2, except
+    those 0 by construction (``ZERO_GRADIENT``), which must stay within 1e-5
+    of the largest gradient on both sides; each updated running statistic
+    within 1e-5 relative L2. The two devices sum products and scatter
+    cotangents in another order. FPS, the ball query and the backward
+    kernel must launch on the card, the fused scoring and ViT kernels must
+    not (train mode and grad refuse both gates)."""
+    from bridgeqa_tpu_torch.ops import vit_block as vb
+    from bridgeqa_tpu_torch.train.optim import build_optimizer
+    from bridgeqa_tpu_torch.train.step import train_step
+
+    cfg = no_dropout(tiny_config())
+    base = build_model(cfg, torch.device("cpu"), seed=9)
+    batch = make_train_batch(cfg, 2, 4096, 64, 20, 6, torch.device("cpu"), seed=12)
+    if vb.FUSED_MODE != "auto":
+        raise AssertionError("the train reference runs with vit_block.FUSED_MODE='auto'")
+    results = {}
+    for name, dtype, dev in (("cpu f64", torch.float64, torch.device("cpu")),
+                             ("card f64", torch.float64, device),
+                             ("cpu f32", torch.float32, torch.device("cpu")),
+                             ("card f32", torch.float32, device)):
+        model = copy.deepcopy(base).to(device=dev, dtype=dtype)
+        reset_launches()
+        metrics = train_step(model, build_optimizer(model),
+                             {k: (v.to(dtype) if v.is_floating_point() else v).to(dev)
+                              for k, v in batch.items()}, bn_momentum=0.1)
+        launches = read_launches()
+        stats = {n: b.detach().double().cpu() for n, b in model.named_buffers()
+                 if n.endswith(("running_mean", "running_var"))}
+        results[name] = ({k: float(metrics[k]) for k in TRAIN_LOSSES}, _grads(model), stats,
+                         launches)
+    # how far f32 alone takes each device from the f64 step (printed, not held)
+    f32_worst = {name: max(float((results[name][1][n] - g).norm() / g.norm())
+                           for n, g in results["cpu f64"][1].items()
+                           if not n.endswith(ZERO_GRADIENT) and float(g.norm()) > 1e-10)
+                 for name in ("cpu f32", "card f32")}
+    want, want_g, want_s, _ = results["cpu f64"]
+    got, got_g, got_s, launches = results["card f64"]
+    failures = []
+    loss_rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in TRAIN_LOSSES}
+    failures += [f"{k} {loss_rel[k]:.2e}" for k in TRAIN_LOSSES if loss_rel[k] > 1e-4]
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm()) if float(b.norm()) >= 1e-10 or \
+            float(a.norm()) >= 1e-10 else 0.0
+
+    if set(got_g) != set(want_g):
+        failures.append(f"gradients of {sorted(set(got_g) ^ set(want_g))[:5]} on one side only")
+    largest = max(float(g.norm()) for g in want_g.values())
+    noise = sorted((max(float(got_g[n].norm()), float(want_g[n].norm())) / largest, n)
+                   for n in want_g if n.endswith(ZERO_GRADIENT))
+    failures += [f"grad {n} not 0: {r:.2e} of the largest" for r, n in noise if r > 1e-5]
+    grad_rel = sorted(((rel_l2(got_g[n], want_g[n]), n) for n in want_g
+                       if n in got_g and not n.endswith(ZERO_GRADIENT)), reverse=True)
+    failures += [f"grad {n} {r:.2e}" for r, n in grad_rel if r > 1e-3]
+    stat_rel = sorted(((rel_l2(got_s[n], want_s[n]), n) for n in want_s), reverse=True)
+    failures += [f"stat {n} {r:.2e}" for r, n in stat_rel if r > 1e-5]
+    idle = [k for k in ("fps", "ball_query_stripes", "ball_query_backward") if launches[k] == 0]
+    off = [k for k in ("scoring_gemm", "scoring_attention", "scoring_layernorm", "vocab_loss",
+                       "vit_attention", "gather_rows") if launches[k]]
+    if idle or off:
+        failures.append(f"not launched {idle}, launched off the train path {off}")
+    log(f"train reference (tiny config, f64 with the point kernels in f32, card vs CPU): loss "
+        f"rel err "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in loss_rel.items()})}; worst gradients "
+        f"{[(n, float(f'{r:.3g}')) for r, n in grad_rel[:3]]} of {len(grad_rel)}, those 0 by "
+        f"construction at most {noise[-1][0]:.2g} of the largest; worst "
+        f"statistics {[(n, float(f'{r:.3g}')) for r, n in stat_rel[:2]]}; card launches "
+        f"{json.dumps(launches)}; the same step in f32, worst gradient against the CPU's f64 "
+        f"step (relative L2): {json.dumps({k: float(f'{v:.3g}') for k, v in f32_worst.items()})}")
+    if failures:
+        raise AssertionError(f"train reference: card and CPU differ: {failures[:10]}")
+
+
+def expected_train_launches(cfg) -> dict:
+    """Kernel launches of one train step, from the config: the detector runs
+    FPS and the stripe ball query once per main-path shape (SA1-SA4 and the
+    vote aggregation: 5 each); the backward kernel once, for the vote
+    aggregation's query, whose inputs (the votes, made by the voting
+    layers) are the only ones that want a gradient (SA1's points and height
+    channel are inputs, SA2-SA4's centres come from FPS over them, and
+    their features go through ``group_points``, not the kernel); every fused
+    scoring and ViT kernel 0, as train mode and grad refuse both gates
+    (JAX's ``not deterministic``)."""
+    counts = {k: 0 for k in expected_launches(cfg)}
+    counts.update(fps=len(FPS_SHAPES), ball_query_stripes=len(BQ_SHAPES), ball_query_backward=1)
+    return counts
+
+
+def param_groups_norms(optimizer) -> dict:
+    """{group: the L2 norms of its parameters} (on the card)."""
+    return {g["label"]: torch.stack([p.detach().float().norm() for p in g["params"]])
+            for g in optimizer.param_groups}
+
+
+def phase_train(device, steps: int = TRAIN_STEPS):
+    """Full-width training: ``train_step`` (``BridgeQA.forward(batch,
+    inference="loss")`` in train mode, ``get_loss``, the backward, the
+    3-group AdamW of ``build_optimizer(model, OptimConfig())``) on the main
+    path's config at batch 16, as ``bench.py`` trains: ``remat=True,
+    remat_mode="block"``, 40k-point scenes with synthetic labels
+    (``make_train_batch``), f32 parameters with bf16 compute (the products
+    cast the parameters in the graph), the config's dropout rates drawn from
+    a seeded generator on the card, BN momentum 0.1.
+
+    One warm-up step, then ``steps`` steps, each with the launch counts set
+    to 0 just before it and read just after: they must equal
+    ``expected_train_launches``; every loss finite at every step, every
+    gradient finite after every step, and the parameters of each of the
+    three groups changed. Times: the step's wall (median, host clock around a
+    step that ends in ``torch.cuda.synchronize()``) and samples/s; one more
+    step split into forward (with the losses), backward and optimizer
+    (with the copies' refresh) by CUDA events at ``train_step``'s marks; peak memory of a step; one
+    profiled step (device time, busy share, the table by kernel in
+    ``build/profile_train_step.txt``); then the same step without remat, a
+    model built anew, for its peak memory."""
+    from bridgeqa_tpu_torch.models.layers import set_compute_dtype
+    from bridgeqa_tpu_torch.train.optim import build_optimizer
+    from bridgeqa_tpu_torch.train.step import train_step
+
+    base = main_config()
+    cfg = dataclasses.replace(base, blip=dataclasses.replace(base.blip, remat=True,
+                                                              remat_mode="block"))
+    t0 = time.perf_counter()
+    model = set_compute_dtype(build_model(cfg, device), torch.bfloat16)
+    optimizer = build_optimizer(model)
+    batch = make_train_batch(cfg, TRAIN_BATCH, NUM_POINTS, IMAGE_SIZE, QUESTION_LEN, ANSWER_LEN,
+                             device)
+    gen = torch.Generator(device=device).manual_seed(7)
+    torch.cuda.synchronize()
+    log(f"train: model and optimizer built in {time.perf_counter() - t0:.1f} s, groups "
+        f"{json.dumps({g['label']: len(g['params']) for g in optimizer.param_groups})}")
+    expected = expected_train_launches(cfg)
+
+    def step():
+        return train_step(model, optimizer, batch, bn_momentum=0.1, generator=gen)
+
+    before = param_groups_norms(optimizer)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    walls, losses, failed = [], [], []
+    for k in range(steps):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = read_launches()
+        grads_finite = bool(torch.stack([p.grad.isfinite().all() for p in model.parameters()
+                                         if p.grad is not None]).all())
+        values = {key: float(metrics[key]) for key in TRAIN_LOSSES}
+        losses.append(values)
+        if not all(np.isfinite(v) for v in values.values()):
+            failed.append(f"step {k}: losses {values}")
+        if not grads_finite:
+            failed.append(f"step {k}: a gradient is not finite")
+        wrong = {key: (launches[key], n) for key, n in expected.items() if launches[key] != n}
+        if wrong:
+            failed.append(f"step {k}: launches (got, expected) {wrong}")
+    after = param_groups_norms(optimizer)
+    moved = {g: int((after[g] != before[g]).sum()) for g in before}
+    if set(moved) != {"blip", "blip3d", "other"} or not all(moved.values()):
+        failed.append(f"parameters changed per group {moved}")
+    log(f"train: launches per step {json.dumps(launches)}, expected {json.dumps(expected)}; "
+        f"parameters changed per group {json.dumps(moved)}")
+    log(f"train: losses per step {[round(v['loss'], 3) for v in losses]}; last "
+        f"{json.dumps({k: round(v, 4) for k, v in losses[-1].items()})}")
+    if failed:
+        raise AssertionError(f"train checks failed: {failed}")
+
+    # one step split by CUDA events at train_step's marks: forward with the
+    # losses, backward, optimizer with the copies' refresh
+    events = {}
+
+    def mark(part):
+        events[part] = torch.cuda.Event(enable_timing=True)
+        events[part].record()
+
+    torch.cuda.synchronize()
+    mark("start")
+    train_step(model, optimizer, batch, bn_momentum=0.1, generator=gen, mark=mark)
+    torch.cuda.synchronize()
+    parts = list(events)
+    split = {part: events[before].elapsed_time(events[part])
+             for before, part in zip(parts, parts[1:])}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    OUT_DIR.mkdir(exist_ok=True)
+    busy_ms, records, copies, copy_ms = profile_table(prof, OUT_DIR / "profile_train_step.txt")
+    del model, optimizer, prof
+    torch.cuda.empty_cache()
+
+    # the same step without remat, for its memory
+    model = set_compute_dtype(build_model(base, device), torch.bfloat16)
+    optimizer = build_optimizer(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    metrics = train_step(model, optimizer, batch, bn_momentum=0.1, generator=gen)
+    torch.cuda.synchronize()
+    peak_no_remat_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    if not np.isfinite(float(metrics["loss"])):
+        raise AssertionError("train: the step without remat gave a loss that is not finite")
+    del model, optimizer
+    torch.cuda.empty_cache()
+
+    latency = statistics.median(walls)
+    log(f"train timings on {card_name_and_power()}:")
+    log("\n".join((OUT_DIR / "profile_train_step.txt").read_text().splitlines()[:20]))
+    log(f"train: step at batch {TRAIN_BATCH}, bf16 compute, remat 'block': warm-up "
+        f"{warm_s:.2f} s, median {latency * 1e3:.1f} ms over {steps} steps "
+        f"({', '.join(f'{t * 1e3:.1f}' for t in walls)}), {TRAIN_BATCH / latency:.2f} samples/s; "
+        f"forward {split['forward']:.1f} ms, backward {split['backward']:.1f} ms, optimizer "
+        f"{split['optimizer']:.1f} ms (CUDA events, one step)")
+    log(f"train profiled step: {busy_ms:.1f} ms of device time in {wall_ms:.1f} ms of wall time "
+        f"(busy {busy_ms / wall_ms:.0%}), {records} card records, aten::copy_ {copies} calls, "
+        f"{copy_ms:.2f} ms")
+    log(f"train: peak memory {peak_gb:.2f} GB with remat, {peak_no_remat_gb:.2f} GB without")
+    return launches
+
+
 def report_ratios(kernels: dict) -> None:
     """Each product's time over ``F.linear``'s, and the per-forward sums of
     both (decoder and ViT shapes, each shape's ms times its calls); the ViT
@@ -1721,9 +2212,16 @@ def main() -> int:
     launches = phase_main_path(device)
     phase_generate_reference(device)
     generate_launches = phase_generate(device)
-    records = [summarize(k, launches[k["name"]], {"rank": launches[k["name"]],
-                                                  "generate": generate_launches[k["name"]]})
-               for k in kernels]
+    kernels += phase_train_kernels(device)
+    phase_train_reference(device)
+    train_launches = phase_train(device)
+    records = []
+    for k in kernels:
+        name = k["name"]
+        path = "train" if name in BACKWARD_ONLY else "rank"
+        by_path = {"rank": launches[name], "generate": generate_launches[name],
+                   "train": train_launches[name]}
+        records.append(dict(summarize(k, by_path[path], by_path), launches_path=path))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

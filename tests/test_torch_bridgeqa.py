@@ -60,7 +60,7 @@ def test_vit_matches_jax():
     jmodel = jvit.VisionTransformer(img_size=32, embed_dim=64, depth=2, num_heads=4)
     variables = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(img))
     want = jmodel.apply(variables, jnp.asarray(img))
-    model = load_jax_variables(vit.VisionTransformer(32, 16, 64, 2, 4), variables)
+    model = load_jax_variables(vit.VisionTransformer(32, 16, 64, 2, 4), variables).eval()
     with torch.no_grad():
         _close(model(_t(img)), want, "vit")
 
@@ -78,7 +78,7 @@ def test_twin_encoder_matches_jax():
     jmodel = jmed.BertModelTwin(TINY_MED)
     variables = jmodel.init(jax.random.PRNGKey(1), *map(jnp.asarray, args), deterministic=True)
     (w2d, w3d), _ = jmodel.apply(variables, *map(jnp.asarray, args), deterministic=True)
-    model = load_jax_variables(med.BertModelTwin(_port_cfg(med.MedConfig, TINY_MED)), variables)
+    model = load_jax_variables(med.BertModelTwin(_port_cfg(med.MedConfig, TINY_MED)), variables).eval()
     with torch.no_grad():
         h2d, h3d = model(*map(_t, args))
     _close(h2d, w2d, "hidden_2d")
@@ -106,7 +106,7 @@ def test_lm_decoder_matches_jax(chunk):
                             deterministic=True)
     wlogits, wloss = jmodel.apply(variables, *jargs, labels=jnp.asarray(labels),
                                   deterministic=True, loss_chunk_size=chunk)
-    model = load_jax_variables(med.BertLMHeadModel(_port_cfg(med.MedConfig, TINY_MED)), variables)
+    model = load_jax_variables(med.BertLMHeadModel(_port_cfg(med.MedConfig, TINY_MED)), variables).eval()
     with torch.no_grad():
         logits, loss = model(*map(_t, (ids, atts, q, qmask)), labels=_t(labels),
                              loss_chunk_size=chunk)

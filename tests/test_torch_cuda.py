@@ -34,9 +34,16 @@ machine does not have; this file imports none.) On the edge cases
   1, 3, 4 and 131 channels, and refuse indices out of range;
 - the vocabulary pass's runs past the vocabulary, labels at its first and
   last word, logits scaled x30;
-- every wrapper refuses an input that wants a gradient under grad, FPS's
-  coordinates carry one, and a backward through the tiny rank slice (bf16,
-  the detector frozen) reaches the ViT's and both decoders' weights.
+- every wrapper but the ball query's refuses an input that wants a
+  gradient under grad, FPS's coordinates carry one, and a backward through
+  the tiny rank slice (bf16, the detector frozen) reaches the ViT's and both
+  decoders' weights;
+- the ball query's backward kernel against its plain version (planted
+  duplicates and empty balls, with and without feature channels; 1e-5 of
+  the largest value, the atomics add in another order), the autograd
+  Function's gradients against the plain forward's autograd, which
+  ``torch.autograd.gradcheck`` holds to finite differences in f64, and a
+  tiny train step on the card against the CPU.
 f32: 1e-3 absolute (both sides accumulate in f32, in another order). bf16
 outputs: 2^-6 of the largest output, about two steps of bf16 (both round
 once from f32, and a sum taken in another order can flip a rounding, or the
@@ -504,7 +511,8 @@ def test_vocab_reductions_run_past_vocab(card, dtype):
 def test_kernels_refuse_inputs_that_want_a_gradient(card):
     """Under grad, a wrapper raises for an input that wants a gradient
     instead of handing autograd a result cut from the graph; without grad
-    the same call runs."""
+    the same call runs. The ball query has a backward kernel and gives a
+    result in the graph."""
     x = torch.randn(16, 64, device=card)
     w = torch.randn(32, 64, device=card, requires_grad=True)
     b = torch.zeros(32, device=card)
@@ -517,20 +525,22 @@ def test_kernels_refuse_inputs_that_want_a_gradient(card):
                                                   heads=2),
              lambda: vit_block.vit_attention(qkv, heads=2),
              lambda: vocab_loss.lm_vocab_reductions(x, w, b, labels),
-             lambda: grouping.ball_query_stripes(0.2, 8, xyz, xyz[:, :16].contiguous()),
              lambda: gather.gather_rows(w, labels)]
     for fn in calls:
         with torch.enable_grad(), pytest.raises(RuntimeError, match="no backward"):
             fn()
         with torch.no_grad():
             fn()
+    with torch.enable_grad():
+        _, rel, _ = grouping.ball_query_stripes(0.2, 8, xyz, xyz[:, :16].contiguous())
+    assert rel.requires_grad and rel.grad_fn is not None
 
 
 def test_backward_through_the_rank_slice(card, monkeypatch):
     """A backward through the tiny rank slice on the card, bf16, the
-    detector frozen (its point kernels have no backward yet): neither fused
-    path runs under grad, and the ViT's and both decoders' weights get
-    gradients."""
+    detector frozen (the train step, ``test_train_step_on_the_card_matches_the_cpu``,
+    trains it): neither fused path runs under grad, and the ViT's and both
+    decoders' weights get gradients."""
     from bridgeqa_tpu_torch.models import blip_vqa3d, bridgeqa, med
     from bridgeqa_tpu_torch.models.layers import init_weights, set_compute_dtype
 
@@ -893,3 +903,150 @@ def test_decode_loop_makes_no_host_sync(card):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     assert ids.shape == (2, 6, 8) and bool(torch.isfinite(scores).all())
+
+
+# ------------------------------------------------------------ training
+
+# parameters whose gradient is 0 by construction: a softmax ignores a key
+# bias (the med-BERT's and the grounding SGA's) and the grounding head's
+# output bias, and a BatchNorm takes out a bias added before it
+ZERO_GRADIENT = ("attention.self.key.bias", "crossattention.self.key.bias", "linear_k.bias",
+                 "vgen.conv1.bias", "vgen.conv2.bias", "object_cls.fc2.bias")
+
+def _bq_case(rng, b, n, m, nf, card):
+    """Duplicates, padding, and the first four centres far from every point
+    (all-empty balls)."""
+    xyz = _cloud(rng, b, n)
+    dup = min(32, n // 2)
+    xyz[:, n // 2:n // 2 + dup] = xyz[:, :dup]
+    xyz[:, -8:] = 0.0
+    ctr = xyz[:, rng.permutation(n)[:m]].copy()
+    ctr[:, :4] += 50.0
+    feats = rng.rand(b, n, nf).astype(np.float32) if nf else None
+    t = [torch.from_numpy(a).to(card) for a in (xyz, ctr)]
+    return t[0], t[1], None if feats is None else torch.from_numpy(feats).to(card)
+
+
+@pytest.mark.parametrize("n,m,nsample,nf", [(1024, 256, 16, 0), (5000, 512, 64, 1),
+                                            (700, 100, 32, 4), (40, 32, 8, 2)])
+def test_ball_query_backward_kernel_matches_plain(card, n, m, nsample, nf):
+    rng = np.random.RandomState(n + nf)
+    xyz, ctr, feats = _bq_case(rng, 3, n, m, nf, card)
+    with torch.no_grad():
+        idx, _, _ = grouping.ball_query_stripes(0.2, nsample, xyz, ctr, feats)
+    assert bool((idx[:, :4] == 0).all())
+    g_rel = torch.randn(3, m, nsample, 3, device=card)
+    g_grouped = torch.randn(3, m, nsample, nf, device=card) if nf else None
+    before = grouping.backward_launches
+    got = grouping.ball_query_stripes_backward(idx, g_rel, g_grouped, n)
+    assert grouping.backward_launches == before + 1
+    want = grouping.ball_query_stripes_backward_plain(idx, g_rel, g_grouped, n)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+            continue
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * float(w.abs().max()))
+    assert float(got[0][:, 0].abs().sum()) > 0  # the empty balls' slots reach point 0
+
+
+def test_ball_query_gradients_match_the_plain_autograd(card):
+    """The card's Function against autograd through the plain forward, on
+    balls that are not empty (where the two rules agree), and
+    ``torch.autograd.gradcheck`` of the plain forward in f64 on the CPU
+    (the distances are taken in f32, the rel and the gathered features in
+    f64, so its finite differences hold)."""
+    rng = np.random.RandomState(3)
+    xyz, ctr, feats = _bq_case(rng, 2, 600, 48, 2, card)
+    ctr = ctr[:, 4:].contiguous()  # no empty balls
+    inputs = [t.clone().requires_grad_() for t in (xyz, ctr, feats)]
+    _, rel, grouped = grouping.ball_query_stripes(0.3, 16, *inputs)
+    cot = [torch.randn_like(rel), torch.randn_like(grouped)]
+    got = torch.autograd.grad([rel, grouped], inputs, cot)
+    plain = [t.clone().requires_grad_() for t in (xyz, ctr, feats)]
+    _, prel, pgrouped = grouping.ball_query_stripes_plain(0.3, 16, *plain)
+    want = torch.autograd.grad([prel, pgrouped], plain, cot)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * float(w.abs().max()))
+
+    small = [t[:1, :].cpu().double() for t in (xyz[:, :200], ctr[:, :12], feats[:, :200])]
+    small = [t.contiguous().requires_grad_() for t in small]
+
+    def fn(a, c, f):
+        _, r, gf = grouping.ball_query_stripes_plain(0.3, 16, a, c, f)
+        return r, gf
+
+    assert torch.autograd.gradcheck(fn, small, eps=1e-6, atol=1e-6)
+
+
+def test_train_step_on_the_card_matches_the_cpu(card):
+    """A tiny train step (dropout 0, BatchNorm in train mode) with FPS, the
+    ball query and its backward on the card: the losses within 1e-4 relative
+    and every gradient within 1e-3 relative L2 of the CPU's, but those 0 by
+    construction (``ZERO_GRADIENT``), which must stay within 1e-5 of the
+    largest gradient. The model runs in f64 (the point kernels in f32 on
+    both sides): in f32 the detector's BatchNorm gradients carry more than
+    1e-3 of rounding against f64 on either device, so f32 against f32
+    cannot hold 1e-3 (``chip_smoke.py::phase_train_reference`` prints how
+    much)."""
+    import copy
+
+    from bridgeqa_tpu_torch.models import blip_vqa3d, bridgeqa, med
+    from bridgeqa_tpu_torch.models.layers import init_weights
+    from bridgeqa_tpu_torch.train.optim import build_optimizer
+    from bridgeqa_tpu_torch.train.step import train_step
+
+    m = med.MedConfig(vocab_size=120, hidden_size=128, num_hidden_layers=2,
+                      num_attention_heads=2, intermediate_size=256, max_position_embeddings=64,
+                      encoder_width=128, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    blip = blip_vqa3d.BlipVQA3DConfig(med=m, image_size=32, num_answers=30, scene_size=32,
+                                      bos_token_id=110, vit="custom", vit_custom_embed_dim=128,
+                                      vit_custom_depth=1, vit_custom_heads=2,
+                                      vit_drop_path_rate=0.0, adapter_pdrop=0.0)
+    cfg = bridgeqa.BridgeQAConfig(num_answers=30, num_proposal=32, hidden_size=32, blip=blip,
+                                  mcan_num_layers=1, input_feature_dim=1, head_pdrop=0.0,
+                                  mcan_pdrop=0.0, backbone_sa_npoints=(512, 256, 128, 64))
+    cpu = init_weights(bridgeqa.BridgeQA(cfg, device="cpu"),
+                       torch.Generator().manual_seed(0)).double()
+    gpu = copy.deepcopy(cpu).to(card)
+    rng = np.random.RandomState(4)
+    b, n = 2, 2048
+    pc = ((rng.rand(b, n, 3) - 0.5) * 6.0).astype(np.float32)
+    answers = rng.randint(1, 100, (b, 5))
+    answers[:, 0] = 110
+    batch = dict(
+        point_clouds=np.concatenate([pc, pc[..., 2:] + 3.0], -1),
+        images=rng.rand(b, 32, 32, 3).astype(np.float32),
+        question_ids=rng.randint(1, 100, (b, 12)), question_mask=np.ones((b, 12), np.int32),
+        answer_ids=answers, answer_mask=np.ones((b, 5), np.int32),
+        vote_label=(rng.randn(b, n, 9) * 0.1).astype(np.float32),
+        vote_label_mask=rng.randint(0, 2, (b, n)).astype(np.float32),
+        center_label=(rng.randn(b, 4, 3)).astype(np.float32),
+        box_label_mask=np.ones((b, 4), np.float32),
+        sem_cls_label=rng.randint(0, 18, (b, 4)), size_class_label=rng.randint(0, 18, (b, 4)),
+        size_residual_label=(rng.randn(b, 4, 3) * 0.1).astype(np.float32),
+        heading_class_label=np.zeros((b, 4), np.int64),
+        heading_residual_label=np.zeros((b, 4), np.float32),
+        ref_center_label=rng.randn(b, 3).astype(np.float32),
+        ref_heading_class_label=np.zeros((b,), np.int64),
+        ref_heading_residual_label=np.zeros((b,), np.float32),
+        ref_size_class_label=rng.randint(0, 18, (b,)),
+        ref_size_residual_label=(rng.randn(b, 3) * 0.1).astype(np.float32),
+        ref_obj_mask=np.ones((b,), np.float32), object_cat=rng.randint(0, 18, (b,)))
+    batch = {k: torch.from_numpy(v).double() if v.dtype.kind == "f" else torch.from_numpy(v)
+             for k, v in batch.items()}
+    before = (sampling.launches, grouping.launches, grouping.backward_launches)
+    want = train_step(cpu, build_optimizer(cpu), batch)
+    got = train_step(gpu, build_optimizer(gpu), {k: v.to(card) for k, v in batch.items()})
+    after = (sampling.launches, grouping.launches, grouping.backward_launches)
+    assert [a - b0 for a, b0 in zip(after, before)] == [5, 5, 1]
+    for key in ("loss", "vote_loss", "objectness_loss", "box_loss", "answer_loss"):
+        assert abs(float(got[key]) - float(want[key])) <= 1e-4 * abs(float(want[key])), key
+    grads = {name: p.grad for name, p in cpu.named_parameters()}
+    largest = max(float(g.norm()) for g in grads.values())
+    for name, p in gpu.named_parameters():
+        w, g = grads[name], p.grad.cpu()
+        if name.endswith(ZERO_GRADIENT):  # rounding noise on both devices
+            assert max(float(w.norm()), float(g.norm())) <= 1e-5 * largest, name
+        else:
+            assert float((g - w).norm() / w.norm()) <= 1e-3, name

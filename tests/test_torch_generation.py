@@ -226,7 +226,7 @@ def decoder():
     jmodel = jmed.BertLMHeadModel(DEC_MED)
     variables = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(ids), jnp.ones(ids.shape, jnp.int32),
                             jnp.asarray(q_states), jnp.asarray(q_mask), deterministic=True)
-    model = load_jax_variables(med.BertLMHeadModel(_port_cfg(med.MedConfig, DEC_MED)), variables)
+    model = load_jax_variables(med.BertLMHeadModel(_port_cfg(med.MedConfig, DEC_MED)), variables).eval()
     return jmodel, variables, model, q_states, q_mask
 
 
@@ -480,7 +480,7 @@ def test_uncached_generate_warns_and_skips_the_fused_gate(slice_pair, monkeypatc
                          med=_port_cfg(med.MedConfig, TINY_MED, fused_scoring="force"),
                          use_kv_cache=False, scene_size=32)
     blip = load_jax_variables(blip_vqa3d.BLIPVQA3D(blip_cfg),
-                              {"params": variables["params"]["blip_model"]})
+                              {"params": variables["params"]["blip_model"]}).eval()
 
     def refuse(*args, **kwargs):
         raise AssertionError("generate reached the fused scoring path")
@@ -497,6 +497,12 @@ def test_uncached_generate_warns_and_skips_the_fused_gate(slice_pair, monkeypatc
 
 
 def test_other_inference_modes_name_what_is_missing(slice_pair):
+    """'loss' runs now (``tests/test_torch_train.py``); the classifier mode
+    and the MCAN path are still missing and say so, and an unknown mode is
+    refused."""
     _, model, batch, _ = slice_pair
-    with pytest.raises(NotImplementedError, match="'loss'"):
-        model({k: _t(v) for k, v in batch.items()}, inference="loss")
+    for change in (dict(use_text_decoder=False), dict(use_blip=False)):
+        with pytest.raises(NotImplementedError, match="classifier mode"):
+            bridgeqa.BridgeQA(dataclasses.replace(model.cfg, **change), device="cpu")
+    with pytest.raises(ValueError, match="'rank', 'generate' or 'loss'"):
+        model({k: _t(v) for k, v in batch.items()}, inference="classify")

@@ -141,7 +141,7 @@ def test_decoder_body_matches_pallas(layernorm_idx):
                                          jnp.asarray(qs), jnp.asarray(qmask), config=jcfg,
                                          dtype=jnp.float32, interpret=True,
                                          layernorm_idx=layernorm_idx)
-    model = load_jax_variables(med.BertLMHeadModel(_port_cfg(med.MedConfig, jcfg)), variables)
+    model = load_jax_variables(med.BertLMHeadModel(_port_cfg(med.MedConfig, jcfg)), variables).eval()
     with torch.no_grad():
         got = scoring_layer.scoring_decoder_body(model.bert.encoder, _t(emb), _t(qs), _t(qmask),
                                                  config=model.config, layernorm_idx=layernorm_idx,
@@ -186,7 +186,7 @@ def _decoders(jcfg, rng):
     jargs = tuple(map(jnp.asarray, (ids, mask, qs, qmask)))
     variables = jmodel.init(jax.random.PRNGKey(6), *jargs, labels=jnp.asarray(labels),
                             deterministic=True)
-    model = load_jax_variables(med.BertLMHeadModel(_port_cfg(med.MedConfig, jcfg)), variables)
+    model = load_jax_variables(med.BertLMHeadModel(_port_cfg(med.MedConfig, jcfg)), variables).eval()
     return jmodel, variables, model, jargs, (ids, mask, labels, qs, qmask)
 
 
@@ -208,7 +208,7 @@ def test_fused_loss_matches_module_path(chunk):
     _, variables, model, _, arrays = _decoders(CFG, np.random.RandomState(8))
     ids, mask, labels, qs, qmask = map(_t, arrays)
     off_cfg = dataclasses.replace(model.config, fused_scoring="off")
-    off = load_jax_variables(med.BertLMHeadModel(off_cfg), variables)
+    off = load_jax_variables(med.BertLMHeadModel(off_cfg), variables).eval()
     with torch.no_grad():
         _, fused = model(ids, mask, qs, qmask, labels=labels, loss_chunk_size=chunk)
         _, plain = off(ids, mask, qs, qmask, labels=labels, loss_chunk_size=chunk)
@@ -220,7 +220,7 @@ class TestGate:
 
     def _call(self, mode, g=8, with_labels=True):
         cfg = dataclasses.replace(_port_cfg(med.MedConfig, CFG), fused_scoring=mode)
-        model = init_weights(med.BertLMHeadModel(cfg), torch.Generator().manual_seed(0))
+        model = init_weights(med.BertLMHeadModel(cfg), torch.Generator().manual_seed(0)).eval()
         ids, mask, labels, qs, qmask = map(_t, _answers(np.random.RandomState(9), q=2, g=g))
         with torch.no_grad():
             return model._fused_scoring_loss(ids, qs, qmask, labels if with_labels else None)

@@ -70,7 +70,7 @@ def vit_models():
     jmodel = jvit.VisionTransformer(img_size=IMG, patch_size=16, embed_dim=EMBED, depth=DEPTH,
                                     num_heads=HEADS)
     variables = _perturbed(jmodel.init(jax.random.PRNGKey(0), jnp.asarray(img)), rng)
-    model = load_jax_variables(vit.VisionTransformer(IMG, 16, EMBED, DEPTH, HEADS), variables)
+    model = load_jax_variables(vit.VisionTransformer(IMG, 16, EMBED, DEPTH, HEADS), variables).eval()
     return jmodel, variables, model, img
 
 
@@ -196,7 +196,7 @@ class TestGate:
 
     def test_incapable_config_runs_the_module_loop(self, monkeypatch):
         """Head width 16: no attention kernel takes it."""
-        model = init_weights(vit.VisionTransformer(32, 16, 64, 1, 4), torch.Generator())
+        model = init_weights(vit.VisionTransformer(32, 16, 64, 1, 4), torch.Generator()).eval()
         monkeypatch.setattr(vb, "FUSED_MODE", "force")
         calls = _count_fused(monkeypatch)
         with torch.no_grad():
@@ -227,7 +227,7 @@ def test_fused_vit_reads_f32_biases(vit_models):
     parameters bit for bit (flax keeps them in f32)."""
     _, variables, model, _ = vit_models
     model = set_compute_dtype(load_jax_variables(
-        vit.VisionTransformer(IMG, 16, EMBED, DEPTH, HEADS), variables), torch.bfloat16)
+        vit.VisionTransformer(IMG, 16, EMBED, DEPTH, HEADS), variables), torch.bfloat16).eval()
     calls = []
     with torch.no_grad():
         vb.fused_vit_blocks(model, torch.zeros(1, 10, EMBED, dtype=torch.bfloat16),
@@ -253,7 +253,7 @@ def test_fused_decoder_reads_f32_biases():
                                                                                    qmask)),
                                        labels=jnp.asarray(labels), deterministic=True), rng)
     model = set_compute_dtype(load_jax_variables(
-        med.BertLMHeadModel(_port_cfg(med.MedConfig, SCORING_CFG)), variables), torch.bfloat16)
+        med.BertLMHeadModel(_port_cfg(med.MedConfig, SCORING_CFG)), variables), torch.bfloat16).eval()
     calls = []
 
     def layer(x, *args, **kw):
@@ -283,7 +283,7 @@ def test_module_path_adds_the_rounded_bias():
     rounded to the compute dtype once and added as before."""
     gen = torch.Generator().manual_seed(0)
     dense = Dense(64, 24)
-    model = vit.VisionTransformer(32, 16, 64, 1, 4)
+    model = vit.VisionTransformer(32, 16, 64, 1, 4).eval()
     init_weights(model, gen)
     with torch.no_grad():
         for m in (dense, model.patch_embed_proj):
