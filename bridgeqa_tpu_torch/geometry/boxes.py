@@ -31,7 +31,8 @@ def get_3d_box_batch(box_size, heading_angle, center):
     reference's roty convention (``get_3d_box_batch``)."""
     c = torch.cos(heading_angle)[..., None]
     s = torch.sin(heading_angle)[..., None]
-    signs = torch.tensor(_CORNER_SIGNS, dtype=torch.float32, device=box_size.device)
+    # built on the host, copied without waiting for the card
+    signs = torch.tensor(_CORNER_SIGNS, dtype=torch.float32).to(box_size.device, non_blocking=True)
     corners = signs * (box_size[..., None, :] / 2.0)
     x, y, z = corners[..., 0], corners[..., 1], corners[..., 2]
     rx = c * x + s * z

@@ -60,7 +60,9 @@ def compute_objectness_loss(end_points):
     objectness_label = (euclidean_dist1 < NEAR_THRESHOLD).to(torch.int32)
     objectness_mask = ((euclidean_dist1 < NEAR_THRESHOLD)
                        | (euclidean_dist1 > FAR_THRESHOLD)).float()
-    cls_w = torch.tensor(OBJECTNESS_CLS_WEIGHTS, dtype=torch.float32, device=dist1.device)
+    # constants copied without waiting for the card (no host sync in a step)
+    cls_w = torch.tensor(OBJECTNESS_CLS_WEIGHTS, dtype=torch.float32).to(dist1.device,
+                                                                        non_blocking=True)
     nll = _nll(end_points["objectness_scores"], objectness_label) * cls_w[objectness_label.long()]
     loss = (nll * objectness_mask).sum() / (objectness_mask.sum() + 1e-6)
     return loss, objectness_label, objectness_mask, ind1
@@ -75,7 +77,8 @@ def compute_box_and_sem_cls_loss(end_points, config):
     num_size_cluster = config.num_size_cluster
     object_assignment = end_points["object_assignment"]
     device = object_assignment.device
-    mean_size_arr = torch.tensor(config.mean_size_arr, dtype=torch.float32, device=device)
+    mean_size_arr = torch.tensor(config.mean_size_arr, dtype=torch.float32).to(device,
+                                                                              non_blocking=True)
     objectness_label = end_points["objectness_label"].float()
     obj_norm = objectness_label.sum() + 1e-6
 
@@ -126,7 +129,8 @@ def compute_reference_loss(end_points, config):
     the reference box is the one-hot target of a softmax ranking loss over
     ``cluster_ref``. Returns (loss, cluster_ref, labels)."""
     device = end_points["cluster_ref"].device
-    mean_size_arr = torch.tensor(config.mean_size_arr, dtype=torch.float32, device=device)
+    mean_size_arr = torch.tensor(config.mean_size_arr, dtype=torch.float32).to(device,
+                                                                              non_blocking=True)
     nh = config.num_heading_bin
     gt_obb = params_to_obb(end_points["ref_center_label"], end_points["ref_heading_class_label"],
                            end_points["ref_heading_residual_label"],

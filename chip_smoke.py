@@ -153,6 +153,18 @@ result is printed):
      changed; the step's wall and samples/s, forward, backward and optimizer
      by CUDA events, one profiled step (``build/profile_train_step.txt``),
      and peak memory with remat and without it.
+8. drivers (``phase_drivers``): the port's entry points as a user runs them,
+   each script's ``main(argv)`` on ``--synthetic`` data at the full width of
+   the main path's config, ``--bf16 --remat``, batch 16, two feed workers:
+   ``train --stage DET`` (2 steps), the VQA stage on the DET graft (2 epochs
+   of 3 steps, validated), ``--use_checkpoint`` (2 steps, traced),
+   ``predict --open_ended``, ``eval --qa --detection``, ``score``. Every
+   artifact written, every logged metric finite, each loop step's and eval
+   forward's launches as derived, the graft's parameters copied and BN
+   statistics kept, the resumed state bitwise the saved one, no host sync
+   between log points (``--check_syncs``); the loop's samples/s with the
+   feed beside phase 7's resident step, the feed's fetch mean, the busy
+   share of a traced loop step, the phase's seconds and peak memory.
 
 Bounds: the least time the card could take for a kernel's work, the larger
 of the bytes it must move (each input read once, each output written once)
@@ -166,8 +178,9 @@ for both cuBLAS and cuDNN, and the patch embedding is a matrix product.
 The last two lines are a ``{"kernels": [...]}`` JSON object (each
 kernel's ``launches`` from the path it serves, named by ``launches_path``:
 the rank forward, or the train step for the backward kernel;
-``launches_by_path`` from the rank forward, the generate forward and a train
-step) and ``{"ok": true, "device": {...}}``.
+``launches_by_path`` from the rank forward, the generate forward, a train
+step, a step of the ``train`` script's loop and an eval batch of the ``eval``
+script) and ``{"ok": true, "device": {...}}``.
 """
 
 import copy
@@ -2147,7 +2160,248 @@ def phase_train(device, steps: int = TRAIN_STEPS):
         f"(busy {busy_ms / wall_ms:.0%}), {records} card records, aten::copy_ {copies} calls, "
         f"{copy_ms:.2f} ms")
     log(f"train: peak memory {peak_gb:.2f} GB with remat, {peak_no_remat_gb:.2f} GB without")
-    return launches
+    return launches, TRAIN_BATCH / latency
+
+
+# phase 8: the drivers at full width on synthetic data
+DRIVER_BATCH = 16  # the JAX bench's train batch, as phase 7
+DRIVER_WORKERS = 2  # the feed's worker processes
+DRIVER_ARGS = ["--synthetic", "--bf16", "--remat", "--num_workers", str(DRIVER_WORKERS),
+               "--seed", "0", "--val_step", "0", "--check_syncs"]
+RUN_ARTIFACTS = ("info.json", "answer_vocab.json", "cmdline.txt", "log.txt", "metrics.jsonl",
+                 "model", "model_last", "checkpoint")
+EVAL_ARTIFACTS = ("pred.val.json", "score.val.json", "pred.val.pkl", "pred.val.pkl.json",
+                  "score.val.pkl", "report.val.json")
+
+
+def expected_eval_launches(cfg) -> dict:
+    """Kernel launches of one eval forward (rank, in eval mode without grad)
+    of a script's model: the detector's alone for a DET stage; with remat in
+    the config, the decoders on the module path, since the scoring gate
+    refuses remat as JAX's does (``expected_generate_launches``: the
+    detector's and the ViT's kernels); else ``expected_launches``. The
+    inference drivers build their model without remat."""
+    if cfg.stage == "DET":
+        return {k: (len(FPS_SHAPES) if k in ("fps", "ball_query_stripes") else 0)
+                for k in expected_launches(cfg)}
+    if cfg.blip.remat:
+        return expected_generate_launches(cfg)
+    return expected_launches(cfg)
+
+
+def states_equal(got: dict, want: dict) -> bool:
+    """Two ``state_dict``s (of tensors, numbers, lists, dicts) equal bit for
+    bit, tensors compared on the host's copy of each."""
+    if isinstance(want, dict):
+        return (isinstance(got, dict) and list(got) == list(want)
+                and all(states_equal(got[k], want[k]) for k in want))
+    if isinstance(want, (list, tuple)):
+        return len(got) == len(want) and all(states_equal(g, w) for g, w in zip(got, want))
+    if isinstance(want, torch.Tensor):
+        return (isinstance(got, torch.Tensor) and got.dtype == want.dtype
+                and torch.equal(got.cpu(), want.cpu()))
+    return got == want
+
+
+def phase_drivers(device, resident_samples_per_s: float, batch: int = DRIVER_BATCH,
+                  args=DRIVER_ARGS):
+    """The port's entry points as a user runs them, each script's
+    ``main(argv)`` on ``--synthetic`` data at the full width of
+    ``main_config()`` (40000 points, ViT-B/16 at 480 px, the 12-layer twin
+    encoder and both decoders), ``--bf16 --remat``, batch 16, the feed's
+    two worker processes, run directories under ``build/drivers``:
+
+    1. ``train --stage DET``: one epoch of 2 steps;
+    2. ``train --first_stage_ckpt_path`` (the VQA stage): 2 epochs of 3
+       steps, a validation after each;
+    3. ``train --use_checkpoint``: one more epoch, cut to two steps, each
+       traced by ``torch.profiler`` (``--trace_dir``; the second is the one
+       reported: the first holds the workers' start);
+    4. ``predict --open_ended`` (the rank forward and the generate forward
+       of each batch; answers decoded by the feed's tokenizer);
+    5. ``eval --qa --detection``; 6. ``score``.
+
+    Every train run takes ``--check_syncs``: a host sync between log points
+    raises where it happens. Checks, any of which fails the phase: every
+    artifact written; every logged metric finite; each train step's
+    launches equal ``expected_train_launches``, each eval forward's (the
+    validations', predict's and eval's, in eval mode without grad)
+    ``expected_eval_launches`` or, for generate,
+    ``expected_generate_launches``; the DET graft copied the detector's
+    parameters and left the model's BN statistics alone; the resumed model
+    and optimizer equal the saved ones bit for bit, epoch included. Printed:
+    the loop's samples/s with the feed beside phase 7's step on a resident
+    batch, ``PhaseTimer``'s fetch and step means, the card's busy share in
+    the traced steps, the phase's seconds, peak memory, which vote path and
+    which METEOR stemmer ran.
+
+    Cut: the synthetic data has 4 answers, not ScanQA's thousands (phase
+    5's rank forward over 4500 answers stays the measure of scoring), 4
+    scenes, random weights."""
+    import shutil
+
+    from bridgeqa_tpu_torch import native
+    from bridgeqa_tpu_torch.eval import scoring
+    from bridgeqa_tpu_torch.models.bridgeqa import BridgeQA
+    from bridgeqa_tpu_torch.scripts import eval as eval_script
+    from bridgeqa_tpu_torch.scripts import predict, score, train
+    from bridgeqa_tpu_torch.train import checkpoints
+    from bridgeqa_tpu_torch.train import solver as solver_module
+
+    t_phase = time.perf_counter()
+    root = OUT_DIR / "drivers"
+    shutil.rmtree(root, ignore_errors=True)
+    runs = {name: root / name for name in ("det", "vqa")}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    args = list(args) + ["--device", device.type, "--batch_size", str(batch),
+                         "--synthetic_val_records", str(batch)]
+
+    steps, forwards, graft, resumed = [], [], {}, {}
+    train_step, forward = solver_module.train_step, BridgeQA.forward
+    graft_detector, load_train_state = checkpoints.graft_detector, checkpoints.load_train_state
+
+    def counted_step(model, *args, **kwargs):  # the counts are host counters: no sync
+        reset_launches()
+        out = train_step(model, *args, **kwargs)
+        steps.append((model.cfg, read_launches()))
+        return out
+
+    def counted_forward(self, batch, inference="rank", *args, **kwargs):
+        if self.training or inference == "loss":
+            return forward(self, batch, inference, *args, **kwargs)
+        reset_launches()
+        out = forward(self, batch, inference, *args, **kwargs)
+        forwards.append((self.cfg, inference, torch.is_grad_enabled(), read_launches()))
+        return out
+
+    def checked_graft(run_dir, name, model):
+        # the persistent buffers: the BN statistics (the compute-dtype copies
+        # are made again from the grafted parameters)
+        params = dict(model.named_parameters())
+        before = {k: v.clone() for k, v in model.state_dict().items() if k not in params}
+        out = graft_detector(run_dir, name, model)
+        saved = checkpoints.load_state(run_dir, name, device)
+        graft["parameters"] = all(torch.equal(p, saved[k]) for k, p in params.items()
+                                  if k.startswith("detector."))
+        graft["buffers"] = all(torch.equal(v, before[k]) for k, v in model.state_dict().items()
+                               if k in before)
+        graft["statistics"] = sum(k.startswith("detector.") and k.endswith("running_var")
+                                  for k in before)
+        return out
+
+    def checked_resume(run_dir, model, optimizer, name="checkpoint"):
+        epoch = load_train_state(run_dir, model, optimizer, name)
+        saved = torch.load(Path(run_dir) / name, map_location=device, weights_only=True)
+        resumed.update(epoch=(epoch, saved["epoch"]),
+                       model=states_equal(model.state_dict(), saved["model"]),
+                       optimizer=states_equal(optimizer.state_dict(), saved["optimizer"]),
+                       counts=[g["count"] for g in optimizer.param_groups])
+        del saved
+        return epoch
+
+    solver_module.train_step, BridgeQA.forward = counted_step, counted_forward
+    checkpoints.graft_detector, checkpoints.load_train_state = checked_graft, checked_resume
+    timings = {}
+    try:
+        for name, argv in (
+                ("det", ["--stage", "DET", "--epochs", "1", "--synthetic_records",
+                         str(2 * batch), "--verbose", "2"]),
+                ("vqa", ["--first_stage_ckpt_path", str(runs["det"]), "--epochs", "2",
+                         "--synthetic_records", str(3 * batch), "--verbose", "3"]),
+                ("resume", ["--use_checkpoint", str(runs["vqa"]), "--epochs", "3",
+                            "--synthetic_records", str(3 * batch), "--max_iters_per_epoch", "2",
+                            "--verbose", "2", "--trace_dir", str(root / "trace")])):
+            t0 = time.perf_counter()
+            tag = "vqa" if name == "resume" else name
+            train.main(args + argv + ["--output_root", str(root), "--tag", tag])
+            timings[name] = time.perf_counter() - t0
+        vqa = str(runs["vqa"])
+        t0 = time.perf_counter()
+        preds = predict.main(["--run_dir", vqa, "--open_ended", "--device", device.type])
+        timings["predict"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        results = eval_script.main(["--run_dir", vqa, "--qa", "--detection", "--device",
+                                    device.type])
+        timings["eval"] = time.perf_counter() - t0
+        report = score.main(["--run_dir", vqa])
+    finally:
+        solver_module.train_step, BridgeQA.forward = train_step, forward
+        checkpoints.graft_detector, checkpoints.load_train_state = graft_detector, load_train_state
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+
+    failed = []
+    for name, d in runs.items():
+        missing = [a for a in RUN_ARTIFACTS + (("predictions.csv",) + EVAL_ARTIFACTS
+                                               if name == "vqa" else ()) if not (d / a).exists()]
+        if missing:
+            failed.append(f"{name}: artifacts not written {missing}")
+        records = [json.loads(line) for line in (d / "metrics.jsonl").read_text().splitlines()]
+        bad = [r for r in records for v in r.values()
+               if isinstance(v, float) and not np.isfinite(v)]
+        if bad or not any(r["phase"] == "train" for r in records):
+            failed.append(f"{name}: logged metrics not finite or missing {bad[:3]}")
+    want_steps = 2 + 2 * 3 + 2
+    if len(steps) != want_steps:
+        failed.append(f"{len(steps)} train steps, {want_steps} expected")
+    for i, (cfg, launches) in enumerate(steps):
+        expected = expected_train_launches(cfg)
+        if launches != expected:
+            failed.append(f"train step {i} ({cfg.stage}): launches {launches}, expected {expected}")
+    kinds = [(cfg.stage, inference) for cfg, inference, _, _ in forwards]
+    want_kinds = [("DET", "rank")] + [("VQA", "rank")] * 3 + [("VQA", "rank"), ("VQA", "generate"),
+                                                              ("VQA", "rank")]
+    if kinds != want_kinds:
+        failed.append(f"eval forwards {kinds}, expected {want_kinds}")
+    for i, (cfg, inference, grad, launches) in enumerate(forwards):
+        expected = (expected_generate_launches(cfg) if inference == "generate"
+                    else expected_eval_launches(cfg))
+        if grad or launches != expected:
+            failed.append(f"eval forward {i} ({cfg.stage}, {inference}, remat {cfg.blip.remat}, "
+                          f"grad {grad}): launches {launches}, expected {expected}")
+    if not (graft.get("parameters") and graft.get("buffers") and graft.get("statistics")):
+        failed.append(f"DET graft {graft}")
+    epochs = resumed.get("epoch", (None, None))
+    if not (resumed.get("model") and resumed.get("optimizer") and epochs == (2, 2)):
+        failed.append(f"resumed state {resumed}")
+    texts = [p.get("open_ended_answer") for p in preds]
+    if len(preds) != batch or not all(isinstance(t, str) for t in texts):
+        failed.append(f"predictions {len(preds)}, open-ended answers {texts[:3]}")
+    if not all(np.isfinite(v) for v in results["qa"].values()) or "mAP@0.25" not in results:
+        failed.append(f"eval results {results}")
+    if "EM@1" not in report:
+        failed.append(f"score report keys {sorted(report)[:5]}")
+    log(f"drivers: train steps {len(steps)} (launches as derived), eval forwards "
+        f"{[f'{s}/{i}' for s, i in kinds]}, DET graft {graft}, resumed {resumed}")
+    if failed:
+        raise AssertionError(f"drivers checks failed: {failed}")
+
+    vqa_records = [json.loads(line) for line in (runs["vqa"] / "metrics.jsonl").read_text()
+                   .splitlines()]
+    timing = [r for r in vqa_records if r["phase"] == "timing"]
+    trace = [r for r in vqa_records if r["phase"] == "trace"]
+    stem = scoring._porter_stem()
+    log(f"drivers timings on {card_name_and_power()}:")
+    for r in timing:
+        log(f"drivers: VQA loop at step {r['step']}: {r['samples_per_s']:.2f} samples/s with the "
+            f"feed (fetch mean {r['fetch_ms']:.1f} ms, step mean {r['step_ms']:.1f} ms, host "
+            f"clock; the interval since the last log point, its metrics read included)")
+    steady = timing[1]["samples_per_s"] if len(timing) > 1 else float("nan")
+    log(f"drivers: loop with the feed {steady:.2f} samples/s (the VQA stage's second epoch) "
+        f"against phase 7's step on a resident batch {resident_samples_per_s:.2f}")
+    for r in trace:
+        log(f"drivers: traced loop step {r['step']} (fetch and step): {r['device_ms']:.1f} ms of "
+            f"card time in {r['wall_ms']:.1f} ms (busy {r['busy']:.0%})")
+    log(f"drivers: answers {preds[0]['answer_top10']}, open-ended {texts[:2]}; qa "
+        f"{json.dumps({k: round(v, 4) for k, v in results['qa'].items()})}; mAP@0.25 "
+        f"{results['mAP@0.25']['mAP']:.4f}; EM@1 {report['EM@1']}")
+    log(f"drivers: phase {time.perf_counter() - t_phase:.1f} s (runs "
+        f"{json.dumps({k: round(v, 1) for k, v in timings.items()})}), peak memory "
+        f"{peak_gb:.2f} GB, vote labels by the {'native' if native.available() else 'numpy'} "
+        f"path, METEOR stemmer: "
+        f"{'Porter (nltk)' if getattr(stem, '__self__', None) is not None else 'none (no nltk)'}")
+    # a step of the loop, and the eval script's rank forward (built without remat)
+    return steps[-1][1], forwards[-1][3]
 
 
 def report_ratios(kernels: dict) -> None:
@@ -2214,13 +2468,15 @@ def main() -> int:
     generate_launches = phase_generate(device)
     kernels += phase_train_kernels(device)
     phase_train_reference(device)
-    train_launches = phase_train(device)
+    train_launches, resident_samples_per_s = phase_train(device)
+    loop_launches, eval_launches = phase_drivers(device, resident_samples_per_s)
     records = []
     for k in kernels:
         name = k["name"]
         path = "train" if name in BACKWARD_ONLY else "rank"
         by_path = {"rank": launches[name], "generate": generate_launches[name],
-                   "train": train_launches[name]}
+                   "train": train_launches[name], "train loop": loop_launches[name],
+                   "eval": eval_launches[name]}
         records.append(dict(summarize(k, by_path[path], by_path), launches_path=path))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

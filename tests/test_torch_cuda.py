@@ -43,7 +43,8 @@ machine does not have; this file imports none.) On the edge cases
   the largest value, the atomics add in another order), the autograd
   Function's gradients against the plain forward's autograd, which
   ``torch.autograd.gradcheck`` holds to finite differences in f64, and a
-  tiny train step on the card against the CPU.
+  tiny train step on the card against the CPU;
+- the feed's pinned copy to the card, bit for bit and without a host sync.
 f32: 1e-3 absolute (both sides accumulate in f32, in another order). bf16
 outputs: 2^-6 of the largest output, about two steps of bf16 (both round
 once from f32, and a sum taken in another order can flip a rounding, or the
@@ -1050,3 +1051,29 @@ def test_train_step_on_the_card_matches_the_cpu(card):
             assert max(float(w.norm()), float(g.norm())) <= 1e-5 * largest, name
         else:
             assert float((g - w).norm() / w.norm()) <= 1e-3, name
+
+
+def test_feed_pinned_copy_is_the_host_batch(card):
+    """The feed's batches reach the card through pinned memory, bit for bit,
+    host fields kept, with no host sync in the copies (sync debug mode
+    "error" around the iteration)."""
+    from bridgeqa_tpu_torch.data import device_feed
+
+    rng = np.random.RandomState(0)
+    batches = [{"point_clouds": rng.rand(4, 40000, 4).astype(np.float32),
+                "question_ids": rng.randint(0, 30000, (4, 80)).astype(np.int32),
+                "answers": [f"a{i}" for i in range(4)]} for _ in range(3)]
+    host = device_feed.host_tensors(batches[0], pin=True)
+    assert host["point_clouds"].is_pinned() and host["question_ids"].is_pinned()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = list(device_feed.device_batches(batches, card))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert len(got) == 3
+    for g, w in zip(got, batches):
+        assert g["answers"] == w["answers"]
+        for k in ("point_clouds", "question_ids"):
+            assert g[k].device == card and g[k].dtype == torch.from_numpy(w[k]).dtype
+            np.testing.assert_array_equal(g[k].cpu().numpy(), w[k])
