@@ -15,17 +15,22 @@ crossattention.self.query``), so the mapping is a walk over the flax tree:
 ``export_jax_variables`` walks the other way, from the port's modules to a
 flax tree of numpy arrays.
 
-A reference checkpoint reaches the port through
-``bridgeqa_tpu.utils.bridgeqa_checkpoint.convert_scanqa`` and then
-``load_jax_variables``, where JAX is installed; this module itself imports
-no JAX.
+A reference checkpoint (the reference's ``model.pth``) reaches the port
+through ``load_reference_checkpoint``: the port's copy of the JAX package's
+converter (``utils/bridgeqa_checkpoint.convert_scanqa``) maps it onto the
+flax tree, ``merge_pretrained`` keeps the model's own values where the
+checkpoint has none, and ``load_jax_variables`` fills the modules. Nothing
+here imports JAX.
 """
 
 import numpy as np
 import torch
 from torch import nn
 
-from bridgeqa_tpu_torch.models.layers import BatchNorm, Dense, Embed, LayerNorm, PatchEmbed
+from bridgeqa_tpu_torch.models.layers import (BatchNorm, Dense, Embed, LayerNorm, PatchEmbed,
+                                              refresh_compute_copies)
+from bridgeqa_tpu_torch.utils.blip_checkpoint import load_torch_checkpoint, merge_pretrained
+from bridgeqa_tpu_torch.utils.bridgeqa_checkpoint import convert_scanqa
 
 _RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight",
            "mean": "running_mean", "var": "running_var"}
@@ -109,3 +114,28 @@ def export_jax_variables(model: nn.Module) -> dict:
                 node = node.setdefault(part, {})
             node[leaf] = np.array(value, copy=True)
     return out
+
+
+def load_reference_checkpoint(model: nn.Module, state_dict_or_path):
+    """Fill ``model`` (a ``BridgeQA``) from a reference ScanQA/BridgeQA
+    checkpoint: a ``.pth`` path or a state dict of arrays, its keys with or
+    without DDP's ``module.`` prefix. The converted tree is merged into the
+    model's own (``merge_pretrained``: an entry the checkpoint lacks, or has
+    in another shape, keeps the model's value), then loaded, and the
+    compute-dtype copies are made again. Returns (loaded, skipped), the flax
+    paths taken from the checkpoint and those it could not place."""
+    if isinstance(state_dict_or_path, (str, bytes)) or hasattr(state_dict_or_path, "__fspath__"):
+        sd = load_torch_checkpoint(state_dict_or_path)
+    else:
+        sd = state_dict_or_path
+    sd = {k.removeprefix("module."): (v.detach().cpu().numpy() if torch.is_tensor(v)
+                                      else np.asarray(v)) for k, v in sd.items()}
+    blip = model.cfg.blip
+    converted = convert_scanqa(sd, image_size=blip.image_size, vocab_size=blip.med.vocab_size,
+                               share_decoder=blip.share_decoder)
+    own = export_jax_variables(model)
+    params, loaded, skipped = merge_pretrained(own["params"], converted["params"])
+    stats, loaded_s, skipped_s = merge_pretrained(own["batch_stats"], converted["batch_stats"])
+    load_jax_variables(model, {"params": params, "batch_stats": stats})
+    refresh_compute_copies(model)
+    return loaded + loaded_s, skipped + skipped_s

@@ -3,7 +3,11 @@
 thresholds 0.3/0.6, objectness class weights [0.2, 0.8], the box loss
 ``center + 0.1 * heading_cls + heading_reg + 0.1 * size_cls + size_reg``, the
 grounding target from the proposals' IoU with the reference box, and the
-final x10."""
+final x10.
+
+Every normaliser covers the global batch, as JAX's: under data parallelism
+each ratio's numerator and count are summed over the data-parallel ranks
+(``parallel.global_batch.global_ratio``), and so is each per-sample mean."""
 
 import math
 
@@ -12,6 +16,7 @@ import torch.nn.functional as F
 
 from bridgeqa_tpu_torch.geometry.boxes import box3d_iou_auto, get_3d_box_batch, params_to_obb
 from bridgeqa_tpu_torch.geometry.nn_distance import huber_loss, nn_distance
+from bridgeqa_tpu_torch.parallel.global_batch import batch_mean, global_ratio
 
 FAR_THRESHOLD = 0.6
 NEAR_THRESHOLD = 0.3
@@ -33,7 +38,7 @@ def _nll(logits, labels):
 
 def _weighted_ce(logits, labels, sample_weights):
     """Cross entropy weighted per sample: sum(nll * w) / (sum(w) + 1e-6)."""
-    return (_nll(logits, labels) * sample_weights).sum() / (sample_weights.sum() + 1e-6)
+    return global_ratio((_nll(logits, labels) * sample_weights).sum(), sample_weights.sum(), 1e-6)
 
 
 def compute_vote_loss(end_points):
@@ -48,7 +53,7 @@ def compute_vote_loss(end_points):
     _, _, dist2, _ = nn_distance(vote_xyz_r, gt_votes_r, l1=True)
     votes_dist = dist2.amin(dim=1).reshape(batch_size, num_seed)
     mask = seed_gt_votes_mask.float()
-    return (votes_dist * mask).sum() / (mask.sum() + 1e-6)
+    return global_ratio((votes_dist * mask).sum(), mask.sum(), 1e-6)
 
 
 def compute_objectness_loss(end_points):
@@ -64,7 +69,7 @@ def compute_objectness_loss(end_points):
     cls_w = torch.tensor(OBJECTNESS_CLS_WEIGHTS, dtype=torch.float32).to(dist1.device,
                                                                         non_blocking=True)
     nll = _nll(end_points["objectness_scores"], objectness_label) * cls_w[objectness_label.long()]
-    loss = (nll * objectness_mask).sum() / (objectness_mask.sum() + 1e-6)
+    loss = global_ratio((nll * objectness_mask).sum(), objectness_mask.sum(), 1e-6)
     return loss, objectness_label, objectness_mask, ind1
 
 
@@ -80,13 +85,13 @@ def compute_box_and_sem_cls_loss(end_points, config):
     mean_size_arr = torch.tensor(config.mean_size_arr, dtype=torch.float32).to(device,
                                                                               non_blocking=True)
     objectness_label = end_points["objectness_label"].float()
-    obj_norm = objectness_label.sum() + 1e-6
+    obj_count = objectness_label.sum()
 
     gt_center = end_points["center_label"][:, :, 0:3]
     dist1, _, dist2, _ = nn_distance(end_points["center"], gt_center)
     box_label_mask = end_points["box_label_mask"]
-    center_loss = ((dist1 * objectness_label).sum() / obj_norm
-                   + (dist2 * box_label_mask).sum() / (box_label_mask.sum() + 1e-6))
+    center_loss = (global_ratio((dist1 * objectness_label).sum(), obj_count, 1e-6)
+                   + global_ratio((dist2 * box_label_mask).sum(), box_label_mask.sum(), 1e-6))
 
     heading_class_label = _take(end_points["heading_class_label"], object_assignment)
     heading_class_loss = _weighted_ce(end_points["heading_scores"], heading_class_label,
@@ -96,7 +101,8 @@ def compute_box_and_sem_cls_loss(end_points, config):
     heading_one_hot = F.one_hot(heading_class_label.long(), num_heading_bin).float()
     pred_heading_res = (end_points["heading_residuals_normalized"] * heading_one_hot).sum(-1)
     heading_reg = huber_loss(pred_heading_res - heading_residual_normalized_label, delta=1.0)
-    heading_residual_normalized_loss = (heading_reg * objectness_label).sum() / obj_norm
+    heading_residual_normalized_loss = global_ratio((heading_reg * objectness_label).sum(),
+                                                    obj_count, 1e-6)
 
     size_class_label = _take(end_points["size_class_label"], object_assignment)
     size_class_loss = _weighted_ce(end_points["size_scores"], size_class_label, objectness_label)
@@ -105,7 +111,8 @@ def compute_box_and_sem_cls_loss(end_points, config):
     pred_size_res = (end_points["size_residuals_normalized"] * size_one_hot).sum(2)
     mean_size_label = (size_one_hot * mean_size_arr[None, None]).sum(2)
     size_reg = huber_loss(pred_size_res - size_residual_label / mean_size_label, delta=1.0)
-    size_residual_normalized_loss = (size_reg.mean(-1) * objectness_label).sum() / obj_norm
+    size_residual_normalized_loss = global_ratio((size_reg.mean(-1) * objectness_label).sum(),
+                                                 obj_count, 1e-6)
 
     sem_cls_label = _take(end_points["sem_cls_label"], object_assignment)
     sem_cls_loss = _weighted_ce(end_points["sem_cls_scores"], sem_cls_label, objectness_label)
@@ -119,9 +126,9 @@ def softmax_ranking_loss(inputs, targets, mask=None):
     probs = torch.softmax(inputs + 1e-8, dim=1)
     loss = -(torch.log(probs + 1e-8) * targets).sum(dim=1)
     if mask is None:
-        return loss.mean()
+        return batch_mean(loss)
     mask = mask + 1e-8
-    return (loss * mask).sum() / mask.sum()
+    return global_ratio((loss * mask).sum(), mask.sum())
 
 
 def compute_reference_loss(end_points, config):
@@ -148,7 +155,7 @@ def compute_lang_classification_loss(end_points):
     """Cross entropy of the language head, weighted by ``ref_obj_mask``."""
     nll = _nll(end_points["lang_scores"], end_points["object_cat"])
     mask = end_points["ref_obj_mask"] + 1e-8
-    return (nll * mask).sum() / mask.sum()
+    return global_ratio((nll * mask).sum(), mask.sum())
 
 
 def compute_answer_classification_loss(end_points):
@@ -158,10 +165,10 @@ def compute_answer_classification_loss(end_points):
     if "decoder_loss" in end_points:
         loss = end_points["decoder_loss"]
     else:
-        loss = _nll(end_points["answer_scores"], end_points["answer_cat"]).mean()
+        loss = batch_mean(_nll(end_points["answer_scores"], end_points["answer_cat"]))
     for extra in ("answer_scores_scene", "answer_scores_2d3d"):
         if extra in end_points:
-            loss = loss + _nll(end_points[extra], end_points["answer_cat"]).mean()
+            loss = loss + batch_mean(_nll(end_points[extra], end_points["answer_cat"]))
     return loss
 
 
@@ -186,8 +193,8 @@ def get_loss(end_points, config, detection=True, use_reference=True, use_lang_cl
     end_points["objectness_mask"] = objectness_mask
     end_points["object_assignment"] = object_assignment
     total = objectness_label.shape[0] * objectness_label.shape[1]
-    end_points["pos_ratio"] = objectness_label.float().sum() / total
-    end_points["neg_ratio"] = objectness_mask.sum() / total - end_points["pos_ratio"]
+    end_points["pos_ratio"] = global_ratio(objectness_label.float().sum(), total)
+    end_points["neg_ratio"] = global_ratio(objectness_mask.sum(), total) - end_points["pos_ratio"]
 
     (center_loss, heading_cls_loss, heading_reg_loss, size_cls_loss, size_reg_loss,
      sem_cls_loss) = compute_box_and_sem_cls_loss(end_points, config)

@@ -23,6 +23,7 @@ from bridgeqa_tpu_torch.models.generation import (
 from bridgeqa_tpu_torch.models.layers import Dense, LayerNorm, dropout, gelu
 from bridgeqa_tpu_torch.models.med import IGNORE_INDEX, BertLMHeadModel, BertModelTwin, MedConfig
 from bridgeqa_tpu_torch.models.vit import create_vit
+from bridgeqa_tpu_torch.parallel.global_batch import global_ratio
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,7 +173,8 @@ class BLIPVQA3D(nn.Module):
         _, loss_3d = self._decoder_scene()(answer_ids, answer_mask, h3d, question_mask,
                                            labels=targets,
                                            layernorm_idx=self._scene_layernorm_idx())
-        loss = (loss_2d.sum() + loss_3d.sum()) / image_embeds.shape[0]
+        # the mean over the global batch's questions (JAX's global array)
+        loss = global_ratio(loss_2d.sum() + loss_3d.sum(), image_embeds.shape[0])
         return loss, self.fuse_2d3d(h2d, h3d), question_mask
 
     def _rank_with_decoder(self, decoder, question_states, question_mask, answer_ids, answer_mask,

@@ -35,6 +35,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from bridgeqa_tpu_torch.parallel.global_batch import batch_moments
+
 
 def _trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> None:
     """flax ``truncated_normal``: a standard normal cut at +-2, scaled by
@@ -135,8 +137,12 @@ class BatchNorm(nn.Module):
     mode they are the batch's, the variance taken in one pass as
     ``E[x^2] - mean^2`` (biased); the running statistics then move by
     torch's convention, ``running = (1 - m) * running + m * batch``, with
-    the unbiased batch variance. ``momentum`` is a call argument, as in
-    JAX, so a schedule needs no rebuild."""
+    the unbiased batch variance. The batch is the global one, as JAX's:
+    under data parallelism the sums and the count are all-reduced over the
+    data-parallel ranks (``parallel.global_batch.batch_moments``,
+    differentiably, so the backward carries the cross-rank terms).
+    ``momentum`` is a call argument, as in JAX, so a schedule needs no
+    rebuild."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -149,12 +155,10 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, momentum: float = 0.1) -> torch.Tensor:
         xf = at_least_f32(x)
         if self.training:
-            dims = tuple(range(x.dim() - 1))
-            mean = xf.mean(dims)
-            var = (xf * xf).mean(dims) - mean * mean
-            n = x.numel() // x.shape[-1]
+            mean, mean_sq, bessel = batch_moments(xf, tuple(range(x.dim() - 1)))
+            var = mean_sq - mean * mean
             with torch.no_grad():
-                unbiased = var * (n / max(n - 1, 1))
+                unbiased = var * bessel
                 self.running_mean.copy_((1.0 - momentum) * self.running_mean + momentum * mean)
                 self.running_var.copy_((1.0 - momentum) * self.running_var + momentum * unbiased)
         else:

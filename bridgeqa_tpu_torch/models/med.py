@@ -145,14 +145,15 @@ class BertSelfAttention(nn.Module):
         projected (``project_kv``, or a KV cache) -> context (B, Lq, H).
         ``drop``: the probabilities' dropout rate (the forward's; 0 when
         decoding)."""
-        b, lq, h = hidden_states.shape
-        nh = self.num_heads
-        q = self.query(hidden_states).reshape(b, lq, nh, h // nh).transpose(1, 2)
+        b, lq, _ = hidden_states.shape
+        # the head width from the projection: a tensor-parallel shard holds
+        # num_heads of the layer's heads (parallel/tp.py)
+        q = self.query(hidden_states).reshape(b, lq, self.num_heads, -1).transpose(1, 2)
         if self.remat_probs:
             ctx = remat(attend, q, k, v, attention_bias, drop)
         else:
             ctx = attend(q, k, v, attention_bias, drop)
-        return ctx.transpose(1, 2).reshape(b, lq, h)
+        return ctx.transpose(1, 2).reshape(b, lq, -1)
 
     def forward(self, hidden_states, attention_bias=None, encoder_hidden_states=None):
         b, lq, h = hidden_states.shape
@@ -165,7 +166,7 @@ class BertSelfAttention(nn.Module):
             # answers ranked against one question) fold into the query
             # length, so each question's K/V is projected once
             grouped = hidden_states.reshape(kb, (b // kb) * lq, h)
-            return self.attend_cached(grouped, k, v, attention_bias, drop).reshape(b, lq, h)
+            return self.attend_cached(grouped, k, v, attention_bias, drop).reshape(b, lq, -1)
         return self.attend_cached(hidden_states, k, v, attention_bias, drop)
 
 
@@ -386,6 +387,10 @@ def label_smoothed_lm_loss(logits, labels, epsilon: float = 0.1):
 class BertLMHeadModel(nn.Module):
     """Causal LM decoder with cross-attention and the tied LM head."""
 
+    # set by parallel/tp.py on a decoder whose products it sharded: the
+    # fused scoring kernels read whole weights
+    tensor_parallel = False
+
     def __init__(self, c: MedConfig):
         super().__init__()
         self.config = c
@@ -436,16 +441,16 @@ class BertLMHeadModel(nn.Module):
         never in train mode or where a gradient is wanted
         (``torch.is_grad_enabled()``; together the port's counterpart of
         JAX's ``not deterministic``) or with ``remat``: the kernels have no
-        backward. It drops the answer padding
-        mask (equivalent for right-padded answers) and projects the
-        vocabulary in f32 where the module path rounds the logits to the
-        working type."""
+        backward. Nor on weights sharded for tensor parallelism. It drops
+        the answer padding mask (equivalent for right-padded answers) and
+        projects the vocabulary in f32 where the module path rounds the
+        logits to the working type."""
         c = self.config
         if c.fused_scoring not in ("auto", "force", "off"):
             raise ValueError(f"fused_scoring must be 'auto', 'force' or 'off', got "
                              f"{c.fused_scoring!r}")
         if (labels is None or encoder_hidden_states is None or c.fused_scoring == "off"
-                or c.remat or self.training or torch.is_grad_enabled()):
+                or c.remat or self.training or torch.is_grad_enabled() or self.tensor_parallel):
             return None
         if c.fused_scoring == "auto" and input_ids.device.type != "cuda":
             return None

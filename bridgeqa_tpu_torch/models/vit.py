@@ -59,15 +59,17 @@ class Attention(nn.Module):
         self.remat_probs = False
 
     def forward(self, x):
-        b, n, c = x.shape
-        hd = c // self.num_heads
-        qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4)
+        b, n, _ = x.shape
+        # the head width from the projection: a tensor-parallel shard holds
+        # num_heads of the block's heads, whole (parallel/tp.py)
+        qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, -1).permute(2, 0, 3, 1, 4)
+        hd = qkv.shape[-1]
         q, k, v = qkv[0] * hd**-0.5, qkv[1], qkv[2]  # (B, H, N, D)
         if self.remat_probs:
             x = remat(_attention_probs_context, q, k, v)
         else:
             x = _attention_probs_context(q, k, v)
-        return self.proj(x.transpose(1, 2).reshape(b, n, c))
+        return self.proj(x.transpose(1, 2).reshape(b, n, -1))
 
 
 class Block(nn.Module):
@@ -86,6 +88,10 @@ class Block(nn.Module):
 
 
 class VisionTransformer(nn.Module):
+    # set by parallel/tp.py on a ViT whose products it sharded: the fused
+    # block reads whole weights
+    tensor_parallel = False
+
     def __init__(self, img_size: int = 480, patch_size: int = 16, embed_dim: int = 768,
                  depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, drop_path_rate: float = 0.0, remat: bool = False,
@@ -121,9 +127,10 @@ class VisionTransformer(nn.Module):
         x = self.embed(x)
         attn = self.blocks[0].attn
         # the fused block reads a QKV bias, as the JAX one does; it runs only
-        # in eval mode (JAX's deterministic)
-        if not self.training and attn.qkv.bias is not None and vb.use_fused(
-                self.embed_dim, attn.num_heads, self.blocks[0].mlp.fc1.out_features, x.device):
+        # in eval mode (JAX's deterministic), on whole weights
+        if (not self.training and not self.tensor_parallel and attn.qkv.bias is not None
+                and vb.use_fused(self.embed_dim, attn.num_heads,
+                                 self.blocks[0].mlp.fc1.out_features, x.device)):
             x = vb.fused_vit_blocks(self, x)
             n = self.norm
             return add_layernorm(x.reshape(-1, self.embed_dim), None, n.weight.float(),

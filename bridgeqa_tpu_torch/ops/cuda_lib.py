@@ -7,16 +7,19 @@ library with a plain C interface, loaded with ``ctypes``. The point kernels
 bitwise parity with the plain versions needs; the scoring kernels keep it.
 The build runs at the first CUDA use and lands in ``build/kernels/`` at the
 repository root (listed in ``.gitignore``), under a name derived from the
-sources and flags, so an unchanged tree reuses it.
+sources and flags, so an unchanged tree reuses it. Processes that start at
+once (the ranks of a distributed run) build it once, behind a file lock.
 
 Nothing here runs when the module is imported: the CPU tests import every
 module, and a machine without ``nvcc`` never builds.
 """
 
 import ctypes
+import fcntl
 import hashlib
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -81,7 +84,7 @@ def _nvcc() -> str:
 
 
 def _build() -> Path:
-    global build_log, build_seconds
+    global build_seconds
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256()
     for src in sources:
@@ -94,9 +97,30 @@ def _build() -> Path:
         build_seconds = 0.0
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # one build at a time across processes (the ranks of a distributed run):
+    # the first to take the lock builds in a directory of its own and renames
+    # the library into place; the others wait here and then find it. The OS
+    # drops the lock of a process that dies.
+    with open(BUILD_DIR / f"{tag}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            build_seconds = 0.0
+            return out
+        work = Path(tempfile.mkdtemp(prefix=f"build-{tag}-", dir=BUILD_DIR))
+        try:
+            _compile(sources, work, out)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def _compile(sources, work: Path, out: Path) -> None:
+    """nvcc every source into ``work`` and link the library there, then
+    rename it to ``out``."""
+    global build_log, build_seconds
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    objs = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in sources]
+    objs = [work / f"{src.stem}.o" for src in sources]
     # one nvcc per source, all started together
     procs = [subprocess.Popen([nvcc, *source_flags(src), "-c", str(src), "-o", str(obj)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -109,7 +133,7 @@ def _build() -> Path:
             failed.append(src.name)
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
-    tmp = out.with_suffix(".so.tmp")
+    tmp = work / out.name
     link = subprocess.run([nvcc, "-shared", *map(str, objs), "-o", str(tmp)],
                           capture_output=True, text=True)
     if link.returncode != 0:
@@ -117,7 +141,6 @@ def _build() -> Path:
     tmp.replace(out)
     build_seconds = time.perf_counter() - t0
     build_log = "\n".join(logs)
-    return out
 
 
 def lib() -> ctypes.CDLL:

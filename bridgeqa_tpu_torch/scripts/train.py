@@ -1,17 +1,28 @@
 """Train BridgeQA with the PyTorch port (DET pretraining or VQA stage).
 
 Counterpart of ``scripts/train.py`` (the reference's argparse surface
-40-179, 3-group AdamW routing 385-417, Solver hookup), on one device. Run
-metadata (``info.json``, ``answer_vocab.json``, ``cmdline.txt``) is written
-like ``train.py:495-512`` so predict/eval can replay the configuration.
-The weights are drawn from ``--seed``, dropout from a generator on the
-device seeded with ``--seed + 2``.
+40-179, 3-group AdamW routing 385-417, Solver hookup). Run metadata
+(``info.json``, ``answer_vocab.json``, ``cmdline.txt``) is written like
+``train.py:495-512`` so predict/eval can replay the configuration. The
+weights are drawn from ``--seed``, dropout from a generator on the device
+seeded with ``--seed + 2`` (and the data-parallel rank).
 
 Demo (no ScanNet), on the CPU:
 ``python -m bridgeqa_tpu_torch.scripts.train --synthetic --tiny --epochs 1 --device cpu``
 
-``--tp > 1`` and ``--distributed`` are not ported yet (ROADMAP A12: data
-and tensor parallelism over ``torch.distributed``).
+Several processes (``--distributed``, under ``python -m torch.distributed.run
+--nproc_per_node N``): each rank joins torchrun's process group
+(``parallel.mesh.initialize_distributed``; NCCL on the cards, gloo with
+``--device cpu``) and its ``LOCAL_RANK``'s card, and the ranks form a
+``(data, model)`` mesh with ``--tp`` on the model axis. ``--batch_size`` is
+per rank: the global batch is ``batch_size * world / tp``, the loaders are
+sharded by data-parallel rank, and the model is wrapped in
+``DistributedDataParallel`` over the data axis (``find_unused_parameters``,
+as the reference sets it). BatchNorm statistics, losses and metrics cover
+the global batch (``parallel/global_batch.py``). ``--tp > 1`` shards the
+transformer products Megatron-style (``parallel/tp.py``); checkpoints hold
+the unsharded layout either way. Only rank 0 writes the run's files; the
+other ranks log under ``<run>/rank<r>/``.
 """
 
 import argparse
@@ -22,6 +33,7 @@ import torch
 
 from bridgeqa_tpu_torch.data.tokenization import make_answer_list
 from bridgeqa_tpu_torch.eval.qa_eval import get_eval
+from bridgeqa_tpu_torch.parallel import mesh as pmesh
 from bridgeqa_tpu_torch.scripts import common
 from bridgeqa_tpu_torch.train import checkpoints
 from bridgeqa_tpu_torch.train.optim import OptimConfig, build_optimizer
@@ -29,6 +41,7 @@ from bridgeqa_tpu_torch.train.solver import Solver, SolverConfig
 from bridgeqa_tpu_torch.train.step import StepConfig
 from bridgeqa_tpu_torch.utils.logging_utils import RunLogger
 
+DROPOUT_SEED_STRIDE = 1_000_003
 SCALAR_EVAL_KEYS = ("ref_acc_mean", "ref_iou_rate_0.25", "ref_iou_rate_0.5", "lang_acc",
                     "obj_acc", "sem_acc", "answer_acc_at1", "answer_acc_at10",
                     "answer_acc_at1_scene", "answer_acc_at1_2d", "answer_acc_at1_2d3d")
@@ -57,9 +70,11 @@ def parse_args(argv=None):
     p.add_argument("--max_iters_per_epoch", type=int, default=0)
     p.add_argument("--k_test", type=int, default=256)
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel size (not ported yet: ROADMAP A12)")
+                   help="tensor-parallel size: the mesh's model axis (needs --distributed "
+                        "and must divide the world size)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process data parallelism (not ported yet: ROADMAP A12)")
+                   help="one process per rank under torchrun (python -m "
+                        "torch.distributed.run); batch_size is PER RANK")
     p.add_argument("--use_checkpoint", type=str, default=None,
                    help="run dir to resume from (checkpoint.tar equivalent)")
     p.add_argument("--first_stage_ckpt_path", type=str, default=None,
@@ -77,10 +92,14 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.tp > 1 or args.distributed:
-        raise NotImplementedError("--tp > 1 and --distributed are not ported yet (ROADMAP A12: "
-                                  "data and tensor parallelism over torch.distributed)")
+    if args.tp > 1 and not args.distributed:
+        raise ValueError("--tp > 1 shards over ranks: run under torchrun with --distributed")
     device = common.resolve_device(args.device)
+    if args.distributed:
+        # replaces the reference's torchrun + NCCL env:// init (train.py:181-187)
+        device = pmesh.initialize_distributed(device=args.device)
+        pmesh.make_mesh(model=args.tp)
+    rank, dp_rank, dp_size = pmesh.rank(), pmesh.data_rank(), pmesh.data_size()
     if args.stage == "DET":
         args.no_answer = True  # train.py:632-636
         args.no_blip = True
@@ -92,9 +111,15 @@ def main(argv=None):
         args.cur_criterion = "loss"
 
     run_dir = os.path.join(args.output_root, args.tag)
-    logger = RunLogger(run_dir, tensorboard=args.tensorboard, wandb=args.wandb)
+    if rank == 0:
+        logger = RunLogger(run_dir, tensorboard=args.tensorboard, wandb=args.wandb)
+    else:  # the run's files are rank 0's; each other rank keeps its own log
+        logger = RunLogger(os.path.join(run_dir, f"rank{rank}"), stdout=False)
     logger.info(f"device: {device}"
-                + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+                + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+                + (f"; rank {rank}/{pmesh.world_size()}, data-parallel {dp_rank}/{dp_size}, "
+                   f"tp {args.tp}, global batch {args.batch_size * dp_size}"
+                   if args.distributed else ""))
 
     datasets, tokenizer, answer_cands, answer_counter = common.build_datasets(args)
     logger.info(f"train {len(datasets['train'])} / val {len(datasets['val'])} samples, "
@@ -102,13 +127,22 @@ def main(argv=None):
     model, cfg, dc = common.build_model(args, num_answers=max(len(answer_cands), 1),
                                         device=device, seed=args.seed)
 
-    train_loader = common.make_loader(datasets["train"], args, shuffle=True, seed=args.seed)
-    val_loader = common.make_loader(datasets["val"], args, shuffle=False)
+    # per-rank loader shards (the DistributedSampler equivalent, reference
+    # train.py:241-247); the ranks of one model-axis group read the same shard
+    train_loader = common.make_loader(datasets["train"], args, shuffle=True, seed=args.seed,
+                                      num_shards=dp_size, shard_index=dp_rank)
+    val_loader = common.make_loader(datasets["val"], args, shuffle=False,
+                                    num_shards=dp_size, shard_index=dp_rank)
     try:
         if args.first_stage_ckpt_path:
             # two-stage flow (qa_module.py:386-407): graft detector weights
             checkpoints.graft_detector(args.first_stage_ckpt_path, "model_last", model)
             logger.info(f"loaded stage-1 detector from {args.first_stage_ckpt_path}")
+        if args.tp > 1:
+            from bridgeqa_tpu_torch.parallel.tp import shard_model
+
+            shard_model(model)
+            logger.info(f"tensor parallelism: model axis {args.tp}")
 
         steps_per_epoch = max(len(train_loader), 1)
         opt_cfg = OptimConfig(lr=args.lr, lr_blip=args.lr_blip, lr_blip3d=args.lr_blip3d,
@@ -122,6 +156,13 @@ def main(argv=None):
         if args.use_checkpoint:
             start_epoch = checkpoints.load_train_state(args.use_checkpoint, model, optimizer)
             logger.info(f"resumed from {args.use_checkpoint} at epoch {start_epoch}")
+        if args.distributed:
+            # gradients averaged over the data axis; unused parameters found
+            # each step, as the reference's DDP(find_unused_parameters=True);
+            # the running statistics are the global batch's on every rank
+            model = torch.nn.parallel.DistributedDataParallel(
+                model, process_group=pmesh.ddp_group(), find_unused_parameters=True,
+                broadcast_buffers=False)
 
         step_cfg = StepConfig(detection=True, use_reference=not args.no_reference,
                               use_lang_classifier=not args.no_lang_cls,
@@ -164,10 +205,14 @@ def main(argv=None):
 
         checkpoints.save_run_info(run_dir, common.args_to_dict(args))
         checkpoints.save_answer_vocab(run_dir, answer_cands, answer_counter)
-        with open(os.path.join(run_dir, "cmdline.txt"), "w") as f:  # solver.py:331-336
-            f.write(" ".join(sys.argv if argv is None else ["train"] + list(argv)) + "\n")
+        if rank == 0:
+            with open(os.path.join(run_dir, "cmdline.txt"), "w") as f:  # solver.py:331-336
+                f.write(" ".join(sys.argv if argv is None else ["train"] + list(argv)) + "\n")
 
-        generator = torch.Generator(device=device).manual_seed(args.seed + 2)
+        # one dropout stream per data-parallel rank (JAX draws one mask over
+        # the global array); the ranks of a model-axis group share theirs
+        generator = torch.Generator(device=device).manual_seed(
+            args.seed + 2 + DROPOUT_SEED_STRIDE * dp_rank)
         solver(train_loader, val_loader, generator=generator, start_epoch=start_epoch)
         best = solver.best_criterion
         logger.info(f"done; best {args.cur_criterion}={best:.4f} @ epoch {solver.best_epoch + 1}")

@@ -14,6 +14,12 @@ tensors and Python scalars only and load with ``weights_only=True``. After
 every load the compute-dtype copies are made again
 (``refresh_compute_copies``), so a forward without grad reads the loaded
 weights.
+
+Under ``torch.distributed`` every rank calls the savers and only rank 0
+writes (the JAX package's Orbax saves are collective too): a model sharded
+for tensor parallelism gathers its weights and moments inside
+``state_dict()``, so the files hold the unsharded layout whatever the run's
+parallelism. Every rank loads.
 """
 
 import json
@@ -23,6 +29,7 @@ import torch
 from torch import nn
 
 from bridgeqa_tpu_torch.models.layers import refresh_compute_copies
+from bridgeqa_tpu_torch.parallel.mesh import is_main_process
 
 
 def _path(run_dir, name):
@@ -32,6 +39,8 @@ def _path(run_dir, name):
 def _save(obj, path):
     # written under another name first: an interrupted save leaves the last
     # complete file in place
+    if not is_main_process():
+        return
     tmp = path + ".tmp"
     torch.save(obj, tmp)
     os.replace(tmp, path)
@@ -98,6 +107,8 @@ def load_train_state(run_dir, model: nn.Module, optimizer: torch.optim.Optimizer
 
 def save_run_info(run_dir, info: dict, name="info.json"):
     """``info.json`` replayed by predict/eval (``utils/misc.py:38``)."""
+    if not is_main_process():
+        return
     os.makedirs(run_dir, exist_ok=True)
     with open(os.path.join(run_dir, name), "w") as f:
         json.dump(info, f, indent=2, default=str)
@@ -109,6 +120,8 @@ def load_run_info(run_dir, name="info.json"):
 
 
 def save_answer_vocab(run_dir, answer_cands, answer_counter=None):
+    if not is_main_process():
+        return
     with open(os.path.join(run_dir, "answer_vocab.json"), "w") as f:
         json.dump({"answer_cands": list(answer_cands),
                    "answer_counter": answer_counter or {}}, f)

@@ -115,6 +115,29 @@ class GroupedAdamW(torch.optim.AdamW):
         for g in self.param_groups:
             g["count"] += 1
 
+    def state_dict(self):
+        """``torch.optim`` state, with the moments of a tensor-parallel
+        shard gathered to the unsharded shape (``parallel/tp.py``): the
+        checkpoint of a tp run is a dp run's."""
+        return self._map_sharded(super().state_dict(), "tp_gather")
+
+    def load_state_dict(self, state_dict):
+        """Load an unsharded state, each tensor-parallel shard taking its
+        slice of the moments."""
+        super().load_state_dict(self._map_sharded(state_dict, "tp_slice"))
+
+    def _map_sharded(self, state_dict, attr):
+        # the moments of each parameter that parallel/tp.py sharded go
+        # through its gather or slice; new dicts, the live state untouched
+        params = [p for g in self.param_groups for p in g["params"]]
+        state = dict(state_dict["state"])
+        for i, per_param in state.items():
+            fn = getattr(params[i], attr, None)
+            if fn is not None:
+                state[i] = {k: fn(v) if torch.is_tensor(v) and v.dim() == params[i].dim() else v
+                            for k, v in per_param.items()}
+        return {**state_dict, "state": state}
+
 
 def build_optimizer(model: nn.Module, cfg: OptimConfig = OptimConfig()) -> GroupedAdamW:
     """The training optimizer of ``model`` (JAX's ``build_optimizer``)."""

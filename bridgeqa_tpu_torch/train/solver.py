@@ -26,11 +26,23 @@ Equivalent of the reference ``lib/solver.py`` (``Solver.__call__``,
 ``SolverConfig.check_syncs`` runs each fetch and step on a CUDA device
 under ``torch.cuda.set_sync_debug_mode("error")``: a host sync between log
 points raises where it happens.
+
+Data parallelism (``--distributed``): ``model`` may be a
+``DistributedDataParallel``; each rank trains on its loader's shard and the
+step's losses and metrics cover the global batch (``parallel.global_batch``).
+Validation runs on each rank's shard; the logged metrics and the
+best-checkpoint criterion are means over every rank's batches
+(``global_mean``, the JAX ``_global_mean``), so every rank takes the same
+decision, and ``predictions.csv`` holds every rank's rows (gathered as the
+reference's ``all_gather_object`` gathers them; the JAX solver writes rank
+0's shard alone). Every rank calls the savers; rank 0 writes
+(``train/checkpoints.py``).
 """
 
 import contextlib
 import csv
 import dataclasses
+import itertools
 import os
 import time
 from typing import Any, Callable
@@ -39,6 +51,8 @@ import numpy as np
 import torch
 
 from bridgeqa_tpu_torch.data.device_feed import device_batches
+from bridgeqa_tpu_torch.parallel.global_batch import gather_rows, global_mean
+from bridgeqa_tpu_torch.parallel.mesh import data_size, is_main_process
 from bridgeqa_tpu_torch.train import checkpoints
 from bridgeqa_tpu_torch.train.step import StepConfig, eval_step, train_step
 from bridgeqa_tpu_torch.utils.logging_utils import EpochETA, RunLogger, RunningMeans
@@ -84,7 +98,8 @@ class Solver:
                  eval_metrics_fn: Callable[[dict, Any], dict] | None = None,
                  extra_eval_inputs: dict | None = None,
                  predictions_fn: Callable[[dict, Any], list] | None = None):
-        """model: a ``BridgeQA`` on ``device``; optimizer: the
+        """model: a ``BridgeQA`` on ``device``, or a
+        ``DistributedDataParallel`` of one; optimizer: the
         ``build_optimizer`` of it. eval_metrics_fn(end_points, batch) ->
         scalar metrics dict (tensors) for validation (default: loss-only).
         extra_eval_inputs: arrays merged into every eval batch (e.g. the
@@ -94,6 +109,7 @@ class Solver:
         reference's best-val CSV, ``solver.py:623-656``).
         """
         self.model = model
+        self.module = getattr(model, "module", model)  # what DDP wraps
         self.optimizer = optimizer
         self.dataset_config = dataset_config
         self.step_cfg = step_cfg
@@ -127,11 +143,11 @@ class Solver:
         try:
             for epoch in range(start_epoch, self.cfg.epochs):
                 self._train_epoch(train_loader, val_loader, epoch, generator)
-                checkpoints.save_params(self.run_dir, "model_last", self.model)
-                checkpoints.save_train_state(self.run_dir, self.model, self.optimizer, epoch + 1)
+                checkpoints.save_params(self.run_dir, "model_last", self.module)
+                checkpoints.save_train_state(self.run_dir, self.module, self.optimizer, epoch + 1)
         except KeyboardInterrupt:
             self.log.info("interrupted — saving resumable checkpoint")
-            checkpoints.save_train_state(self.run_dir, self.model, self.optimizer, epoch)
+            checkpoints.save_train_state(self.run_dir, self.module, self.optimizer, epoch)
             raise
 
     def _train_epoch(self, train_loader, val_loader, epoch, generator):
@@ -174,8 +190,8 @@ class Solver:
                 steps_since_log += 1
 
                 if (i + 1) % cfg.verbose_step == 0 or i + 1 == n_iters:
-                    self._log_train(epoch, i, n_iters, pending, means, eta,
-                                    steps_since_log, t_log, batch["point_clouds"].shape[0])
+                    self._log_train(epoch, i, n_iters, pending, means, eta, steps_since_log,
+                                    t_log, batch["point_clouds"].shape[0] * data_size())
                     pending.clear()
                     t_log, steps_since_log = time.perf_counter(), 0
 
@@ -191,7 +207,8 @@ class Solver:
     def _log_train(self, epoch, i, n_iters, pending, means, eta, steps, t_log, batch_size):
         """Read the pending steps' metrics (the one wait for the card between
         log points) and log their means, the phase times and the loop's
-        samples/s since ``t_log`` (the last log point), the read included."""
+        samples/s since ``t_log`` (the last log point), the read included;
+        ``batch_size`` is the global batch."""
         stacked = {k: torch.stack([m[k] for m in pending]).float().cpu().numpy()
                    for k in pending[0]}
         seconds = time.perf_counter() - t_log
@@ -217,9 +234,11 @@ class Solver:
         t0 = time.time()
         agg = RunningMeans()
         preds = []
-        for batch in device_batches(val_loader, self.device):
+        # every rank takes its loader's length in batches, so that the ranks'
+        # collectives pair up when the shards differ by a record
+        for batch in itertools.islice(device_batches(val_loader, self.device), len(val_loader)):
             batch.update(self.extra_eval_inputs)
-            end_points = eval_step(self.model, batch, k_test=cfg.k_test, step_cfg=self.step_cfg,
+            end_points = eval_step(self.module, batch, k_test=cfg.k_test, step_cfg=self.step_cfg,
                                    dataset_config=self.dataset_config)
             scalars = {"loss": end_points["loss"]}
             if self.eval_metrics_fn is not None:
@@ -227,23 +246,33 @@ class Solver:
             agg.update({k: float(v) for k, v in scalars.items()})
             if self.predictions_fn is not None:
                 preds.extend(self.predictions_fn(end_points, batch))
-        val_metrics = agg.means()
-        self.log.info(f"val @ epoch {epoch + 1}: {agg.format()}  ({time.time() - t0:.1f}s)")
+        # means over every rank's batches (identity on one process)
+        counts = {k: agg.sum_count(k)[1] for k in agg.means()}
+        val_metrics = {k: self._global_mean(*agg.sum_count(k)) for k in sorted(counts)}
+        shown = ", ".join(f"{k}: {v:.4f}" for k, v in val_metrics.items())
+        self.log.info(f"val @ epoch {epoch + 1}: {shown}  ({time.time() - t0:.1f}s)")
         self.log.scalars(self.global_iter, "val", val_metrics)
 
         key = cfg.cur_criterion if cfg.cur_criterion in val_metrics else "loss"
-        s, n = agg.sum_count(key)
-        crit = s / max(n, 1)
+        crit = val_metrics.get(key, 0.0)
         if key != cfg.cur_criterion:  # fallback: criterion absent -> -loss
-            crit = -crit if n else -np.inf
+            crit = -crit if counts.get(key) else -np.inf
         better = crit > self.best_criterion if cfg.criterion_higher_better else crit < self.best_criterion
         if better:
             self.best_criterion = crit
             self.best_epoch = epoch
             self.log.info(f"new best {cfg.cur_criterion}={crit:.4f} — saving model")
-            checkpoints.save_params(self.run_dir, "model", self.model)
-            if preds:
+            checkpoints.save_params(self.run_dir, "model", self.module)
+            preds = gather_rows(preds)
+            if preds and is_main_process():
                 self._write_predictions_csv(preds)
+
+    def _global_mean(self, local_sum, local_count):
+        """Cross-rank mean of a (sum, count) pair (JAX's
+        ``Solver._global_mean``); identity on one process. Every rank gets
+        the same value, so every rank takes the same best-checkpoint
+        decision."""
+        return global_mean(local_sum, local_count, self.device)
 
     def _write_predictions_csv(self, preds):
         path = os.path.join(self.run_dir, "predictions.csv")

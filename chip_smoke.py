@@ -157,7 +157,8 @@ result is printed):
    each script's ``main(argv)`` on ``--synthetic`` data at the full width of
    the main path's config, ``--bf16 --remat``, batch 16, two feed workers:
    ``train --stage DET`` (2 steps), the VQA stage on the DET graft (2 epochs
-   of 3 steps, validated), ``--use_checkpoint`` (2 steps, traced),
+   of 2 steps, validated; 3 steps before phase 9 came), ``--use_checkpoint``
+   (2 steps, traced),
    ``predict --open_ended``, ``eval --qa --detection``, ``score``. Every
    artifact written, every logged metric finite, each loop step's and eval
    forward's launches as derived, the graft's parameters copied and BN
@@ -165,6 +166,19 @@ result is printed):
    between log points (``--check_syncs``); the loop's samples/s with the
    feed beside phase 7's resident step, the feed's fetch mean, the busy
    share of a traced loop step, the phase's seconds and peak memory.
+9. parallelism (``phase_parallel``): two ranks (``python3 chip_smoke.py
+   --parallel-rank R 2 PORT``, fresh processes) share the card over gloo,
+   since NCCL refuses two ranks on one device: phase 7's config, dropout
+   off, global batch 16. DDP in f32 against one process on the whole batch
+   (losses, every gradient after the all-reduce, BatchNorm statistics,
+   the second step's loss), the same f32 check at the tiny config in f64,
+   three bf16 DDP steps timed per rank, ``tp=2`` against the same
+   reference, and a sharded eval batch with the fused kernels; launches
+   per rank as derived. Then the ``train`` driver under ``python -m
+   torch.distributed.run --nproc_per_node 1`` (NCCL at world size 1
+   through DDP, ``--check_syncs``): DET, VQA and a resume, each run's files
+   written once. Two ranks sharing one card check correctness, not
+   scaling. Tolerances and cuts in ``phase_parallel``'s docstring.
 
 Bounds: the least time the card could take for a kernel's work, the larger
 of the bytes it must move (each input read once, each output written once)
@@ -179,8 +193,9 @@ The last two lines are a ``{"kernels": [...]}`` JSON object (each
 kernel's ``launches`` from the path it serves, named by ``launches_path``:
 the rank forward, or the train step for the backward kernel;
 ``launches_by_path`` from the rank forward, the generate forward, a train
-step, a step of the ``train`` script's loop and an eval batch of the ``eval``
-script) and ``{"ok": true, "device": {...}}``.
+step, a step of the ``train`` script's loop, an eval batch of the ``eval``
+script, and on each rank of phase 9 a DDP step, a ``tp=2`` step and a
+sharded eval batch) and ``{"ok": true, "device": {...}}``.
 """
 
 import copy
@@ -2212,8 +2227,8 @@ def phase_drivers(device, resident_samples_per_s: float, batch: int = DRIVER_BAT
     two worker processes, run directories under ``build/drivers``:
 
     1. ``train --stage DET``: one epoch of 2 steps;
-    2. ``train --first_stage_ckpt_path`` (the VQA stage): 2 epochs of 3
-       steps, a validation after each;
+    2. ``train --first_stage_ckpt_path`` (the VQA stage): 2 epochs of 2
+       steps (cut from 3 to make room for phase 9), a validation after each;
     3. ``train --use_checkpoint``: one more epoch, cut to two steps, each
        traced by ``torch.profiler`` (``--trace_dir``; the second is the one
        reported: the first holds the workers' start);
@@ -2308,9 +2323,9 @@ def phase_drivers(device, resident_samples_per_s: float, batch: int = DRIVER_BAT
                 ("det", ["--stage", "DET", "--epochs", "1", "--synthetic_records",
                          str(2 * batch), "--verbose", "2"]),
                 ("vqa", ["--first_stage_ckpt_path", str(runs["det"]), "--epochs", "2",
-                         "--synthetic_records", str(3 * batch), "--verbose", "3"]),
+                         "--synthetic_records", str(2 * batch), "--verbose", "2"]),
                 ("resume", ["--use_checkpoint", str(runs["vqa"]), "--epochs", "3",
-                            "--synthetic_records", str(3 * batch), "--max_iters_per_epoch", "2",
+                            "--synthetic_records", str(2 * batch), "--max_iters_per_epoch", "2",
                             "--verbose", "2", "--trace_dir", str(root / "trace")])):
             t0 = time.perf_counter()
             tag = "vqa" if name == "resume" else name
@@ -2341,7 +2356,7 @@ def phase_drivers(device, resident_samples_per_s: float, batch: int = DRIVER_BAT
                if isinstance(v, float) and not np.isfinite(v)]
         if bad or not any(r["phase"] == "train" for r in records):
             failed.append(f"{name}: logged metrics not finite or missing {bad[:3]}")
-    want_steps = 2 + 2 * 3 + 2
+    want_steps = 2 + 2 * 2 + 2
     if len(steps) != want_steps:
         failed.append(f"{len(steps)} train steps, {want_steps} expected")
     for i, (cfg, launches) in enumerate(steps):
@@ -2402,6 +2417,517 @@ def phase_drivers(device, resident_samples_per_s: float, batch: int = DRIVER_BAT
         f"{'Porter (nltk)' if getattr(stem, '__self__', None) is not None else 'none (no nltk)'}")
     # a step of the loop, and the eval script's rank forward (built without remat)
     return steps[-1][1], forwards[-1][3]
+
+
+# phase 9: parallelism on the one card (two ranks share it over gloo; NCCL
+# refuses two ranks on one device) and the torchrun driver over NCCL
+PARALLEL_WORLD = 2
+PARALLEL_BATCH = TRAIN_BATCH  # the global batch: 8 a rank
+PARALLEL_SEED = 5
+PARALLEL_TIMING_STEPS = 3
+PARALLEL_DIR = OUT_DIR / "parallel"
+PARALLEL_TIMEOUT_S = 900
+# the tolerances of phase 9's parity (``phase_parallel``)
+PARALLEL_LOSS_TOL = 1e-4
+PARALLEL_GRAD_TOL = 1e-3
+PARALLEL_DETECTOR_GRAD_TOL = 5e-2
+PARALLEL_STAT_TOL = 1e-4
+PARALLEL_LOSS2_TOL = 1e-2
+PARALLEL_F64_TOL = 1e-9
+TINY_PARALLEL_BATCH = 4
+TORCHRUN_ARGS = ["--distributed", "--synthetic", "--bf16", "--remat", "--check_syncs", "--tiny",
+                 "--num_workers", "1", "--batch_size", "2", "--seed", "0", "--val_step", "0",
+                 "--verbose", "1", "--synthetic_val_records", "2"]
+
+
+def parallel_config():
+    """Phase 7's config (the main path's, remat "block"), every dropout
+    rate 0."""
+    base = main_config()
+    return no_dropout(dataclasses.replace(
+        base, blip=dataclasses.replace(base.blip, remat=True, remat_mode="block")))
+
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.double() - want.double()).norm() / want.double().norm().clamp(min=1e-30))
+
+
+def _parallel_steps(model, step_model, batch, steps: int, grads_to=None):
+    """``steps`` train steps of ``step_model`` (``model`` or a DDP of it);
+    per step: its loss and sub-losses, its launches; the gradients after the
+    first backward (``grads_to``: "cpu" or the card), the running statistics
+    after the first step."""
+    from bridgeqa_tpu_torch.train.optim import build_optimizer
+    from bridgeqa_tpu_torch.train.step import train_step
+
+    optimizer = build_optimizer(model)
+    out = {"losses": [], "launches": [], "grads": None, "stats": None}
+
+    def mark(part):
+        if part == "backward" and out["grads"] is None and grads_to is not None:
+            out["grads"] = {n: p.grad.detach().to(grads_to, copy=True)
+                            for n, p in model.named_parameters() if p.grad is not None}
+
+    for k in range(steps):
+        reset_launches()
+        metrics = train_step(step_model, optimizer, batch, bn_momentum=0.1, mark=mark)
+        out["losses"].append({key: float(metrics[key]) for key in TRAIN_LOSSES})
+        out["launches"].append(read_launches())
+        if k == 0:
+            out["stats"] = {n: b.detach().clone() for n, b in model.named_buffers()
+                            if n.endswith(("running_mean", "running_var"))}
+    del optimizer
+    return out
+
+
+def _sign_flips(got: dict, want: dict) -> list:
+    """[gradient elements whose sign differs, elements] over every
+    parameter: AdamW's first step is ``lr * sign(g)`` for each element, so
+    these are the elements two runs step 2 lr apart."""
+    flips = [0, 0]
+    for n, g in got.items():
+        flips[0] += int((torch.sign(g) != torch.sign(want[n])).sum())
+        flips[1] += g.numel()
+    return flips
+
+
+def _rows(batch: dict, lo: int, hi: int) -> dict:
+    return {k: v[lo:hi].contiguous() for k, v in batch.items()}
+
+
+def parallel_worker(rank: int, world: int, port: int) -> int:
+    """One rank of phase 9 (``python3 chip_smoke.py --parallel-rank RANK
+    WORLD PORT``, started by ``phase_parallel``): both ranks on card 0 over
+    gloo. Writes ``build/parallel/rank<RANK>.json``."""
+    import gc
+    import os
+
+    import torch.distributed as dist
+
+    from bridgeqa_tpu_torch.models.layers import set_compute_dtype
+    from bridgeqa_tpu_torch.parallel import mesh
+    from bridgeqa_tpu_torch.parallel.eval import make_sharded_eval_step
+    from bridgeqa_tpu_torch.parallel.tp import shard_model
+    from bridgeqa_tpu_torch.train.optim import build_optimizer
+    from bridgeqa_tpu_torch.train.step import train_step
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK="0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    cfg = parallel_config()
+    batch = make_train_batch(cfg, PARALLEL_BATCH, NUM_POINTS, IMAGE_SIZE, QUESTION_LEN,
+                             ANSWER_LEN, device, seed=PARALLEL_SEED)
+    half = PARALLEL_BATCH // world
+    shard = _rows(batch, rank * half, (rank + 1) * half)
+    result = {"rank": rank}
+    t_start = time.perf_counter()
+
+    def done(part):  # progress in the rank's log (build/parallel/rank<r>.log)
+        print(f"rank {rank}: {part} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    def ddp(module):
+        return torch.nn.parallel.DistributedDataParallel(
+            module, process_group=mesh.ddp_group(), find_unused_parameters=True,
+            broadcast_buffers=False)
+
+    def free():
+        # after the caller dropped its names: DDP's reducer holds cycles
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    if rank == 0:
+        # the reference: one process on the global batch, before joining the
+        # group (the other rank waits in its rendezvous); memory freed after.
+        # Twice: how far the card's f32 step repeats itself
+        t0 = time.perf_counter()
+        refs = []
+        for _ in range(2):
+            model = build_model(cfg, device, seed=PARALLEL_SEED)
+            refs.append(_parallel_steps(model, model, batch, 2, grads_to="cpu"))
+            del model
+            free()
+        ref, again = refs
+        ref["stats"] = {k: v.cpu() for k, v in ref["stats"].items()}
+        result["reference"] = {
+            "losses": ref["losses"], "launches": ref["launches"],
+            "repeat_losses": again["losses"],
+            "repeat_grads": {n: _rel_l2(g, ref["grads"][n]) for n, g in again["grads"].items()},
+            "repeat_sign_flips": _sign_flips(again["grads"], ref["grads"]),
+            "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+            "seconds": time.perf_counter() - t0}
+        del refs, again
+        done("reference")
+    mesh.initialize_distributed(backend="gloo", device="cuda:0")
+    torch.cuda.reset_peak_memory_stats(device)
+
+    # (a) data parallelism, f32: two steps, then the timing in bf16
+    mesh.make_mesh()
+    model = build_model(cfg, device, seed=PARALLEL_SEED)
+    dp = _parallel_steps(model, ddp(model), shard, 2, grads_to=device)
+    result["ddp"] = {"losses": dp["losses"], "launches": dp["launches"]}
+    if rank == 0:
+        grads, flips, flips_by = {}, [0, 0], {}
+        for n, g in dp["grads"].items():
+            want = ref["grads"].pop(n).to(device)
+            grads[n] = _rel_l2(g, want) if float(want.norm()) > 0 else float(g.norm())
+            flips_by[n] = int((torch.sign(g) != torch.sign(want)).sum())
+            flips[0] += flips_by[n]
+            flips[1] += g.numel()
+            del want
+        missing = sorted(ref["grads"])
+        result["ddp"]["grads"] = grads
+        result["ddp"]["sign_flips"] = flips
+        result["ddp"]["sign_flips_by"] = sorted(((c, n) for n, c in flips_by.items() if c),
+                                                reverse=True)[:8]
+        result["ddp"]["sign_flips_detector"] = sum(c for n, c in flips_by.items()
+                                                   if n.startswith("detector."))
+        result["ddp"]["grads_missing"] = missing
+        result["ddp"]["stats"] = {n: _rel_l2(s.cpu(), ref["stats"][n])
+                                  for n, s in dp["stats"].items()}
+        del ref
+    result["ddp"]["peak_gb"] = torch.cuda.max_memory_allocated(device) / 1e9
+    del model, dp
+    free()
+    done("ddp f32")
+
+    model = set_compute_dtype(build_model(cfg, device, seed=PARALLEL_SEED), torch.bfloat16)
+    optimizer, step_model = build_optimizer(model), ddp(model)
+    walls = []
+    for k in range(1 + PARALLEL_TIMING_STEPS):  # a warm-up step first
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = train_step(step_model, optimizer, shard, bn_momentum=0.1)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if not np.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"rank {rank}: bf16 step {k} loss {float(metrics['loss'])}")
+    result["timing"] = {"walls_s": walls[1:], "median_s": statistics.median(walls[1:])}
+    del model, optimizer, step_model, metrics
+    free()
+    done("ddp bf16 timing")
+
+    # (b) tensor parallelism over both ranks (dp 1), f32, the whole batch
+    mesh.make_mesh(data=1, model=world)
+    torch.cuda.reset_peak_memory_stats(device)
+    model = shard_model(build_model(cfg, device, seed=PARALLEL_SEED))
+    tp = _parallel_steps(model, ddp(model), batch, 2)
+    result["tp"] = {"losses": tp["losses"], "launches": tp["launches"],
+                    "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+    del model, tp
+    free()
+    done("tp")
+
+    # (d) a sharded eval batch, bf16, the fused kernels
+    mesh.make_mesh()
+    eval_cfg = main_config()
+    model = set_compute_dtype(build_model(eval_cfg, device, seed=PARALLEL_SEED), torch.bfloat16)
+    table = make_batch(eval_cfg, 1, 1024, 32, 4, ANSWER_LEN, device, seed=PARALLEL_SEED)
+    eval_shard = {**shard, "answer_list_ids": table["answer_list_ids"],
+                  "answer_list_mask": table["answer_list_mask"]}
+    step = make_sharded_eval_step(model, k_test=K_TEST)
+    reset_launches()
+    out = step(eval_shard)
+    launches = read_launches()
+    scores = out["answer_scores"]
+    result["eval"] = {
+        "launches": launches, "shape": list(scores.shape),
+        "finite": bool(torch.isfinite(scores).all()) and bool(torch.isfinite(out["loss"])),
+        "own_rows": bool(torch.equal(out["point_clouds"][rank * half:(rank + 1) * half],
+                                     shard["point_clouds"])),
+        "loss": float(out["loss"])}
+    del model, out, scores
+    free()
+    done("sharded eval")
+
+    # (e) the tiny config in f64, DDP against one process on this card: the
+    # step's semantics, two AdamW steps, free of f32's rounding
+    tcfg = no_dropout(tiny_config())
+    tbatch = {k: (v.double() if v.is_floating_point() else v) for k, v in make_train_batch(
+        tcfg, TINY_PARALLEL_BATCH, 4096, 64, 20, 6, device, seed=12).items()}
+    tiny_half = TINY_PARALLEL_BATCH // world
+    if rank == 0:
+        with mesh.local_batch():  # one process's step: no collective
+            model = build_model(tcfg, device, seed=9).double()
+            tref = _parallel_steps(model, model, tbatch, 2, grads_to=device)
+        del model
+    model = build_model(tcfg, device, seed=9).double()
+    tdp = _parallel_steps(model, ddp(model), _rows(tbatch, rank * tiny_half,
+                                                   (rank + 1) * tiny_half), 2, grads_to=device)
+    result["tiny_f64"] = {"losses": tdp["losses"]}
+    if rank == 0:
+        result["tiny_f64"].update(
+            reference=tref["losses"],
+            grads={n: _rel_l2(g, tref["grads"][n]) for n, g in tdp["grads"].items()
+                   if float(tref["grads"][n].norm()) > 0},
+            stats={n: _rel_l2(b, tref["stats"][n]) for n, b in tdp["stats"].items()})
+        del tref
+    del model, tdp
+    free()
+    done("tiny f64")
+    PARALLEL_DIR.mkdir(parents=True, exist_ok=True)
+    (PARALLEL_DIR / f"rank{rank}.json").write_text(json.dumps(result))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_parallel(device, resident_samples_per_s: float):
+    """Parallelism on the one H100. Two ranks share card 0 over gloo (NCCL
+    refuses two ranks on one device; gloo all-reduces and broadcasts CUDA
+    tensors through the host): two ranks on one card measure correctness,
+    not scaling.
+
+    Started as two fresh processes (``parallel_worker``), phase 7's config
+    (the main path's at full width, remat "block") with every dropout rate
+    0, random weights from ``PARALLEL_SEED``, the synthetic train batch of
+    ``make_train_batch`` at global batch 16:
+
+    - reference: one process, the whole batch, f32, two steps of
+      ``train_step`` (``OptimConfig()``), run first, its memory freed;
+    - (a) data parallelism: the same two f32 steps through
+      ``DistributedDataParallel`` on a (2, 1) mesh, 8 samples a rank, the
+      BatchNorm statistics and losses over the global batch
+      (``parallel/global_batch.py``). Held to the reference: the step-1
+      loss and each sub-loss within 1e-4 relative; every gradient after
+      DDP's all-reduce within 1e-3 relative L2, except the detector's,
+      within 5e-2: its BatchNorm gradients are cancelling sums that f32
+      gets wrong by up to a few percent on either device (phase 7's
+      reference), and here the batch's sums are taken in two halves;
+      those 0 by construction (``ZERO_GRADIENT``) not compared; every
+      running statistic after step 1 within 1e-4 relative L2; the step-2
+      loss within 1e-2 relative. (Set at 1e-3 before the first run; three
+      runs read 1.94e-3 to 1.95e-3. AdamW's first step moves each element by
+      lr times the sign of its gradient, and 43,565 of the 622M gradient
+      elements come out of DDP's f32 sums with the other sign: most in the
+      attention key biases, whose gradient is 0 up to rounding, 697 in the
+      detector, whose BatchNorm gradients carry up to 4e-3 of f32 rounding.
+      Two runs of the reference flip none and agree to 1e-7. The f64 check
+      (e) holds the two steps' semantics.) The reference runs twice; how far
+      it repeats itself is printed beside the sign flips. Then 3 bf16 steps
+      (after a warm-up): the step's wall per rank and the global samples/s,
+      printed beside phase 7's single-process step;
+    - (b) tensor parallelism: ``tp=2``, ``dp=1``, f32, the module path,
+      each rank on the whole batch: both steps' losses within 1e-4 of the
+      reference's;
+    - a sharded eval batch (``parallel.eval.make_sharded_eval_step``) of
+      the main path's config in bf16, 8 samples a rank, the fused kernels:
+      the gathered scores (16, 4500) finite, each rank's rows its own;
+    - (e) the tiny config (``tiny_config``, dropout 0) in f64 on the card,
+      DDP at batch 4 (2 a rank) against one process: both steps' losses, the
+      step-1 gradients (those 0 by construction not compared) and running
+      statistics within 1e-9 relative (the point kernels compute in f32 on
+      both sides, alike per sample).
+
+    Launches on each rank, each step: as ``expected_train_launches`` for
+    (a) and (b) (FPS 5, ball query 5, its backward 1), as
+    ``expected_launches`` (a rank forward) for the eval batch.
+
+    (c) The driver: ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1 -m bridgeqa_tpu_torch.scripts.train`` with
+    ``TORCHRUN_ARGS`` (``--distributed --bf16 --remat --check_syncs``):
+    NCCL at world size 1 through DDP. A DET stage of 2 steps, a VQA stage
+    of 2 steps on its graft, then a resume for one more epoch; each must
+    exit 0, write its run's files once (rank 0 alone: no other rank's
+    directory), log its steps once each, and, under ``--check_syncs``,
+    raise at any host sync between log points (DDP's own included: its
+    traceback names the place). Cut: ``--tiny`` (the detector at full
+    width, the BLIP at test width) and batch 2, since phase 8 runs the
+    drivers at full width; this checks the process group, DDP over NCCL
+    and the sync check."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    PARALLEL_DIR.mkdir(parents=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    port = _free_port()
+    script = Path(__file__).resolve()
+    procs = [subprocess.Popen([sys.executable, str(script), "--parallel-rank", str(r),
+                               str(PARALLEL_WORLD), str(port)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(PARALLEL_WORLD)]
+    outputs = []
+    try:
+        for p in procs:
+            outputs.append(p.communicate(timeout=PARALLEL_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, outputs)):
+        (PARALLEL_DIR / f"rank{r}.log").write_text(text)
+        if p.returncode != 0:
+            raise AssertionError(f"parallel rank {r} exited {p.returncode}:\n{text[-4000:]}")
+    ranks = [json.loads((PARALLEL_DIR / f"rank{r}.json").read_text())
+             for r in range(PARALLEL_WORLD)]
+    t_ranks = time.perf_counter() - t_phase
+    cfg = parallel_config()
+    expected = expected_train_launches(cfg)
+    # each rank runs the rank forward on its shard; the collectives that
+    # gather the outputs and average the scalars launch none of ours
+    expected_eval = expected_launches(main_config())
+    ref = ranks[0]["reference"]
+    failed = []
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-12)
+
+    for res in ranks:
+        r = res["rank"]
+        dp, tp = res["ddp"], res["tp"]
+        step1 = {k: rel(dp["losses"][0][k], ref["losses"][0][k]) for k in TRAIN_LOSSES}
+        failed += [f"rank {r} ddp step-1 {k} {v:.2e}" for k, v in step1.items()
+                   if v > PARALLEL_LOSS_TOL]
+        if rel(dp["losses"][1]["loss"], ref["losses"][1]["loss"]) > PARALLEL_LOSS2_TOL:
+            failed.append(f"rank {r} ddp step-2 loss {dp['losses'][1]['loss']} against "
+                          f"{ref['losses'][1]['loss']}")
+        for k in range(2):
+            if rel(tp["losses"][k]["loss"], ref["losses"][k]["loss"]) > PARALLEL_LOSS_TOL:
+                failed.append(f"rank {r} tp step-{k + 1} loss {tp['losses'][k]['loss']} against "
+                              f"{ref['losses'][k]['loss']}")
+        for what, counts in (("ddp", dp["launches"]), ("tp", tp["launches"])):
+            failed += [f"rank {r} {what} step {k} launches {c}" for k, c in enumerate(counts)
+                       if c != expected]
+        ev = res["eval"]
+        if ev["launches"] != expected_eval:
+            failed.append(f"rank {r} eval launches {ev['launches']}, expected {expected_eval}")
+        if ev["shape"] != [PARALLEL_BATCH, NUM_ANSWERS] or not ev["finite"] or not ev["own_rows"]:
+            failed.append(f"rank {r} eval outputs {ev}")
+    if ref["launches"][0] != expected:
+        failed.append(f"reference launches {ref['launches'][0]}")
+    grads = ranks[0]["ddp"]["grads"]
+    checked = {n: v for n, v in grads.items() if not n.endswith(ZERO_GRADIENT)}
+    worst = sorted(((v, n) for n, v in checked.items()), reverse=True)
+    failed += [f"grad {n} {v:.2e}" for v, n in worst
+               if v > (PARALLEL_DETECTOR_GRAD_TOL if n.startswith("detector.")
+                       else PARALLEL_GRAD_TOL)]
+    if ranks[0]["ddp"]["grads_missing"] or not checked:
+        failed.append(f"gradients only in the reference {ranks[0]['ddp']['grads_missing'][:5]}")
+    stats = sorted(((v, n) for n, v in ranks[0]["ddp"]["stats"].items()), reverse=True)
+    failed += [f"stat {n} {v:.2e}" for v, n in stats if v > PARALLEL_STAT_TOL]
+    tiny = ranks[0]["tiny_f64"]
+    tiny_loss = max(rel(res["tiny_f64"]["losses"][k][key], tiny["reference"][k][key])
+                    for res in ranks for k in range(2) for key in TRAIN_LOSSES)
+    tiny_grads = sorted(((v, n) for n, v in tiny["grads"].items()
+                         if not n.endswith(ZERO_GRADIENT)), reverse=True)
+    tiny_stats = max(tiny["stats"].values())
+    if (tiny_loss > PARALLEL_F64_TOL or tiny_grads[0][0] > PARALLEL_F64_TOL
+            or tiny_stats > PARALLEL_F64_TOL):
+        failed.append(f"tiny f64: losses {tiny_loss:.2e}, gradients {tiny_grads[:3]}, "
+                      f"statistics {tiny_stats:.2e}")
+    worst_outside = [(n, float(f"{v:.3g}")) for v, n in worst if not n.startswith("detector.")]
+    worst_detector = [(n, float(f"{v:.3g}")) for v, n in worst if n.startswith("detector.")]
+    log(f"parallel (a) ddp, 2 ranks on one card over gloo, f32 against one process at batch "
+        f"{PARALLEL_BATCH}: step-1 loss {ranks[0]['ddp']['losses'][0]['loss']:.6f} against "
+        f"{ref['losses'][0]['loss']:.6f}, step-2 {ranks[0]['ddp']['losses'][1]['loss']:.6f} "
+        f"against {ref['losses'][1]['loss']:.6f}; worst gradients outside the detector "
+        f"{worst_outside[:3]}, in it {worst_detector[:3]} ({len(checked)} compared); worst "
+        f"statistics {[(n, float(f'{v:.3g}')) for v, n in stats[:2]]}")
+    rep = ref["repeat_grads"]
+    rep_worst = sorted(((v, n) for n, v in rep.items() if not n.endswith(ZERO_GRADIENT)),
+                       reverse=True)
+    rep_shown = [(n, float(f"{v:.3g}")) for v, n in rep_worst[:3]]
+    log(f"parallel reference repeated (one process, same weights and batch): step-1 loss "
+        f"{ref['repeat_losses'][0]['loss']:.6f}, step-2 {ref['repeat_losses'][1]['loss']:.6f}; "
+        f"worst gradients against the first run {rep_shown}; "
+        f"gradient elements of another sign: repeat {ref['repeat_sign_flips'][0]} of "
+        f"{ref['repeat_sign_flips'][1]}, ddp {ranks[0]['ddp']['sign_flips'][0]} of "
+        f"{ranks[0]['ddp']['sign_flips'][1]}")
+    log(f"parallel ddp gradient elements of another sign than the reference's, by parameter: "
+        f"{ranks[0]['ddp']['sign_flips_by'][:6]}; in the detector "
+        f"{ranks[0]['ddp']['sign_flips_detector']} of {ranks[0]['ddp']['sign_flips'][0]}")
+    log(f"parallel (e) tiny config, f64, ddp against one process on the card, two steps: "
+        f"losses within {tiny_loss:.3g} relative, worst gradients "
+        f"{[(n, float(f'{v:.3g}')) for v, n in tiny_grads[:2]]}, statistics {tiny_stats:.3g}")
+    log(f"parallel (b) tp=2: losses {[round(x['loss'], 6) for x in ranks[0]['tp']['losses']]} "
+        f"against {[round(x['loss'], 6) for x in ref['losses']]}; launches per rank a step "
+        f"{json.dumps(ranks[0]['tp']['launches'][0])} (expected {json.dumps(expected)})")
+    log(f"parallel eval batch: gathered scores {ranks[0]['eval']['shape']}, mean loss "
+        f"{ranks[0]['eval']['loss']:.4f}, launches per rank "
+        f"{json.dumps(ranks[0]['eval']['launches'])}")
+    log(f"parallel timings on {card_name_and_power()}:")
+    for res in ranks:
+        t = res["timing"]
+        log(f"parallel (a) bf16 step, rank {res['rank']}: median {t['median_s'] * 1e3:.1f} ms "
+            f"({', '.join(f'{w * 1e3:.1f}' for w in t['walls_s'])}) -> "
+            f"{PARALLEL_BATCH / t['median_s']:.2f} samples/s over the global batch "
+            f"{PARALLEL_BATCH}, against phase 7's one process {resident_samples_per_s:.2f} "
+            f"samples/s: two ranks sharing one card measure correctness, not scaling")
+    log(f"parallel: reference {ref['seconds']:.1f} s, peak memory per rank: reference "
+        f"{ref['peak_gb']:.2f} GB, ddp f32 {ranks[0]['ddp']['peak_gb']:.2f} GB, tp f32 "
+        f"{ranks[0]['tp']['peak_gb']:.2f} GB; the ranks took {t_ranks:.1f} s")
+    if failed:
+        raise AssertionError(f"parallel checks failed: {failed[:12]}")
+    torchrun_s = phase_torchrun(device)
+    log(f"parallel: phase {time.perf_counter() - t_phase:.1f} s (ranks {t_ranks:.1f} s, "
+        f"torchrun driver {torchrun_s:.1f} s)")
+    return {"ddp": ranks[0]["ddp"]["launches"][0], "tp": ranks[0]["tp"]["launches"][0],
+            "sharded eval": ranks[0]["eval"]["launches"]}
+
+
+def phase_torchrun(device) -> float:
+    """Phase 9 (c): the ``train`` driver under torchrun, NCCL at world size 1
+    (``phase_parallel``'s docstring). Returns its seconds."""
+    import shutil
+
+    t0 = time.perf_counter()
+    root = PARALLEL_DIR / "runs"
+    shutil.rmtree(root, ignore_errors=True)
+    repo = Path(__file__).resolve().parent
+    runs = {"det": ["--stage", "DET", "--epochs", "1", "--synthetic_records", "4"],
+            "vqa": ["--first_stage_ckpt_path", str(root / "det"), "--epochs", "1",
+                    "--synthetic_records", "4"],
+            "resume": ["--use_checkpoint", str(root / "vqa"), "--epochs", "2",
+                       "--synthetic_records", "4"]}
+    failed, seconds = [], {}
+    for name, argv in runs.items():
+        tag = "vqa" if name == "resume" else name
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "bridgeqa_tpu_torch.scripts.train",
+               *TORCHRUN_ARGS, "--device", device.type, "--output_root", str(root),
+               "--tag", f"{tag}-resumed" if name == "resume" else tag, *argv]
+        t1 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=600)
+        seconds[name] = time.perf_counter() - t1
+        (PARALLEL_DIR / f"torchrun-{name}.log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise AssertionError(f"torchrun {name} exited {proc.returncode}:\n"
+                                 f"{(proc.stdout + proc.stderr)[-5000:]}")
+    for name in runs:
+        run_dir = root / ("vqa-resumed" if name == "resume" else name)
+        missing = [a for a in RUN_ARTIFACTS if not (run_dir / a).exists()]
+        others = sorted(p.name for p in run_dir.iterdir() if p.name.startswith("rank"))
+        records = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text()
+                   .splitlines()]
+        train_steps = sorted(r["step"] for r in records if r["phase"] == "train")
+        log_text = (run_dir / "log.txt").read_text()
+        if missing or others or train_steps != sorted(set(train_steps)) or not train_steps:
+            failed.append(f"{name}: missing {missing}, other ranks' files {others}, logged "
+                          f"steps {train_steps}")
+        if "rank 0/1" not in log_text:
+            failed.append(f"{name}: the log does not show a one-rank process group")
+        if name == "resume" and "resumed from" not in log_text:
+            failed.append("resume: no resume in its log")
+    if failed:
+        raise AssertionError(f"torchrun driver checks failed: {failed}")
+    log(f"parallel (c) torchrun train --distributed (NCCL, world size 1, DDP, --check_syncs): "
+        f"DET, VQA and resume exit 0, no host sync between log points, files written once; "
+        f"seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
+    return time.perf_counter() - t0
 
 
 def report_ratios(kernels: dict) -> None:
@@ -2470,13 +2996,15 @@ def main() -> int:
     phase_train_reference(device)
     train_launches, resident_samples_per_s = phase_train(device)
     loop_launches, eval_launches = phase_drivers(device, resident_samples_per_s)
+    parallel_launches = phase_parallel(device, resident_samples_per_s)
     records = []
     for k in kernels:
         name = k["name"]
         path = "train" if name in BACKWARD_ONLY else "rank"
         by_path = {"rank": launches[name], "generate": generate_launches[name],
                    "train": train_launches[name], "train loop": loop_launches[name],
-                   "eval": eval_launches[name]}
+                   "eval": eval_launches[name],
+                   **{f"{p} per rank": n[name] for p, n in parallel_launches.items()}}
         records.append(dict(summarize(k, by_path[path], by_path), launches_path=path))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2486,4 +3014,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:  # one of phase 9's ranks
+        sys.exit(parallel_worker(*map(int, sys.argv[2:5])))
     sys.exit(main())
