@@ -3,10 +3,10 @@ and generate paths of ``bridgeqa_tpu/models/blip_vqa3d.py``): ViT image
 encoder, twin med-BERT question encoder (the 2D stream attends to the image,
 the 3D stream to the projected scene proposals), two causal LM decoders that
 rank a fixed answer list, beam-search generation of open-ended answers, the
-low-rank bilinear 2D/3D fusion, and the training forward (both decoders'
-label-smoothed LM losses).
-
-Classifier mode is a later part of the port."""
+low-rank bilinear 2D/3D fusion, the training forward (both decoders'
+label-smoothed LM losses), classifier mode (``use_text_decoder=False``:
+answer classifiers on the CLS states, ``classify``) and the twin encoder's
+attention dumps (``rank(..., output_attentions=True)``)."""
 
 import dataclasses
 import warnings
@@ -35,8 +35,10 @@ class BlipVQA3DConfig:
     the token ids (bos, ``sep_token_id`` as eos, pad), ``num_beams``,
     ``use_kv_cache``, ``generate_max_length`` and ``generate_min_length``;
     training also ``vit_drop_path_rate``, ``adapter_pdrop``, ``remat`` and
-    ``remat_mode``. The classifier fields are kept so a JAX config carries
-    over unchanged."""
+    ``remat_mode``; classifier mode (``use_text_decoder=False``)
+    ``answer_pdrop`` and ``use_scene_classifier_2d3d``.
+    ``use_scene_classifier`` is kept so a JAX config carries over unchanged
+    (the JAX package reads it nowhere either)."""
 
     med: MedConfig = dataclasses.field(default_factory=MedConfig)
     image_size: int = 480
@@ -85,6 +87,21 @@ class MlpAdapter(nn.Module):
         return self.norm(gelu(self.fc2(x)))
 
 
+class ClassifierHead(nn.Module):
+    """The ``answer_cls`` head: Dense, GELU, dropout, LayerNorm (eps 1e-5),
+    Dense to the answer vocabulary."""
+
+    def __init__(self, hidden_size: int, num_answers: int, drop: float = 0.1):
+        super().__init__()
+        self.drop = drop
+        self.fc1 = Dense(hidden_size, hidden_size)
+        self.norm = LayerNorm(hidden_size, 1e-5)
+        self.fc2 = Dense(hidden_size, num_answers)
+
+    def forward(self, x):
+        return self.fc2(self.norm(dropout(gelu(self.fc1(x)), self.drop, self.training)))
+
+
 class BLIPVQA3D(nn.Module):
     def __init__(self, cfg: BlipVQA3DConfig):
         super().__init__()
@@ -122,6 +139,10 @@ class BLIPVQA3D(nn.Module):
         self.bilinear_fusion_kernel = nn.Parameter(torch.empty(h, lowrank, lowrank))
         self.bilinear_fusion_bias = nn.Parameter(torch.zeros(h))
         self.linear_scene_object = MlpAdapter(c.scene_size, h, c.adapter_pdrop)
+        if not c.use_text_decoder:
+            self.answer_cls = ClassifierHead(h, c.num_answers, c.answer_pdrop)
+            if c.use_scene_classifier_2d3d:
+                self.answer_cls_2d3d = ClassifierHead(h, c.num_answers, c.answer_pdrop)
 
     @torch.no_grad()
     def init_weights_(self, generator: torch.Generator) -> None:
@@ -143,13 +164,16 @@ class BLIPVQA3D(nn.Module):
         return self.visual_encoder(image)
 
     def encode_question(self, image_embeds, question_ids, question_mask, scene_object_embeds,
-                        scene_object_mask):
+                        scene_object_mask, output_attentions: bool = False):
         """Twin encoding of the question against the image and the scene;
-        returns (hidden_2d, hidden_3d), each (B, Lq, H)."""
+        returns (hidden_2d, hidden_3d), each (B, Lq, H), and with
+        ``output_attentions`` the last layer's probabilities
+        (``BertEncoderTwin``) as a third element."""
         image_atts = torch.ones(image_embeds.shape[:2], dtype=torch.int32, device=image_embeds.device)
         scene_embeds = self.linear_scene_object(scene_object_embeds)
         return self.text_encoder(question_ids, question_mask, image_embeds, image_atts,
-                                 scene_embeds, scene_object_mask)
+                                 scene_embeds, scene_object_mask,
+                                 output_attentions=output_attentions)
 
     def fuse_2d3d(self, h2d, h3d):
         """Low-rank bilinear fusion plus the stream mean."""
@@ -177,6 +201,26 @@ class BLIPVQA3D(nn.Module):
         loss = global_ratio(loss_2d.sum() + loss_3d.sum(), image_embeds.shape[0])
         return loss, self.fuse_2d3d(h2d, h3d), question_mask
 
+    def classify(self, image, question_ids, question_mask, scene_object_embeds,
+                 scene_object_mask):
+        """Classifier mode (JAX ``classify``): ``answer_cls`` scores the
+        answer vocabulary from the 2D and the 3D CLS state, and with
+        ``use_scene_classifier_2d3d`` ``answer_cls_2d3d`` from the fused one;
+        answer_scores is the mean of the heads. In train and eval mode alike.
+        Returns (scores dict, fused_hidden, question_mask)."""
+        h2d, h3d = self.encode_question(self.encode_image(image), question_ids, question_mask,
+                                        scene_object_embeds, scene_object_mask)
+        score_2d = self.answer_cls(h2d[:, 0])
+        score_3d = self.answer_cls(h3d[:, 0])
+        fused = self.fuse_2d3d(h2d, h3d)
+        scores = {"answer_scores_2d": score_2d, "answer_scores_scene": score_3d}
+        if self.cfg.use_scene_classifier_2d3d:
+            scores["answer_scores_2d3d"] = self.answer_cls_2d3d(fused[:, 0])
+            scores["answer_scores"] = (score_2d + score_3d + scores["answer_scores_2d3d"]) / 3.0
+        else:
+            scores["answer_scores"] = (score_2d + score_3d) / 2.0
+        return scores, fused, question_mask
+
     def _rank_with_decoder(self, decoder, question_states, question_mask, answer_ids, answer_mask,
                            k: int, layernorm_idx: int = 0):
         """First-token probabilities pick the top k answers of the list,
@@ -202,13 +246,20 @@ class BLIPVQA3D(nn.Module):
         return topk_ids, (-loss).reshape(num_ques, k)
 
     def rank(self, image, question_ids, question_mask, answer_ids, answer_mask,
-             scene_object_embeds, scene_object_mask, k_test: int = 128):
+             scene_object_embeds, scene_object_mask, k_test: int = 128,
+             output_attentions: bool = False):
         """Rank-answer inference with the 2D/3D decoder ensemble. Returns
         (fused_hidden, scores dict, question_mask); scores cover the whole
-        answer list, -1e4 where an answer was not scored."""
+        answer list, -1e4 where an answer was not scored. With
+        ``output_attentions`` the scores dict also holds the twin encoder's
+        last self and cross probabilities under the reference's dump keys
+        (``2d_self_attention``, ``3d_self_attention``, ``2d_cross_attention``,
+        ``3d_cross_attention``)."""
         image_embeds = self.encode_image(image)
-        h2d, h3d = self.encode_question(image_embeds, question_ids, question_mask,
-                                        scene_object_embeds, scene_object_mask)
+        encoded = self.encode_question(image_embeds, question_ids, question_mask,
+                                       scene_object_embeds, scene_object_mask,
+                                       output_attentions=output_attentions)
+        h2d, h3d = encoded[:2]
         batch, num_answers = h2d.shape[0], answer_ids.shape[0]
         k = min(k_test, num_answers)
 
@@ -228,6 +279,12 @@ class BLIPVQA3D(nn.Module):
         ensemble = torch.exp(all_2d) + torch.exp(self.cfg.scene_ensemble_weight * all_3d)
         scores = {"answer_scores": ensemble, "answer_scores_scene": all_3d,
                   "answer_scores_2d": all_2d}
+        if output_attentions:
+            last = encoded[2]
+            scores.update({"2d_self_attention": last["self_2d"],
+                           "3d_self_attention": last["self_3d"],
+                           "2d_cross_attention": last["cross_2d"],
+                           "3d_cross_attention": last["cross_3d"]})
         return self.fuse_2d3d(h2d, h3d), scores, question_mask
 
     def generate(self, image, question_ids, question_mask, scene_object_embeds,

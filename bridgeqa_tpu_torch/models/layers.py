@@ -49,7 +49,8 @@ class Dense(nn.Linear):
     """``flax.linen.Dense``: ``weight`` is the transposed flax ``kernel``;
     the input is cast to its compute dtype. ``init`` names the flax
     ``kernel_init``: "normal" (std 0.02), "trunc_normal" (std 0.02),
-    "kaiming" (fan-in normal, gain 2) or "lecun" (fan-in truncated normal)."""
+    "kaiming" (fan-in normal, gain 2), "lecun" (fan-in truncated normal) or
+    "orthogonal"."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  init: str = "normal"):
@@ -73,6 +74,8 @@ class Dense(nn.Linear):
             w.normal_(0.0, math.sqrt(2.0 / self.in_features), generator=generator)
         elif self.init == "lecun":
             _trunc_normal_(w, math.sqrt(1.0 / self.in_features) / 0.87962566103423978, generator)
+        elif self.init == "orthogonal":
+            nn.init.orthogonal_(w, generator=generator)
         else:
             raise ValueError(f"unknown init {self.init!r}")
         if self.bias is not None:
@@ -231,6 +234,12 @@ def _generator() -> torch.Generator:
     return gen
 
 
+def uniform(shape, device) -> torch.Tensor:
+    """Draws uniform on [0, 1) from the generator ``dropout_rng`` made
+    current (JAX's ``make_rng("dropout")``)."""
+    return torch.rand(shape, generator=_generator(), device=device)
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
     """flax ``nn.Dropout``: in train mode each element is kept with
     probability ``1 - rate`` and scaled by ``1 / (1 - rate)``, else zeroed;
@@ -238,8 +247,7 @@ def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=_generator(), device=x.device) < keep
-    return torch.where(mask, x / keep, 0.0)
+    return torch.where(uniform(x.shape, x.device) < keep, x / keep, 0.0)
 
 
 def drop_path(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
@@ -249,8 +257,7 @@ def drop_path(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    mask = torch.rand(shape, generator=_generator(), device=x.device) < keep
-    return torch.where(mask, x / keep, 0.0)
+    return torch.where(uniform(shape, x.device) < keep, x / keep, 0.0)
 
 
 def remat(fn, *args):
@@ -320,10 +327,14 @@ def param_as(m: nn.Module, name: str, dtype: torch.dtype) -> torch.Tensor:
 def _make_copies(model: nn.Module, dtype_of) -> nn.Module:
     # each Dense, Embed and PatchEmbed weight and bias gets a copy in
     # ``dtype_of(its current copy or None, the parameter)``; none where that
-    # is None or the parameter's own dtype
+    # is None or the parameter's own dtype, and none inside a module that
+    # sets ``keeps_param_dtype`` (flax builds it without a dtype, so it
+    # computes in its parameters' dtype under any compute dtype)
+    pinned = {id(m) for top in model.modules() if getattr(top, "keeps_param_dtype", False)
+              for m in top.modules()}
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (Dense, Embed, PatchEmbed)):
+            if isinstance(m, (Dense, Embed, PatchEmbed)) and id(m) not in pinned:
                 for name in ("weight", "bias"):
                     p = getattr(m, name, None)
                     dtype = None if p is None else dtype_of(getattr(m, f"{name}_cast"), p)
@@ -334,7 +345,9 @@ def _make_copies(model: nn.Module, dtype_of) -> nn.Module:
 
 def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Give every ``Dense``, ``Embed`` and ``PatchEmbed`` of ``model`` the
-    compute dtype ``dtype``. Every parameter stays as it is, in f32 as flax
+    compute dtype ``dtype``, except inside a module that sets
+    ``keeps_param_dtype`` (the language encoders of the MCAN path, which the
+    JAX package builds without a dtype). Every parameter stays as it is, in f32 as flax
     keeps them; the weight and bias of those layers get compute-dtype copies,
     made here once (non-persistent buffers: the ``state_dict`` and
     ``convert.load_jax_variables`` see the f32 parameters). Without grad the

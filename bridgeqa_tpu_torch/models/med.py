@@ -92,15 +92,17 @@ def causal_attention_bias(mask: torch.Tensor) -> torch.Tensor:
     return ((1.0 - combined) * NEG_INF)[:, None]
 
 
-def attend(q, k, v, bias=None, drop: float = 0.0):
+def attend(q, k, v, bias=None, drop: float = 0.0, output_attentions: bool = False):
     """q (B, H, Lq, D), k/v (B, H, Lk, D), bias broadcastable to
     (B, H, Lq, Lk) -> context (B, H, Lq, D); ``drop``: the dropout rate of
-    the probabilities (0 outside training)."""
+    the probabilities (0 outside training). With ``output_attentions``,
+    (context, the probabilities before dropout (B, H, Lq, Lk))."""
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(q.shape[-1])
     if bias is not None:
         scores = scores + bias.to(scores.dtype)
     probs = torch.softmax(at_least_f32(scores), dim=-1).to(scores.dtype)
-    return torch.einsum("bhqk,bhkd->bhqd", dropout(probs, drop, drop > 0.0), v)
+    ctx = torch.einsum("bhqk,bhkd->bhqd", dropout(probs, drop, drop > 0.0), v)
+    return (ctx, probs) if output_attentions else ctx
 
 
 class BertEmbeddings(nn.Module):
@@ -140,22 +142,31 @@ class BertSelfAttention(nn.Module):
         v = self.value(kv_src).reshape(kb, lk, nh, hd).transpose(1, 2)
         return k, v
 
-    def attend_cached(self, hidden_states, k, v, attention_bias=None, drop: float = 0.0):
+    def attend_cached(self, hidden_states, k, v, attention_bias=None, drop: float = 0.0,
+                      output_attentions: bool = False):
         """Queries from ``hidden_states`` (B, Lq, H) against K/V already
         projected (``project_kv``, or a KV cache) -> context (B, Lq, H).
         ``drop``: the probabilities' dropout rate (the forward's; 0 when
-        decoding)."""
+        decoding). With ``output_attentions``, (context, probabilities
+        (B, nh, Lq, Lk))."""
         b, lq, _ = hidden_states.shape
         # the head width from the projection: a tensor-parallel shard holds
         # num_heads of the layer's heads (parallel/tp.py)
         q = self.query(hidden_states).reshape(b, lq, self.num_heads, -1).transpose(1, 2)
+        if output_attentions:
+            ctx, probs = attend(q, k, v, attention_bias, drop, output_attentions=True)
+            return ctx.transpose(1, 2).reshape(b, lq, -1), probs
         if self.remat_probs:
             ctx = remat(attend, q, k, v, attention_bias, drop)
         else:
             ctx = attend(q, k, v, attention_bias, drop)
         return ctx.transpose(1, 2).reshape(b, lq, -1)
 
-    def forward(self, hidden_states, attention_bias=None, encoder_hidden_states=None):
+    def forward(self, hidden_states, attention_bias=None, encoder_hidden_states=None,
+                output_attentions: bool = False):
+        """Context (B, Lq, H), and with ``output_attentions`` the
+        probabilities beside it (not for the grouped cross-attention, which
+        only the answer-scoring decoders run)."""
         b, lq, h = hidden_states.shape
         k, v = self.project_kv(encoder_hidden_states if self.is_cross_attention
                                else hidden_states)
@@ -167,7 +178,7 @@ class BertSelfAttention(nn.Module):
             # length, so each question's K/V is projected once
             grouped = hidden_states.reshape(kb, (b // kb) * lq, h)
             return self.attend_cached(grouped, k, v, attention_bias, drop).reshape(b, lq, -1)
-        return self.attend_cached(hidden_states, k, v, attention_bias, drop)
+        return self.attend_cached(hidden_states, k, v, attention_bias, drop, output_attentions)
 
 
 class BertSelfOutput(nn.Module):
@@ -188,8 +199,12 @@ class BertAttention(nn.Module):
         self.self = BertSelfAttention(c, is_cross_attention)
         self.output = BertSelfOutput(c)
 
-    def forward(self, hidden_states, attention_bias=None, encoder_hidden_states=None):
-        ctx = self.self(hidden_states, attention_bias, encoder_hidden_states)
+    def forward(self, hidden_states, attention_bias=None, encoder_hidden_states=None,
+                output_attentions: bool = False):
+        """The output, and with ``output_attentions`` the probabilities."""
+        ctx = self.self(hidden_states, attention_bias, encoder_hidden_states, output_attentions)
+        if output_attentions:
+            return self.output(ctx[0], hidden_states), ctx[1]
         return self.output(ctx, hidden_states)
 
 
@@ -212,14 +227,27 @@ class BertLayer(nn.Module):
         self.drop = c.hidden_dropout_prob
 
     def forward(self, hidden_states, attention_bias=None, encoder_hidden_states=None,
-                encoder_attention_bias=None, multimodal: bool = True, layernorm_idx: int = 0):
-        attention_output = self.attention(hidden_states, attention_bias)
+                encoder_attention_bias=None, multimodal: bool = True, layernorm_idx: int = 0,
+                output_attentions: bool = False):
+        """The layer's output; with ``output_attentions`` (output, self
+        probabilities, cross probabilities or None), as the JAX layer
+        returns them."""
+        attention_output = self.attention(hidden_states, attention_bias,
+                                          output_attentions=output_attentions)
+        self_probs = cross_probs = None
+        if output_attentions:
+            attention_output, self_probs = attention_output
         if multimodal and encoder_hidden_states is not None:
             attention_output = self.crossattention(attention_output, encoder_attention_bias,
-                                                   encoder_hidden_states)
+                                                   encoder_hidden_states, output_attentions)
+            if output_attentions:
+                attention_output, cross_probs = attention_output
         layer_output = dropout(self.output_dense(gelu(self.intermediate_dense(attention_output))),
                                self.drop, self.training)
-        return self._ffn_layernorm(layernorm_idx)(layer_output + attention_output)
+        layer_output = self._ffn_layernorm(layernorm_idx)(layer_output + attention_output)
+        if output_attentions:
+            return layer_output, self_probs, cross_probs
+        return layer_output
 
     def _ffn_layernorm(self, layernorm_idx: int) -> LayerNorm:
         return self.output_LayerNorm if layernorm_idx == 0 else self.output_LayerNorms[layernorm_idx - 1]
@@ -278,7 +306,15 @@ class BertEncoderTwin(nn.Module):
     """Two streams exchanging hidden states every layer: the main (2D)
     stream cross-attends to ``[encoder_hidden ‖ hidden_twin]``, the twin
     (3D) stream to ``[encoder_hidden_twin ‖ hidden_main]``, both using the
-    other stream's value from before the layer."""
+    other stream's value from before the layer.
+
+    With ``output_attentions`` the last layer also returns its attention
+    probabilities (the reference's ``attentions[-1]`` and
+    ``cross_attentions[-1]``), and the encoder returns them as a third
+    element: {"self_2d", "self_3d", "cross_2d", "cross_3d"}, the cross ones
+    over the image or scene tokens followed by the other stream's question
+    tokens, the twin's None where it has fewer layers. The other layers run
+    as without it."""
 
     def __init__(self, c: MedConfig):
         super().__init__()
@@ -287,19 +323,32 @@ class BertEncoderTwin(nn.Module):
         self.layer_twin = add_indexed(self, "layer_twin_", (BertLayer(c) for _ in range(c.twin_layers)))
 
     def forward(self, hidden_states, attention_bias, encoder_hidden_states, encoder_attention_bias,
-                encoder_hidden_states_twin, encoder_attention_bias_twin):
-        def run(layer, *args):
+                encoder_hidden_states_twin, encoder_attention_bias_twin,
+                output_attentions: bool = False):
+        def run(layer, *args, dump=False):
+            if dump:  # the last layer's probabilities: inference only, no remat
+                return layer(*args, output_attentions=True)
             return remat(layer, *args) if self.remat_layers else layer(*args)
 
         hidden_twin = hidden_states
+        last = len(self.layer) - 1
+        probs = {"self_2d": None, "self_3d": None, "cross_2d": None, "cross_3d": None}
         for i, layer in enumerate(self.layer):
+            dump = output_attentions and i == last
             cross_mix = torch.cat([encoder_hidden_states, hidden_twin], dim=1)
             cross_mix_twin = torch.cat([encoder_hidden_states_twin, hidden_states], dim=1)
-            new_hidden = run(layer, hidden_states, attention_bias, cross_mix, encoder_attention_bias)
+            new_hidden = run(layer, hidden_states, attention_bias, cross_mix, encoder_attention_bias,
+                             dump=dump)
+            if dump:
+                new_hidden, probs["self_2d"], probs["cross_2d"] = new_hidden
             if i < len(self.layer_twin):
                 hidden_twin = run(self.layer_twin[i], hidden_twin, attention_bias, cross_mix_twin,
-                                  encoder_attention_bias_twin)
+                                  encoder_attention_bias_twin, dump=dump)
+                if dump:
+                    hidden_twin, probs["self_3d"], probs["cross_3d"] = hidden_twin
             hidden_states = new_hidden
+        if output_attentions:
+            return hidden_states, hidden_twin, probs
         return hidden_states, hidden_twin
 
 
@@ -313,12 +362,16 @@ class BertModelTwin(nn.Module):
         self.encoder = BertEncoderTwin(c)
 
     def forward(self, input_ids, attention_mask, encoder_hidden_states, encoder_attention_mask,
-                encoder_hidden_states_twin, encoder_attention_mask_twin):
+                encoder_hidden_states_twin, encoder_attention_mask_twin,
+                output_attentions: bool = False):
+        """(hidden_2d, hidden_3d), and with ``output_attentions`` the last
+        layer's probabilities (``BertEncoderTwin``)."""
         cross_mask = torch.cat([encoder_attention_mask, attention_mask], dim=1)
         cross_mask_twin = torch.cat([encoder_attention_mask_twin, attention_mask], dim=1)
         return self.encoder(self.embeddings(input_ids), extend_attention_mask(attention_mask),
                             encoder_hidden_states, extend_attention_mask(cross_mask),
-                            encoder_hidden_states_twin, extend_attention_mask(cross_mask_twin))
+                            encoder_hidden_states_twin, extend_attention_mask(cross_mask_twin),
+                            output_attentions)
 
 
 class BertModel(nn.Module):

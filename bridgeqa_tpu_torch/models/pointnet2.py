@@ -10,6 +10,8 @@ from bridgeqa_tpu_torch.ops import (
     ball_query_stripes,
     furthest_point_sample_with_xyz,
     group_points,
+    grouping,
+    query_and_group,
     three_interpolate,
     three_nn,
 )
@@ -17,19 +19,19 @@ from bridgeqa_tpu_torch.ops.grouping import MAX_KERNEL_FEATS
 
 
 class PointnetSAModuleVotes(nn.Module):
-    """FPS -> stripe ball query and grouping (recentred xyz over the radius,
-    then the features) -> shared MLP -> max pool over the ball. Every caller
-    of the JAX module passes ``use_xyz`` and ``normalize_xyz`` and max
-    pooling, so those are fixed here.
+    """FPS -> ball query and grouping (recentred xyz over the radius, then
+    the features) -> shared MLP -> max pool over the ball. Every caller of
+    the JAX module passes ``use_xyz`` and ``normalize_xyz`` and max pooling,
+    so those are fixed here.
 
-    The stripe path of the JAX module (the one its chip runs): with 1 to 4
-    feature channels the ball query gathers them in its own sweep, wider
-    features go through ``group_points``."""
+    Two branches, as the JAX module's: the stripe branch (the one its chip
+    runs), where with 1 to 4 feature channels the ball query gathers them in
+    its own sweep and wider features go through ``group_points``; and, under
+    ``grouping.FORCE_MODE = "exact"`` or with an odd ``nsample``, the exact
+    query through ``query_and_group``."""
 
     def __init__(self, in_features: int, mlp, npoint: int, radius: float, nsample: int):
         super().__init__()
-        if nsample % 2:
-            raise ValueError(f"the stripe ball query needs an even nsample, got {nsample}")
         self.npoint = npoint
         self.radius = radius
         self.nsample = nsample
@@ -41,6 +43,10 @@ class PointnetSAModuleVotes(nn.Module):
         (B, npoint, 3), new_features (B, npoint, mlp[-1]), inds (B, npoint)
         int32."""
         inds, new_xyz = furthest_point_sample_with_xyz(xyz, self.npoint)
+        if grouping.FORCE_MODE == "exact" or self.nsample % 2:
+            x = query_and_group(self.radius, self.nsample, xyz, new_xyz, features,
+                                normalize_xyz=True)
+            return new_xyz, self.mlp_module(x, bn_momentum).amax(dim=2), inds
         nf = 0 if features is None else features.shape[-1]
         if 0 < nf <= MAX_KERNEL_FEATS:
             _, rel, grouped = ball_query_stripes(self.radius, self.nsample, xyz, new_xyz, features)

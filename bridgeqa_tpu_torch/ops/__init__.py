@@ -1,10 +1,12 @@
-"""Point ops of the port: FPS and the stripe ball query (hand-written CUDA
-kernels with plain PyTorch versions beside them), grouping and
-three-NN interpolation, and the row gather. The fused transformer paths
+"""Point ops of the port: FPS and the stripe and exact ball queries
+(hand-written CUDA kernels with plain PyTorch versions beside them),
+grouping and three-NN interpolation, and the row gather. The fused transformer paths
 live in ``scoring_layer``, ``vocab_loss`` and ``vit_block``."""
 
 from bridgeqa_tpu_torch.ops.gather import gather_rows
 from bridgeqa_tpu_torch.ops.grouping import (
+    ball_query,
+    ball_query_exact,
     ball_query_stripes,
     group_all,
     group_points,
@@ -18,6 +20,8 @@ from bridgeqa_tpu_torch.ops.sampling import (
 )
 
 __all__ = [
+    "ball_query",
+    "ball_query_exact",
     "ball_query_stripes",
     "furthest_point_sample",
     "furthest_point_sample_with_xyz",

@@ -39,7 +39,7 @@ NVCC_FLAGS = [
 ]
 # sources held bitwise to their plain versions; the others are held to a
 # tolerance and are built with FMA contraction
-BITWISE_SOURCES = {"fps.cu", "ball_query_stripes.cu"}
+BITWISE_SOURCES = {"fps.cu", "ball_query_stripes.cu", "ball_query_exact.cu"}
 
 
 def source_flags(src: Path) -> list[str]:
@@ -59,6 +59,7 @@ _SIGNATURES = {
     "bq_ball_query_stripes": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               ctypes.c_float, _I, _IP, _P],
     "bq_ball_query_backward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "bq_ball_query_exact": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _IP, _P],
     "bq_scoring_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bq_scoring_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                              ctypes.c_float, _I, _IP, _P],

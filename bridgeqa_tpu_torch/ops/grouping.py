@@ -1,31 +1,46 @@
-"""Stripe ball query and grouping.
+"""Ball query and grouping.
 
-Counterpart of ``bridgeqa_tpu/ops/grouping.py``, stripe mode only (the rule
-the JAX package runs on its chip). On a CUDA tensor ``ball_query_stripes``
-launches the hand-written kernel in ``csrc/ball_query_stripes.cu``; on a CPU
-tensor it runs ``ball_query_stripes_plain``, which follows
-``_ball_query_stripes_xla``:
+Counterpart of ``bridgeqa_tpu/ops/grouping.py``. Two selection rules, each a
+hand-written kernel on the card with its plain version beside it:
 
-- the cloud is padded to the length ``stripe_plan`` gives and cut into
-  stripes; padding points never qualify;
-- a point qualifies when ``d2 < r^2``, ``d2 = dx*dx + dy*dy + dz*dz``,
-  ``dx = p - c``;
-- one pick per stripe (its first qualifier) or two (its first and last);
-- a slot whose stripe is empty takes the first qualifier of the whole ball,
-  a ball with no qualifier takes index 0, with rel 0 and point 0's
-  features.
+- stripes (the rule the JAX package runs on its chip, and the port's rule on
+  both devices): on a CUDA tensor ``ball_query_stripes`` launches
+  ``csrc/ball_query_stripes.cu``; on a CPU tensor it runs
+  ``ball_query_stripes_plain``, which follows ``_ball_query_stripes_xla``:
 
-Gradients. On the card the query is an autograd Function whose backward is
-the hand-written kernel in ``csrc/ball_query_backward.cu``: the rel and
-grouped-feature cotangents scattered onto the picked points, their negated
-sum onto each centre (the JAX op's custom VJP, ``_ball_query_stripes_bwd``
-and ``_ball_query_stripes_feats_bwd``). On the CPU autograd runs through the
-plain version, as XLA differentiates ``_ball_query_stripes_xla`` on JAX's
-CPU. The two differ on an all-empty ball, as the JAX package's two paths
-do: its slots hold index 0 and rel 0, and the kernel's VJP still sends
-their cotangents to point 0 and the centre, where the plain version's rel
-is a constant 0 and takes none. On the model path every centre is one of
-its cloud's points, so no ball is empty and the two agree.
+  - the cloud is padded to the length ``stripe_plan`` gives and cut into
+    stripes; padding points never qualify;
+  - a point qualifies when ``d2 < r^2``, ``d2 = dx*dx + dy*dy + dz*dz``,
+    ``dx = p - c``;
+  - one pick per stripe (its first qualifier) or two (its first and last);
+  - a slot whose stripe is empty takes the first qualifier of the whole
+    ball, a ball with no qualifier takes index 0, with rel 0 and point 0's
+    features.
+
+- exact (the reference's scan order, ``_ball_query_exact``): the first
+  ``nsample`` qualifiers in ascending point order, the rest of the slots
+  filled with the first qualifier, all 0 for a ball with none. On a CUDA
+  tensor ``ball_query_exact`` launches ``csrc/ball_query_exact.cu``; on a
+  CPU tensor it runs ``ball_query_exact_plain``.
+
+``ball_query`` and ``query_and_group`` pick the rule as the JAX functions do
+on their chip: stripes, unless ``FORCE_MODE`` is "exact", the caller asks
+for the exact query, or ``nsample`` is odd (the stripe rule needs it even).
+
+Gradients. On the card the stripe query is an autograd Function whose
+backward is the hand-written kernel in ``csrc/ball_query_backward.cu``: the
+rel and grouped-feature cotangents scattered onto the picked points, their
+negated sum onto each centre (the JAX op's custom VJP,
+``_ball_query_stripes_bwd`` and ``_ball_query_stripes_feats_bwd``). On the
+CPU autograd runs through the plain version, as XLA differentiates
+``_ball_query_stripes_xla`` on JAX's CPU. The two differ on an all-empty
+ball, as the JAX package's two paths do: its slots hold index 0 and rel 0,
+and the kernel's VJP still sends their cotangents to point 0 and the
+centre, where the plain version's rel is a constant 0 and takes none. On
+the model path every centre is one of its cloud's points, so no ball is
+empty and the two agree. The exact query gives indices only, so it has no
+backward: its callers group with ``group_points``, a gather that autograd
+differentiates (as JAX differentiates ``take_along_axis``).
 """
 
 import ctypes
@@ -49,6 +64,14 @@ backward_launches = 0
 # "staged" (stripes staged in shared memory) or "warp" (a warp per centre),
 # "blocks", "centres_per_warp", "staged_whole" (the cloud staged once)}
 last_launch = None
+# launches of the exact query's kernel since the last reset, and what the
+# last one was: {"blocks", "warps_per_block" (a centre a warp), "tile_points"
+# (points a block stages at a time)}
+exact_launches = 0
+last_exact_launch = None
+# test and ablation hook, as the JAX package's: None or "stripes" keep the
+# stripe rule, "exact" forces the exact query everywhere
+FORCE_MODE = None
 # centres a warp of the staged kernel may be set to test
 CENTRES_PER_WARP = (1, 2, 4, 8)
 
@@ -69,6 +92,82 @@ def _r2(radius: float) -> float:
     return float(np.float32(radius * radius))
 
 
+def ball_query(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor, *,
+               exact: bool | None = None) -> torch.Tensor:
+    """Radius neighbourhood query: (B, M, nsample) int32 indices into N.
+    The rule of the JAX ``ball_query`` on its chip: ``FORCE_MODE`` "exact"
+    forces the exact query, "stripes" the stripe rule where ``nsample`` is
+    even; otherwise the exact query where ``exact`` is set or ``nsample`` is
+    odd, else stripes."""
+    if FORCE_MODE == "exact":
+        exact = True
+    elif FORCE_MODE == "stripes" and nsample % 2 == 0:
+        return ball_query_stripes(radius, nsample, xyz, new_xyz)[0]
+    if exact or nsample % 2:
+        return ball_query_exact(radius, nsample, xyz, new_xyz)
+    return ball_query_stripes(radius, nsample, xyz, new_xyz)[0]
+
+
+def ball_query_exact(radius: float, nsample: int, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor) -> torch.Tensor:
+    """The exact scan-order query: for each centre the first ``nsample``
+    points with ``d2 < r^2`` in ascending point order, the remaining slots
+    filled with the first of them, all 0 where none qualifies. xyz (B, N, 3),
+    new_xyz (B, M, 3), cast to f32 and detached (the output is an index);
+    returns (B, M, nsample) int32. On a CUDA tensor one launch of
+    ``csrc/ball_query_exact.cu``; on a CPU tensor ``ball_query_exact_plain``."""
+    global exact_launches, last_exact_launch
+    _check_clouds(xyz, new_xyz)
+    if nsample < 1:
+        raise ValueError(f"nsample must be positive, got {nsample}")
+    xyz = xyz.detach().float().contiguous()
+    new_xyz = new_xyz.detach().float().contiguous()
+    if xyz.device.type == "cpu":
+        return ball_query_exact_plain(radius, nsample, xyz, new_xyz)
+    cuda_lib.check_cuda("ball_query_exact", torch.float32, xyz, new_xyz)
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    idx = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz.device)
+    record = (ctypes.c_int * 3)()
+    rc = cuda_lib.lib().bq_ball_query_exact(
+        xyz.data_ptr(), new_xyz.data_ptr(), idx.data_ptr(), b, n, m, nsample, _r2(radius),
+        record, cuda_lib.stream_handle(xyz.device))
+    cuda_lib.check(rc, "bq_ball_query_exact")
+    exact_launches += 1
+    last_exact_launch = dict(blocks=record[0], warps_per_block=record[1], tile_points=record[2])
+    return idx
+
+
+def ball_query_exact_plain(radius: float, nsample: int, xyz: torch.Tensor,
+                           new_xyz: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch exact query on any device; the kernel's reference.
+    For each block of ``_PLAIN_BLOCK`` centres: the (B, block, N) distance
+    tile, its mask, each qualifier's rank in point order (a running count),
+    and slot s takes the point where the count first reaches s + 1."""
+    b, n, _ = xyz.shape
+    m = new_xyz.shape[1]
+    r2 = _r2(radius)
+    slots = torch.arange(1, nsample + 1, dtype=torch.int32, device=xyz.device)
+    blocks = []
+    for s in range(0, m, _PLAIN_BLOCK):
+        centers = new_xyz[:, s:s + _PLAIN_BLOCK]
+        blk = centers.shape[1]
+        rank = (pairwise_sqdist(centers, xyz) < r2).cumsum(-1, dtype=torch.int32)
+        total = rank[..., -1:]
+        idx = torch.searchsorted(rank, slots.expand(b, blk, nsample).contiguous())
+        idx = torch.where(slots <= total, idx, idx[..., :1])
+        blocks.append(torch.where(total > 0, idx, 0))
+    return torch.cat(blocks, dim=1).to(torch.int32)
+
+
+def _check_clouds(xyz: torch.Tensor, new_xyz: torch.Tensor) -> None:
+    if xyz.dim() != 3 or xyz.shape[-1] != 3 or new_xyz.dim() != 3 or new_xyz.shape[-1] != 3:
+        raise ValueError(f"xyz and new_xyz must be (B, N, 3), got {tuple(xyz.shape)}, "
+                         f"{tuple(new_xyz.shape)}")
+    if new_xyz.shape[0] != xyz.shape[0] or new_xyz.device != xyz.device:
+        raise ValueError("xyz and new_xyz need the same batch and device")
+
+
 def ball_query_stripes(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
                        feats: torch.Tensor | None = None, *, centres_per_warp: int | None = None):
     """Stripe ball query with in-sweep grouping.
@@ -87,11 +186,7 @@ def ball_query_stripes(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: 
     if centres_per_warp is not None and centres_per_warp not in CENTRES_PER_WARP:
         raise ValueError(f"centres_per_warp must be one of {CENTRES_PER_WARP}, "
                          f"got {centres_per_warp}")
-    if xyz.dim() != 3 or xyz.shape[-1] != 3 or new_xyz.dim() != 3 or new_xyz.shape[-1] != 3:
-        raise ValueError(f"xyz and new_xyz must be (B, N, 3), got {tuple(xyz.shape)}, "
-                         f"{tuple(new_xyz.shape)}")
-    if new_xyz.shape[0] != xyz.shape[0] or new_xyz.device != xyz.device:
-        raise ValueError("xyz and new_xyz need the same batch and device")
+    _check_clouds(xyz, new_xyz)
     if feats is not None:
         if feats.dim() != 3 or feats.shape[:2] != xyz.shape[:2] or feats.device != xyz.device:
             raise ValueError(f"feats must be (B, N, F) beside xyz, got {tuple(feats.shape)} on "
@@ -271,10 +366,25 @@ def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def query_and_group(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
                     features: torch.Tensor | None = None, *, use_xyz: bool = True,
-                    normalize_xyz: bool = False, ret_grouped_xyz: bool = False):
-    """Stripe branch of ``query_and_group``: (B, M, nsample, 3 + C) grouped
-    features, the recentred xyz first when ``use_xyz``."""
-    idx, grouped_xyz, _ = ball_query_stripes(radius, nsample, xyz, new_xyz)
+                    normalize_xyz: bool = False, ret_grouped_xyz: bool = False,
+                    sample_uniformly: bool = False, generator: torch.Generator | None = None):
+    """Ball query, grouping and recentring (the JAX ``query_and_group``):
+    (B, M, nsample, 3 + C) grouped features, the recentred xyz first when
+    ``use_xyz``. The stripe query gives the recentred xyz itself; otherwise
+    (``FORCE_MODE`` "exact", an odd ``nsample`` or ``sample_uniformly``) the
+    indices come from ``ball_query``, are resampled over each ball's unique
+    points with ``generator`` where ``sample_uniformly`` asks
+    (``_resample_uniform``), and the xyz is gathered and recentred: a ball
+    with no qualifier groups point 0, less the centre."""
+    if FORCE_MODE != "exact" and nsample % 2 == 0 and not sample_uniformly:
+        idx, grouped_xyz, _ = ball_query_stripes(radius, nsample, xyz, new_xyz)
+    else:
+        idx = ball_query(radius, nsample, xyz, new_xyz)
+        if sample_uniformly:
+            if generator is None:
+                raise ValueError("sample_uniformly needs a generator")
+            idx = _resample_uniform(idx, generator, nsample)
+        grouped_xyz = group_points(xyz, idx) - new_xyz[:, :, None, :]
     if normalize_xyz:
         grouped_xyz = grouped_xyz / radius
     if features is not None:
@@ -288,6 +398,23 @@ def query_and_group(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: tor
     if ret_grouped_xyz:
         return new_features, grouped_xyz
     return new_features
+
+
+def _resample_uniform(idx: torch.Tensor, generator: torch.Generator, nsample: int) -> torch.Tensor:
+    """Each ball's unique indices, ascending, in its first slots; the other
+    slots drawn uniformly (with replacement) from them, by ``generator`` (on
+    ``idx``'s device). The JAX ``_resample_uniform``'s rule, after the
+    reference's loop over ``torch.unique``; no model calls it."""
+    sorted_idx = idx.sort(dim=-1).values
+    is_first = torch.ones_like(sorted_idx, dtype=torch.bool)
+    is_first[..., 1:] = sorted_idx[..., 1:] != sorted_idx[..., :-1]
+    num_unique = is_first.sum(dim=-1, keepdim=True)
+    order = torch.argsort((~is_first).to(torch.int8), dim=-1, stable=True)
+    uniq = sorted_idx.gather(-1, order)
+    draws = torch.rand(idx.shape, generator=generator, device=idx.device)
+    pick = (draws * num_unique).long().minimum(num_unique - 1)
+    slot = torch.arange(nsample, device=idx.device)
+    return torch.where(slot < num_unique, uniq, uniq.gather(-1, pick))
 
 
 def group_all(xyz: torch.Tensor, features: torch.Tensor | None = None, *, use_xyz: bool = True,

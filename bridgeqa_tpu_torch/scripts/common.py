@@ -161,7 +161,13 @@ def build_model(args, num_answers: int, device: torch.device, *, seed: int | Non
     mode, its weights drawn from ``seed`` (left as built when None: the
     caller loads them), computing in bf16 under ``--bf16``."""
     if args.no_blip and args.stage != "DET":
-        raise NotImplementedError("--no_blip (the MCAN path) is not ported yet (ROADMAP A13)")
+        # the MCAN model reads lang_feat (GloVe vectors of the question's
+        # words, ``ScanQADataset(glove=...)``); the JAX drivers pass the
+        # dataset no such table either, and their run fails at its first
+        # batch (ROADMAP C3)
+        raise ValueError("--no_blip at the VQA stage builds the MCAN model, which reads "
+                         "lang_feat (GloVe vectors of the question words): the drivers have no "
+                         "lang_feat source (no GloVe table reaches the dataset)")
     dc = ScannetDatasetConfig()
     cfg = build_model_config(args, num_answers)
     model = BridgeQA(cfg, mean_size_arr=dc.mean_size_arr, device=device)

@@ -10,9 +10,11 @@ grounding. Output records mirror the reference schema
 beam-searched answer, decoded to text by the run's tokenizer.
 
 Box decoding, NMS masking and answer top-10 run on the device, in eval mode
-without grad (the fused kernels' gates); the host only formats JSON.
-``--output_attention`` (the attention dumps) is not ported yet (ROADMAP
-A13).
+without grad (the fused kernels' gates); the host only formats JSON. With
+``--output_attention`` each record also carries the last twin-encoder
+layer's attention probabilities under the reference's keys
+(``2d_self_attention``, ``3d_self_attention``, ``2d_cross_attention``,
+``3d_cross_attention``; ``predict.py:359-365``), as nested lists.
 """
 
 import argparse
@@ -28,6 +30,10 @@ from bridgeqa_tpu_torch.data.tokenization import make_answer_list
 from bridgeqa_tpu_torch.eval.detection_eval import parse_predictions_device
 from bridgeqa_tpu_torch.scripts import common
 from bridgeqa_tpu_torch.train import checkpoints
+
+# the twin encoder's last-layer attention dumps (``--output_attention``)
+ATTENTION_KEYS = ("2d_self_attention", "3d_self_attention", "2d_cross_attention",
+                  "3d_cross_attention")
 
 
 def parse_args(argv=None):
@@ -45,7 +51,7 @@ def parse_args(argv=None):
     p.add_argument("--gen_max_length", type=int, default=20)
     p.add_argument("--output_attention", action="store_true",
                    help="dump the last twin-encoder layer's 2d/3d self/cross "
-                        "attention probs per sample (not ported yet: ROADMAP A13)")
+                        "attention probs per sample")
     p.add_argument("--device", type=str, default="cuda",
                    help="a CUDA card (default; fails without one) or 'cpu'")
     return p.parse_args(argv)
@@ -90,8 +96,6 @@ def load_run(cli, splits):
 
 def main(argv=None):
     cli = parse_args(argv)
-    if cli.output_attention:
-        raise NotImplementedError("--output_attention is not ported yet (ROADMAP A13)")
     split = "val" if cli.split in ("train", "val") else cli.split
     args, dataset, tokenizer, answer_cands, model, dc, device = load_run(cli, (split,))
     mean_size = torch.as_tensor(dc.mean_size_arr, dtype=torch.float32, device=device)
@@ -102,7 +106,8 @@ def main(argv=None):
 
     @torch.no_grad()
     def infer(batch):
-        out = model(batch, inference="rank", k_test=args.k_test)
+        out = model(batch, inference="rank", k_test=args.k_test,
+                    output_attentions=cli.output_attention)
         # objectness-masked grounding + on-device NMS suppression
         dev = parse_predictions_device(
             out["center"], out["heading_scores"], out["heading_residuals"],
@@ -116,7 +121,7 @@ def main(argv=None):
         rows = torch.arange(grounded.shape[0], device=grounded.device)
         corners = out["bbox_corner"][rows, grounded].float()
         top10 = torch.argsort(out["answer_scores"], dim=1, descending=True, stable=True)[:, :10]
-        return top10, corners
+        return top10, corners, {k: out[k] for k in ATTENTION_KEYS if out.get(k) is not None}
 
     @torch.no_grad()
     def generate(batch):
@@ -129,7 +134,9 @@ def main(argv=None):
     try:
         for batch in device_batches(loader, device):
             batch.update(answer_list)
-            top10, corners = (t.cpu().numpy() for t in infer(batch))
+            top10, corners, attention = infer(batch)
+            top10, corners = top10.cpu().numpy(), corners.cpu().numpy()
+            attention = {k: v.float().cpu().numpy() for k, v in attention.items()}
             gen_texts = None
             if cli.open_ended:
                 gen_ids = generate(batch).cpu().numpy()
@@ -144,6 +151,8 @@ def main(argv=None):
                 }
                 if gen_texts is not None:
                     rec["open_ended_answer"] = gen_texts[i]
+                for k, v in attention.items():  # the reference's predict.py:359-365
+                    rec[k] = v[i].tolist()
                 preds.append(rec)
     finally:
         loader.shutdown()

@@ -179,6 +179,28 @@ result is printed):
    through DDP, ``--check_syncs``): DET, VQA and a resume, each run's files
    written once. Two ranks sharing one card check correctness, not
    scaling. Tolerances and cuts in ``phase_parallel``'s docstring.
+10. the non-main paths (``phase_nonmain``), each at full width in bf16:
+   - the exact scan-order ball query's kernel (``csrc/ball_query_exact.cu``)
+     bitwise against its plain version at the five main-path shapes, SA1
+     with an odd nsample (63) and SA1 on a dense cloud (every ball holds
+     more than nsample: the early stop), batch 8, with the distance tests
+     the scan needs on this data, its bound and card time;
+   - the main path's detector under ``grouping.FORCE_MODE = "exact"`` (the
+     exact kernel 5 launches, the stripe kernel 0, FPS 5) and its time
+     beside the stripe detector's;
+   - the MCAN 3D-only model (``use_blip=False``, the JAX defaults the
+     drivers build for ``--no_blip``): the eval forward at batch 8 and one
+     train step at batch 16;
+   - classifier mode (``use_text_decoder=False``, with and without
+     ``answer_cls_2d3d``): the eval forward at batch 8 (the ViT's kernels
+     as in the rank forward, no scoring or vocabulary kernel), one train
+     step at batch 16 with remat "block";
+   - the rank forward with ``output_attentions``: the dumps' shapes, rows
+     summing to 1, the scores bitwise those without dumps;
+   - the tiny config card against CPU for the MCAN model, classifier mode
+     and the exact-mode detector (indices bitwise).
+   Launch counts zeroed just before each path and read just after must be
+   as derived; the phase's seconds are printed.
 
 Bounds: the least time the card could take for a kernel's work, the larger
 of the bytes it must move (each input read once, each output written once)
@@ -191,11 +213,14 @@ Matrix products run in full f32 where f32 is used: TF32 is switched off
 for both cuBLAS and cuDNN, and the patch embedding is a matrix product.
 The last two lines are a ``{"kernels": [...]}`` JSON object (each
 kernel's ``launches`` from the path it serves, named by ``launches_path``:
-the rank forward, or the train step for the backward kernel;
+the rank forward, the train step for the backward kernel, or the exact
+detector for the exact query;
 ``launches_by_path`` from the rank forward, the generate forward, a train
 step, a step of the ``train`` script's loop, an eval batch of the ``eval``
-script, and on each rank of phase 9 a DDP step, a ``tp=2`` step and a
-sharded eval batch) and ``{"ok": true, "device": {...}}``.
+script, on each rank of phase 9 a DDP step, a ``tp=2`` step and a sharded
+eval batch, and phase 10's exact detector, MCAN forward, MCAN train step
+and classifier forward; the exact query's ``launches`` from the exact
+detector) and ``{"ok": true, "device": {...}}``.
 """
 
 import copy
@@ -415,7 +440,7 @@ def card_name_and_power() -> str:
 # mangled names)
 PTXAS_KERNELS = ("gemm_kernel", "vit_attention_bf16_kernel", "fps_cluster_kernel",
                  "vocab_wgmma_kernel", "attention_pipe_kernel", "ball_query_stripes_kernel",
-                 "ball_query_backward_kernel")
+                 "ball_query_backward_kernel", "ball_query_exact_kernel")
 # kernels whose SASS must hold Hopper instructions (parts of their mangled
 # names: wg::gemm_kernel<...>, the vocabulary pass, the scoring attentions'
 # pipeline), and which: the wgmma product (HGMMA) and the TMA tile load
@@ -1158,6 +1183,7 @@ def reset_launches() -> None:
 
     sampling.launches = grouping.launches = vocab_loss.launches = 0
     vit_block.launches = gather.launches = grouping.backward_launches = 0
+    grouping.exact_launches = 0
     for name in scoring_layer.launches:
         scoring_layer.launches[name] = 0
 
@@ -1169,13 +1195,16 @@ def read_launches() -> dict:
     return {"fps": sampling.launches, "ball_query_stripes": grouping.launches,
             **scoring_layer.launches, "vocab_loss": vocab_loss.launches,
             "vit_attention": vit_block.launches, "gather_rows": gather.launches,
-            "ball_query_backward": grouping.backward_launches}
+            "ball_query_backward": grouping.backward_launches,
+            "ball_query_exact": grouping.exact_launches}
 
 
 # kernels no path runs: checked in phase 3 only
 OFF_PATH = ("gather_rows",)
 # kernels only a backward runs: the train path's
 BACKWARD_ONLY = ("ball_query_backward",)
+# kernels only the exact mode runs (grouping.FORCE_MODE = "exact")
+EXACT_ONLY = ("ball_query_exact",)
 
 
 def phase_reference(device):
@@ -1210,7 +1239,8 @@ def phase_reference(device):
         got = card_model({k: v.to(device) for k, v in batch.items()}, k_test=cfg.num_answers)
         torch.cuda.synchronize()
         launches = read_launches()
-    idle = [k for k, n in launches.items() if n == 0 and k not in OFF_PATH + BACKWARD_ONLY]
+    idle = [k for k, n in launches.items()
+            if n == 0 and k not in OFF_PATH + BACKWARD_ONLY + EXACT_ONLY]
     if idle:
         raise AssertionError(f"reference: kernels not launched on the card: {idle}")
     for key in ("sa1_inds", "sa2_inds", "fp2_inds"):
@@ -1285,7 +1315,7 @@ def expected_launches(cfg) -> dict:
     counts = {"fps": len(FPS_SHAPES), "ball_query_stripes": len(BQ_SHAPES),
               **{k: n * layers * SCORING_PASSES for k, n in LAUNCHES_PER_LAYER.items()},
               "vocab_loss": SCORING_PASSES, "vit_attention": 0, "gather_rows": 0,
-              "ball_query_backward": 0}
+              "ball_query_backward": 0, "ball_query_exact": 0}
     for k, n in LAUNCHES_PER_BLOCK.items():
         counts[k] += n * depth
     counts["scoring_layernorm"] += 1
@@ -1528,7 +1558,8 @@ def expected_generate_launches(cfg) -> dict:
 
     counts = {"fps": len(FPS_SHAPES), "ball_query_stripes": len(BQ_SHAPES),
               "scoring_gemm": 0, "scoring_attention": 0, "scoring_layernorm": 1,
-              "vocab_loss": 0, "vit_attention": 0, "gather_rows": 0, "ball_query_backward": 0}
+              "vocab_loss": 0, "vit_attention": 0, "gather_rows": 0, "ball_query_backward": 0,
+              "ball_query_exact": 0}
     for k, n in LAUNCHES_PER_BLOCK.items():
         counts[k] += n * vit_depth(cfg)
     return counts
@@ -2930,6 +2961,404 @@ def phase_torchrun(device) -> float:
     return time.perf_counter() - t0
 
 
+# phase 10: the non-main paths. (name, points, centres, nsample, radius,
+# calls a detector forward in exact mode makes): the main path's five
+# shapes, SA1 with an odd nsample, and SA1 on a dense cloud (a 1 m cube:
+# every ball holds far more than nsample, so every centre stops early)
+EXACT_SHAPES = [(name, n, m, ns, r, 1) for name, n, m, ns, r, _ in BQ_SHAPES] + [
+    ("sa1 odd nsample", NUM_POINTS, 2048, 63, 0.2, 0), ("sa1 dense", NUM_POINTS, 2048, 64, 0.2, 0)]
+LANG_LEN = 36  # MAX_TEXT_LEN of the data pipeline: the GloVe words of a question
+# a row of bf16 probabilities, each rounded once from the f32 softmax (at
+# most 2^-8 of itself), sums to 1 within 2^-8; twice that
+DUMP_SUM_TOL = 2.0 ** -7
+
+
+def exact_scan_tests(radius: float, nsample: int, xyz, ctr) -> tuple[int, int]:
+    """(distance tests the exact scan needs, centres whose ball holds at
+    least ``nsample``): each centre tests the points up to its
+    ``nsample``-th qualifier, or every point when fewer qualify."""
+    from bridgeqa_tpu_torch.ops import grouping
+
+    b, n, _ = xyz.shape
+    r2 = float(np.float32(radius * radius))
+    tests = full = 0
+    for s in range(0, ctr.shape[1], 256):
+        rank = (grouping.pairwise_sqdist(ctr[:, s:s + 256], xyz) < r2).cumsum(-1, dtype=torch.int32)
+        enough = rank[..., -1] >= nsample
+        stop = torch.searchsorted(rank, torch.full(rank.shape[:2] + (1,), nsample,
+                                                   dtype=torch.int32, device=xyz.device))[..., 0]
+        tests += int(torch.where(enough, stop + 1, n).sum())
+        full += int(enough.sum())
+    return tests, full
+
+
+def phase_exact_kernel(device, batch: int = BATCH, reps: int = 5):
+    """Phase 10 (a): the exact query's kernel (``csrc/ball_query_exact.cu``)
+    against its plain version, bitwise, at ``EXACT_SHAPES`` on
+    ``make_cloud``'s clouds (padding, duplicates, 4 empty balls but on the
+    dense cloud; SA1's 40000 points are no multiple of 128 nor of the
+    kernel's 1024-point tile). Card times (``device_ms``), the distance
+    tests the scan needs on this data and the bound from them; no single
+    PyTorch call computes the query, so ``library_ms`` is None. Returns its
+    record of the kernels line."""
+    from bridgeqa_tpu_torch.ops import grouping
+
+    rng = np.random.RandomState(21)
+    rows = []
+    for name, n, m, ns, radius, calls in EXACT_SHAPES:
+        dense = name.endswith("dense")
+        xyz_np = make_cloud(rng, batch, n) / (6.0 if dense else 1.0)
+        centres = xyz_np[:, rng.permutation(n)[:m]].copy()
+        if not dense:
+            centres[:, :4] += 100.0  # empty balls
+        xyz = torch.from_numpy(xyz_np).to(device)
+        ctr = torch.from_numpy(centres).to(device)
+        idx = grouping.ball_query_exact(radius, ns, xyz, ctr)
+        launch = dict(grouping.last_exact_launch)
+        want = grouping.ball_query_exact_plain(radius, ns, xyz, ctr)
+        torch.cuda.synchronize()
+        same = torch.equal(idx, want)
+        tests, full = exact_scan_tests(radius, ns, xyz, ctr)
+        ok = same and (full == batch * m if dense else bool((idx[:, :4] == 0).all()))
+        ms = device_ms(lambda: grouping.ball_query_exact(radius, ns, xyz, ctr), reps)
+        plain_ms = device_ms(lambda: grouping.ball_query_exact_plain(radius, ns, xyz, ctr),
+                             max(1, reps // 2))
+        # a distance test: 3 sub, 3 mul, 2 add, a compare
+        bound_ms, bound_by = bound(tests * 9.0, batch * (n * 12 + m * 12 + m * ns * 4), PEAK_F32)
+        rows.append(dict(shape=f"{name}: N={n}, M={m}, nsample={ns}, r={radius}, batch {batch}",
+                         calls=calls, bitwise=ok, max_abs_err=max_err(idx, want), ms=ms,
+                         plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                         bound_by=bound_by, distance_tests=tests, full_balls=full,
+                         launch=launch))
+        log(f"exact ball query {name}: N={n}, M={m}, ns={ns}, r={radius}: bitwise {same}, "
+            f"balls of at least nsample {full} of {batch * m}, kernel {ms:.4f} ms card time, "
+            f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {tests} tests, "
+            f"{tests / (batch * m * n):.3f} of a full scan), library_ms null; launch "
+            f"{json.dumps(launch)}")
+    bad = [r for r in rows if not r["bitwise"]]
+    if bad:
+        raise AssertionError(f"the exact ball query's kernel and plain version disagree: {bad}")
+    return dict(name="ball_query_exact", route="cuda",
+                source="bridgeqa_tpu_torch/csrc/ball_query_exact.cu",
+                replaces="bridgeqa_tpu/ops/grouping.py:112", rows=rows,
+                per="one detector forward in exact mode: each main-path shape's median times "
+                    "the calls it gets")
+
+
+def expected_detector_launches(cfg, exact: bool) -> dict:
+    """Kernel launches of a detector forward: FPS and one ball query (the
+    stripe kernel, or with ``exact`` the exact one) per main-path shape."""
+    counts = {k: 0 for k in expected_launches(cfg)}
+    counts.update(fps=len(FPS_SHAPES))
+    counts["ball_query_exact" if exact else "ball_query_stripes"] = len(BQ_SHAPES)
+    return counts
+
+
+def add_lang(batch: dict, seed: int) -> dict:
+    """The MCAN model's question input: ``LANG_LEN`` 300-d word vectors of
+    GloVe's scale and lengths from 1 to ``LANG_LEN``."""
+    rng = np.random.RandomState(seed + 50)
+    b = batch["point_clouds"].shape[0]
+    device = batch["point_clouds"].device
+    batch["lang_feat"] = torch.from_numpy((rng.randn(b, LANG_LEN, 300) * 0.4)
+                                          .astype(np.float32)).to(device)
+    batch["lang_len"] = torch.from_numpy(rng.randint(1, LANG_LEN + 1, b).astype(np.int32)).to(device)
+    return batch
+
+
+def mcan_main_config():
+    """The MCAN 3D-only model as the drivers build it for ``--no_blip``: the
+    JAX defaults (hidden 128, 2 MCAN layers of 8 heads, AttFlat to 1024,
+    the LSTM over 300-d word vectors)."""
+    from bridgeqa_tpu_torch.models.bridgeqa import BridgeQAConfig
+
+    return BridgeQAConfig(num_answers=NUM_ANSWERS, input_feature_dim=1, use_blip=False)
+
+
+def classifier_main_config(two_d3d: bool, remat: bool = False):
+    """The main path's config in classifier mode (``use_text_decoder=False``)."""
+    base = main_config()
+    blip = dataclasses.replace(base.blip, use_scene_classifier_2d3d=two_d3d, remat=remat,
+                               remat_mode="block")
+    return dataclasses.replace(base, use_text_decoder=False, blip=blip)
+
+
+def _forward_checked(name, model, batch, expected, keys, shapes, failed, **kw):
+    """One forward without grad, launches zeroed just before and read just
+    after: they must equal ``expected``; ``keys`` finite, ``shapes`` as
+    given. Returns (outputs, launches)."""
+    with torch.inference_mode():
+        reset_launches()
+        out = model(batch, **kw)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    wrong = {k: (launches[k], n) for k, n in expected.items() if launches[k] != n}
+    if wrong:
+        failed.append(f"{name}: launches (got, expected) {wrong}")
+    bad = [k for k in keys if not bool(torch.isfinite(out[k].float()).all())]
+    bad += [f"{k} {tuple(out[k].shape)}" for k, s in shapes.items() if tuple(out[k].shape) != s]
+    if bad:
+        failed.append(f"{name}: outputs not finite or of another shape {bad}")
+    return out, launches
+
+
+def _timed(fn, reps: int) -> tuple[float, list]:
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def _profiled_ms(fn, path: Path) -> tuple[float, float]:
+    """(device ms, wall ms) of one ``fn()`` under ``torch.profiler``; the
+    table by kernel into ``path``."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    OUT_DIR.mkdir(exist_ok=True)
+    return profile_table(prof, path)[0], wall_ms
+
+
+def _train_once(name, model, batch, expected, failed, gen) -> tuple[float, float, dict]:
+    """One warm-up ``train_step`` and one timed, launches of the timed one
+    zeroed just before and read just after (they must equal ``expected``),
+    its losses and gradients finite. Returns (step ms, peak GB, launches)."""
+    from bridgeqa_tpu_torch.train.optim import build_optimizer
+    from bridgeqa_tpu_torch.train.step import train_step
+
+    optimizer = build_optimizer(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train_step(model, optimizer, batch, bn_momentum=0.1, generator=gen)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = train_step(model, optimizer, batch, bn_momentum=0.1, generator=gen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    values = {k: float(metrics[k]) for k in TRAIN_LOSSES}
+    grads_finite = all(bool(p.grad.isfinite().all()) for p in model.parameters()
+                       if p.grad is not None)
+    wrong = {k: (launches[k], n) for k, n in expected.items() if launches[k] != n}
+    if not all(np.isfinite(v) for v in values.values()) or not grads_finite or wrong:
+        failed.append(f"{name}: losses {values}, gradients finite {grads_finite}, launches "
+                      f"(got, expected) {wrong}")
+    log(f"{name}: step {step_ms:.1f} ms at batch {TRAIN_BATCH} (the second step; host clock), "
+        f"peak memory {peak_gb:.2f} GB, loss {values['loss']:.3f}, answer loss "
+        f"{values['answer_loss']:.3f}, launches {json.dumps(launches)}")
+    return step_ms, peak_gb, launches
+
+
+def phase_nonmain_reference(device):
+    """Phase 10 (f): the tiny config (``tiny_config``) on the card (kernels,
+    f32) against the same weights on the CPU (plain versions, f32): the
+    MCAN model, classifier mode with ``answer_cls_2d3d`` (the fused ViT on
+    both sides: "force" on the CPU, "auto" on the card), and the detector
+    in exact mode (``grouping.FORCE_MODE = "exact"``). The exact query's
+    indices must be bitwise (every SA module's and the vote aggregation's
+    centres follow from them); floats within 1e-3, as ``phase_reference``
+    holds them (the two devices sum matrix products in another order)."""
+    from bridgeqa_tpu_torch.ops import grouping
+    from bridgeqa_tpu_torch.ops import vit_block as vb
+
+    base = tiny_config()
+    cases = {
+        "mcan": (dataclasses.replace(base, use_blip=False),
+                 ("answer_scores", "lang_scores", "cluster_ref", "fuse_feat", "center"),
+                 ("fps", "ball_query_stripes")),
+        "classify": (dataclasses.replace(base, use_text_decoder=False, blip=dataclasses.replace(
+            base.blip, use_scene_classifier_2d3d=True)),
+                     ("answer_scores", "answer_scores_2d", "answer_scores_scene",
+                      "answer_scores_2d3d", "lang_scores", "cluster_ref"),
+                     ("fps", "ball_query_stripes", "scoring_gemm", "vit_attention",
+                      "scoring_layernorm")),
+        "exact detector": (dataclasses.replace(base, stage="DET"),
+                           ("center", "aggregated_vote_xyz", "objectness_scores"),
+                           ("fps", "ball_query_exact")),
+    }
+    worst = {}
+    for name, (cfg, keys, launched) in cases.items():
+        cpu_model = build_model(cfg, torch.device("cpu"), seed=13)
+        card_model = copy.deepcopy(cpu_model).to(device)
+        batch = add_lang(make_batch(cfg, 2, 4096, 64, 20, 6, torch.device("cpu"), seed=4), 4)
+        exact = name == "exact detector"
+        try:
+            grouping.FORCE_MODE = "exact" if exact else None
+            with torch.inference_mode():
+                vb.FUSED_MODE = "force"
+                want = cpu_model(batch)
+                vb.FUSED_MODE = "auto"
+                reset_launches()
+                got = card_model({k: v.to(device) for k, v in batch.items()})
+                torch.cuda.synchronize()
+                launches = read_launches()
+        finally:
+            grouping.FORCE_MODE = None
+            vb.FUSED_MODE = "auto"
+        wrong = sorted(k for k, n in launches.items() if (n > 0) != (k in launched))
+        if wrong:
+            raise AssertionError(f"{name} reference: kernels launched or not against what the "
+                                 f"path runs: {wrong}, launches {launches}")
+        for key in ("sa1_inds", "sa2_inds", "fp2_inds", "aggregated_vote_inds", "bbox_mask"):
+            if not torch.equal(got[key].cpu(), want[key]):
+                raise AssertionError(f"{name} reference: {key} differs between the card and "
+                                     "the CPU")
+        for key in keys:
+            err = float((got[key].cpu().float() - want[key].float()).abs().max())
+            worst[f"{name} {key}"] = err
+            if not err <= 1e-3:
+                raise AssertionError(f"{name} reference: {key} differs by {err}")
+    log(f"non-main references (tiny config, f32, card vs CPU): indices equal; max abs err "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}")
+
+
+def phase_nonmain(device, reps: int = 5) -> dict:
+    """Phase 10: the paths off the main one, at full width on the card.
+    (a) the exact query's kernel (``phase_exact_kernel``); (b) the main
+    path's detector (40000 points, batch 8, bf16) under
+    ``grouping.FORCE_MODE = "exact"``: the exact kernel 5 launches, the
+    stripe kernel 0, FPS 5, outputs finite, and its time beside the stripe
+    detector's (medians of ``reps``, in turns); (c) the MCAN model
+    (``mcan_main_config``) in bf16: the eval forward at batch 8 (FPS 5, the
+    stripe query 5, nothing else; heads' shapes; median of ``reps`` and
+    device time), one train step at batch 16 (the backward kernel 1 more);
+    (d) classifier mode (``classifier_main_config``) both ways in bf16: the
+    eval forward at batch 8 (the ViT's kernels as in the rank forward, no
+    scoring or vocabulary kernel), one train step at batch 16 with remat
+    "block"; (e) the rank forward with ``output_attentions``: the four
+    dumps' shapes, each row summing to 1 within ``DUMP_SUM_TOL``, and the
+    answer scores bitwise those of the same forward without dumps; (f)
+    ``phase_nonmain_reference``. Returns (the exact kernel's record, the
+    launches of each new path)."""
+    from bridgeqa_tpu_torch.models.layers import set_compute_dtype
+    from bridgeqa_tpu_torch.ops import grouping
+
+    t_phase = time.perf_counter()
+    record = phase_exact_kernel(device)
+    failed, paths = [], {}
+    base = main_config()
+    batch = make_batch(base, BATCH, NUM_POINTS, IMAGE_SIZE, QUESTION_LEN, ANSWER_LEN, device)
+
+    # (b) the detector in exact mode
+    det_cfg = dataclasses.replace(base, stage="DET")
+    model = set_compute_dtype(build_model(det_cfg, device), torch.bfloat16)
+    det_batch = {"point_clouds": batch["point_clouds"]}
+    floats = ("center", "objectness_scores", "aggregated_vote_xyz", "size_residuals")
+    try:
+        grouping.FORCE_MODE = "exact"
+        out, paths["exact detector"] = _forward_checked(
+            "exact detector", model, det_batch, expected_detector_launches(det_cfg, True), floats,
+            {"center": (BATCH, base.num_proposal, 3)}, failed)
+        times = {}
+        with torch.inference_mode():
+            for mode in ("exact", None, "exact", None):
+                grouping.FORCE_MODE = mode
+                ms, _ = _timed(lambda: model(det_batch), reps)
+                times.setdefault(mode or "stripes", []).append(ms)
+    finally:
+        grouping.FORCE_MODE = None
+    log(f"exact detector: launches {json.dumps(paths['exact detector'])}; forward at batch "
+        f"{BATCH}, bf16, median of {reps} (two turns each): exact {times['exact']} ms, stripes "
+        f"{times['stripes']} ms")
+    del model
+
+    # (c) the MCAN model
+    cfg = mcan_main_config()
+    model = set_compute_dtype(build_model(cfg, device), torch.bfloat16)
+    mbatch = add_lang(dict(batch), 0)
+    heads = ("answer_scores", "lang_scores", "cluster_ref", "fuse_feat")
+    out, paths["mcan forward"] = _forward_checked(
+        "mcan forward", model, mbatch, expected_detector_launches(cfg, False), heads,
+        {"answer_scores": (BATCH, NUM_ANSWERS), "lang_scores": (BATCH, cfg.num_object_class),
+         "cluster_ref": (BATCH, cfg.num_proposal), "fuse_feat": (BATCH, cfg.mcan_flat_out_size)},
+        failed)
+    with torch.inference_mode():
+        latency, runs = _timed(lambda: model(mbatch), reps)
+        busy_ms, wall_ms = _profiled_ms(lambda: model(mbatch), OUT_DIR / "profile_mcan_forward.txt")
+    log(f"mcan forward at batch {BATCH}, bf16: median {latency:.1f} ms over {reps} runs "
+        f"({', '.join(f'{t:.1f}' for t in runs)}), {BATCH / latency * 1e3:.2f} QA pairs/s; "
+        f"profiled: {busy_ms:.1f} ms of device time in {wall_ms:.1f} ms (busy "
+        f"{busy_ms / wall_ms:.0%}); launches {json.dumps(paths['mcan forward'])}")
+    tbatch = add_lang(make_train_batch(cfg, TRAIN_BATCH, NUM_POINTS, IMAGE_SIZE, QUESTION_LEN,
+                                       ANSWER_LEN, device), 1)
+    gen = torch.Generator(device=device).manual_seed(7)
+    expected = expected_detector_launches(cfg, False)
+    expected["ball_query_backward"] = 1
+    *_, paths["mcan train step"] = _train_once("mcan train step", model, tbatch, expected,
+                                               failed, gen)
+    del model
+
+    # (d) classifier mode, both ways
+    for two_d3d in (False, True):
+        cfg = classifier_main_config(two_d3d)
+        model = set_compute_dtype(build_model(cfg, device), torch.bfloat16)
+        keys = ("answer_scores", "answer_scores_2d", "answer_scores_scene", "lang_scores",
+                "cluster_ref") + (("answer_scores_2d3d",) if two_d3d else ())
+        name = f"classify forward{' 2d3d' if two_d3d else ''}"
+        out, launches = _forward_checked(name, model, batch, expected_generate_launches(cfg),
+                                         keys, {k: (BATCH, NUM_ANSWERS) for k in keys[:3]},
+                                         failed)
+        if not two_d3d:
+            paths["classify forward"] = launches
+        with torch.inference_mode():
+            latency, _ = _timed(lambda: model(batch), reps)
+        log(f"{name} at batch {BATCH}, bf16: median {latency:.1f} ms over {reps} runs; launches "
+            f"{json.dumps(launches)}")
+        del model
+    cfg = classifier_main_config(True, remat=True)
+    model = set_compute_dtype(build_model(cfg, device), torch.bfloat16)
+    tbatch = make_train_batch(cfg, TRAIN_BATCH, NUM_POINTS, IMAGE_SIZE, QUESTION_LEN, ANSWER_LEN,
+                              device)
+    _train_once("classify train step (2d3d, remat 'block')", model, tbatch,
+                expected_train_launches(cfg), failed, gen)
+    del model, tbatch
+
+    # (e) the attention dumps of the rank forward
+    model = set_compute_dtype(build_model(base, device), torch.bfloat16)
+    out, _ = _forward_checked("rank forward with dumps", model, batch, expected_launches(base),
+                              ("answer_scores",), {}, failed, k_test=K_TEST,
+                              output_attentions=True)
+    with torch.inference_mode():
+        plain = model(batch, k_test=K_TEST)
+    heads = base.blip.med.num_attention_heads
+    widths = {"2d_self_attention": QUESTION_LEN, "3d_self_attention": QUESTION_LEN,
+              "2d_cross_attention": VIT_TOKENS + QUESTION_LEN,
+              "3d_cross_attention": base.num_proposal + QUESTION_LEN}
+    sums = {}
+    for key, width in widths.items():
+        att = out[key]
+        if tuple(att.shape) != (BATCH, heads, QUESTION_LEN, width):
+            failed.append(f"dumps: {key} {tuple(att.shape)}")
+            continue
+        sums[key] = float((att.float().sum(-1) - 1.0).abs().max())
+        if not sums[key] <= DUMP_SUM_TOL:
+            failed.append(f"dumps: {key} rows sum to 1 within {sums[key]}")
+    same = {k: torch.equal(out[k], plain[k]) for k in ("answer_scores", "answer_scores_2d",
+                                                         "answer_scores_scene", "cluster_ref")}
+    if not all(same.values()):
+        failed.append(f"dumps: outputs differ from the forward without dumps {same}")
+    log(f"rank forward with dumps: shapes {json.dumps({k: list(out[k].shape) for k in widths})}, "
+        f"largest |row sum - 1| {json.dumps({k: float(f'{v:.3g}') for k, v in sums.items()})} "
+        f"(tolerance {DUMP_SUM_TOL}), equal to the forward without dumps {json.dumps(same)}")
+    del model, out, plain
+    torch.cuda.empty_cache()
+
+    phase_nonmain_reference(device)
+    if failed:
+        raise AssertionError(f"non-main path checks failed: {failed}")
+    log(f"non-main paths: phase {time.perf_counter() - t_phase:.1f} s")
+    return record, paths
+
+
 def report_ratios(kernels: dict) -> None:
     """Each product's time over ``F.linear``'s, and the per-forward sums of
     both (decoder and ViT shapes, each shape's ms times its calls); the ViT
@@ -2997,14 +3426,18 @@ def main() -> int:
     train_launches, resident_samples_per_s = phase_train(device)
     loop_launches, eval_launches = phase_drivers(device, resident_samples_per_s)
     parallel_launches = phase_parallel(device, resident_samples_per_s)
+    exact_record, nonmain_launches = phase_nonmain(device)
+    kernels.append(exact_record)
     records = []
     for k in kernels:
         name = k["name"]
-        path = "train" if name in BACKWARD_ONLY else "rank"
+        path = ("train" if name in BACKWARD_ONLY else "exact detector" if name in EXACT_ONLY
+                else "rank")
         by_path = {"rank": launches[name], "generate": generate_launches[name],
                    "train": train_launches[name], "train loop": loop_launches[name],
                    "eval": eval_launches[name],
-                   **{f"{p} per rank": n[name] for p, n in parallel_launches.items()}}
+                   **{f"{p} per rank": n[name] for p, n in parallel_launches.items()},
+                   **{p: n[name] for p, n in nonmain_launches.items()}}
         records.append(dict(summarize(k, by_path[path], by_path), launches_path=path))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -44,13 +44,19 @@ machine does not have; this file imports none.) On the edge cases
   Function's gradients against the plain forward's autograd, which
   ``torch.autograd.gradcheck`` holds to finite differences in f64, and a
   tiny train step on the card against the CPU;
-- the feed's pinned copy to the card, bit for bit and without a host sync.
+- the feed's pinned copy to the card, bit for bit and without a host sync;
+- the exact scan-order ball query (``csrc/ball_query_exact.cu``) bitwise
+  against its plain version: odd and even nsample, planted d2 == r2, a
+  centre on a point, duplicates, empty, short and full balls (the early
+  stop), centres past a block's 8, clouds that fill no tile; and an
+  exact-mode SA module's gradients on the card against the CPU.
 f32: 1e-3 absolute (both sides accumulate in f32, in another order). bf16
 outputs: 2^-6 of the largest output, about two steps of bf16 (both round
 once from f32, and a sum taken in another order can flip a rounding, or the
 rounding of an exp or a softmax weight before the product with V).
 """
 
+import copy
 import threading
 
 import numpy as np
@@ -978,6 +984,71 @@ def test_ball_query_gradients_match_the_plain_autograd(card):
         return r, gf
 
     assert torch.autograd.gradcheck(fn, small, eps=1e-6, atol=1e-6)
+
+
+# (points, centres, nsample, radius): odd and even nsample, clouds shorter
+# than a warp, than a tile and of several tiles, radii that leave most balls
+# short and ones that fill them (the early stop)
+_EXACT_CASES = [(20, 5, 3, 0.5), (300, 100, 7, 0.35), (1025, 37, 16, 0.35), (5000, 64, 63, 0.3),
+                (5000, 64, 32, 2.5), (40000, 100, 64, 0.2)]
+
+
+@pytest.mark.parametrize("n,m,nsample,radius", _EXACT_CASES)
+def test_ball_query_exact_kernel_matches_plain(card, n, m, nsample, radius):
+    """The planted cases: a point at exactly d2 == r2 (not in the ball), a
+    centre on a point, duplicates, empty balls, centres past the first
+    block's 8."""
+    rng = np.random.RandomState(n + nsample)
+    xyz = _cloud(rng, 3, n)
+    xyz[:, 1] = [0.25 + radius, 0.0, 0.0]  # d2 == r2 from centre 0 (radius 0.5: exactly)
+    xyz[:, 2] = [0.25, 0.0, 0.0]  # centre 0 sits on it
+    xyz[0, : n // 3] = xyz[0, n // 3: 2 * (n // 3)]  # duplicates
+    ctr = xyz[:, rng.randint(0, n, m)].copy()
+    ctr[:, 0] = [0.25, 0.0, 0.0]
+    ctr[:, 3:5] += 100.0  # empty balls
+    args = (radius, nsample, torch.from_numpy(xyz).to(card), torch.from_numpy(ctr).to(card))
+    before = grouping.exact_launches
+    idx = grouping.ball_query_exact(*args)
+    assert grouping.exact_launches == before + 1
+    assert grouping.last_exact_launch["blocks"] == 3 * -(-m // 8)
+    want = grouping.ball_query_exact_plain(*args)
+    torch.cuda.synchronize()
+    assert idx.dtype == torch.int32 and torch.equal(idx, want)
+    assert (idx[:, 3:5] == 0).all()
+    assert (idx[:, 0] == 2).any()
+
+
+def test_exact_sa_module_gradients_match_the_cpu(card, monkeypatch):
+    """An SA module under ``FORCE_MODE = "exact"`` (the exact kernel on the
+    card, its plain version on the CPU, the gather in the graph), f64
+    parameters and features, BatchNorm in train mode: the output and the
+    gradients of the features, the points and every parameter within 1e-6
+    relative L2 of the CPU's (the two devices sum products in another
+    order); the stripe kernels launch nothing."""
+    from bridgeqa_tpu_torch.models.layers import init_weights
+    from bridgeqa_tpu_torch.models.pointnet2 import PointnetSAModuleVotes
+
+    monkeypatch.setattr(grouping, "FORCE_MODE", "exact")
+    rng = np.random.RandomState(6)
+    xyz = torch.from_numpy(_cloud(rng, 2, 3000)).double()
+    feats = torch.from_numpy(rng.randn(2, 3000, 6)).double()
+    cpu = PointnetSAModuleVotes(6, [16, 32], 256, 0.3, 16).double()
+    init_weights(cpu, torch.Generator().manual_seed(0))
+    on_card = copy.deepcopy(cpu).to(card)
+    results = []
+    for module, dev in ((cpu, "cpu"), (on_card, card)):
+        module.train()
+        x = xyz.to(dev).detach().requires_grad_()
+        f = feats.to(dev).detach().requires_grad_()
+        before = grouping.exact_launches, grouping.launches
+        _, out, _ = module(x, f)
+        out.square().sum().backward()
+        launched = (grouping.exact_launches - before[0], grouping.launches - before[1])
+        assert launched == ((1, 0) if dev == card else (0, 0)), launched
+        grads = [x.grad, f.grad] + [p.grad for p in module.parameters()]
+        results.append([out.detach().cpu()] + [g.detach().cpu() for g in grads])
+    for got, want in zip(results[1], results[0]):
+        assert float((got - want).norm() / want.norm()) < 1e-6
 
 
 def test_train_step_on_the_card_matches_the_cpu(card):

@@ -212,8 +212,20 @@ def test_predict_and_score(chain):
     report = score_script.main(["--run_dir", run, "--split", "val"])
     assert "EM@1" in report and "BLEU-1" in report and "CIDEr" in report
     assert report == jscore_script.main(["--run_dir", run, "--split", "val"])
-    with pytest.raises(NotImplementedError, match="A13"):
-        predict_script.main(["--run_dir", run, "--device", "cpu", "--output_attention"])
+    # --output_attention adds the twin encoder's last-layer dumps to each
+    # record, as JAX's predict does, and changes no answer
+    dumped = predict_script.main(["--run_dir", run, "--k_test", "4", "--device", "cpu",
+                                  "--output_attention"])
+    info = checkpoints.load_run_info(run)
+    lq, heads = info["question_len"], 4  # the tiny config's 4 heads
+    widths = {"2d_self_attention": lq, "3d_self_attention": lq,
+              "2d_cross_attention": (64 // 16) ** 2 + 1 + lq, "3d_cross_attention": 32 + lq}
+    for p, q in zip(dumped, preds):
+        assert p["answer_top10"] == q["answer_top10"] and p["bbox"] == q["bbox"]
+        for key, width in widths.items():
+            att = np.asarray(p[key])
+            assert att.shape == (heads, lq, width), key
+            np.testing.assert_allclose(att.sum(-1), 1.0, atol=1e-5, err_msg=key)
 
 
 def test_eval_qa_detection_repeat(chain):
@@ -242,7 +254,9 @@ def test_no_card_and_unported_options_refuse(tmp_path):
     # tensor parallelism shards over ranks: one process cannot take it
     with pytest.raises(ValueError, match="--distributed"):
         train.main(TINY + ["--tp", "2", "--output_root", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="A13"):
+    # the MCAN model reads GloVe vectors of the question (lang_feat), which
+    # no driver can give it (nor can the JAX drivers: ROADMAP C3)
+    with pytest.raises(ValueError, match="lang_feat"):
         train.main(TINY + ["--no_blip", "--output_root", str(tmp_path)])
 
 

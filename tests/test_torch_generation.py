@@ -32,6 +32,7 @@ from bridgeqa_tpu.models import med as jmed
 from bridgeqa_tpu.ops import grouping as jgrouping
 from bridgeqa_tpu_torch.convert import load_jax_variables
 from bridgeqa_tpu_torch.models import blip_vqa3d, bridgeqa, generation, med
+from bridgeqa_tpu_torch.models.layers import init_weights
 from tests.test_torch_bridgeqa import TINY_BLIP, TINY_MED, _port_cfg, _qa_batch
 
 ATOL = 1e-4
@@ -497,12 +498,21 @@ def test_uncached_generate_warns_and_skips_the_fused_gate(slice_pair, monkeypatc
 
 
 def test_other_inference_modes_name_what_is_missing(slice_pair):
-    """'loss' runs now (``tests/test_torch_train.py``); the classifier mode
-    and the MCAN path are still missing and say so, and an unknown mode is
-    refused."""
+    """'loss' runs (``tests/test_torch_train.py``); classifier mode and the
+    MCAN path build and run, taking their own heads in place of generation
+    (``tests/test_torch_classifier.py`` and ``tests/test_torch_mcan.py`` hold
+    them to JAX); an unknown mode is refused."""
     _, model, batch, _ = slice_pair
+    tbatch = {k: _t(v) for k, v in batch.items()}
+    tbatch["lang_feat"] = _t(np.random.RandomState(3).randn(2, 5, 300).astype(np.float32))
+    tbatch["lang_len"] = torch.tensor([2, 5], dtype=torch.int32)
     for change in (dict(use_text_decoder=False), dict(use_blip=False)):
-        with pytest.raises(NotImplementedError, match="classifier mode"):
-            bridgeqa.BridgeQA(dataclasses.replace(model.cfg, **change), device="cpu")
+        other = bridgeqa.BridgeQA(dataclasses.replace(model.cfg, **change), device="cpu")
+        init_weights(other, torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            out = other(tbatch, inference="generate")
+        assert "generated_ids" not in out, change
+        assert out["answer_scores"].shape == (2, model.cfg.num_answers), change
+        assert torch.isfinite(out["answer_scores"]).all(), change
     with pytest.raises(ValueError, match="'rank', 'generate' or 'loss'"):
-        model({k: _t(v) for k, v in batch.items()}, inference="classify")
+        model(tbatch, inference="classify")
