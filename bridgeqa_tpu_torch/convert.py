@@ -13,7 +13,8 @@ crossattention.self.query``), so the mapping is a walk over the flax tree:
   ``a_2``, ``b_2``, the LM head ``bias``) keeps its name and layout.
 
 ``export_jax_variables`` walks the other way, from the port's modules to a
-flax tree of numpy arrays.
+flax tree of numpy arrays: a ``Dense`` weight back to its (in, out) kernel,
+a ``Conv`` or ``PatchEmbed`` weight back to (kh, kw, in, out).
 
 A reference checkpoint (the reference's ``model.pth``) reaches the port
 through ``load_reference_checkpoint``: the port's copy of the JAX package's
@@ -27,8 +28,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from bridgeqa_tpu_torch.models.layers import (BatchNorm, Dense, Embed, LayerNorm, PatchEmbed,
-                                              refresh_compute_copies)
+from bridgeqa_tpu_torch.models.layers import (BatchNorm, Conv, Dense, Embed, LayerNorm,
+                                              PatchEmbed, refresh_compute_copies)
 from bridgeqa_tpu_torch.utils.blip_checkpoint import load_torch_checkpoint, merge_pretrained
 from bridgeqa_tpu_torch.utils.bridgeqa_checkpoint import convert_scanqa
 
@@ -88,7 +89,7 @@ def _flax_leaf(module: nn.Module, name: str, value: np.ndarray):
         return "params", "scale" if name == "weight" else name, value
     if isinstance(module, Dense) and name == "weight":
         return "params", "kernel", value.T
-    if isinstance(module, PatchEmbed) and name == "weight":
+    if isinstance(module, (Conv, PatchEmbed)) and name == "weight":
         return "params", "kernel", value.transpose(2, 3, 1, 0)
     if isinstance(module, Embed) and name == "weight":
         return "params", "embedding", value

@@ -408,3 +408,32 @@ class PatchEmbed(nn.Module):
         fan_in = self.weight[0].numel()
         _trunc_normal_(self.weight, math.sqrt(1.0 / fan_in) / 0.87962566103423978, generator)
         self.bias.zero_()
+
+
+class Conv(nn.Module):
+    """``flax.linen.Conv`` over channel-last (B, H, W, C) tensors: ``weight``
+    has the torch conv layout (out, in, kh, kw), the transposed flax
+    ``kernel`` (kh, kw, in, out). ``padding`` (ph, pw) pads both sides of H
+    by ph and of W by pw (flax's explicit pairs, when they are symmetric).
+    The convolution is ``F.conv2d`` on a channels-last view of the input;
+    it computes in the parameters' dtype."""
+
+    def __init__(self, in_chans: int, out_chans: int, kernel: tuple, stride: int = 1,
+                 padding: tuple = (0, 0), dilation: int = 1, bias: bool = True):
+        super().__init__()
+        self.stride, self.padding, self.dilation = stride, tuple(padding), dilation
+        self.weight = nn.Parameter(torch.empty(out_chans, in_chans, *kernel))
+        self.bias = nn.Parameter(torch.zeros(out_chans)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias, self.stride, self.padding,
+                     self.dilation)
+        return y.permute(0, 2, 3, 1)
+
+    @torch.no_grad()
+    def init_weights_(self, generator: torch.Generator) -> None:
+        """flax's default ``lecun_normal`` kernel and zero bias."""
+        fan_in = self.weight[0].numel()
+        _trunc_normal_(self.weight, math.sqrt(1.0 / fan_in) / 0.87962566103423978, generator)
+        if self.bias is not None:
+            self.bias.zero_()

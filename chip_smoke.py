@@ -201,6 +201,36 @@ result is printed):
      and the exact-mode detector (indices bitwise).
    Launch counts zeroed just before each path and read just after must be
    as derived; the phase's seconds are printed.
+11. the offline tools (``phase_tools``):
+   - BLIP-ITM base at 384 px in f32, as the JAX tool builds it: the fused
+     ViT's kernels at its shape (64 frames of 577 tokens, 36928 rows; f32
+     instantiations) against their plain versions, each within 1e-3 of its
+     own largest output, with card, plain and library time and bound; the
+     tower three ways on 64 frames (the kernels, the fused blocks through
+     the plain versions, the module loop), each image within 1% relative
+     L2 of the kernels'; the launches of one ``encode_images`` as derived
+     (GEMM 48, ViT attention 12, LayerNorm 25);
+   - view selection at full width (``select_best_views``: 2 synthetic
+     scenes of 96 frames, two image batches a scene, the second padded; 16
+     questions; the rule-based composer): 4 ``encode_images``' launches,
+     frames/s and ms a scene, the i2tfile through ``load_scene_view_map``
+     and ``make_view_lookup``, ``itm_scores`` at batch 8 finite; the
+     ``view_select`` driver at full width;
+   - ENet at 256x328, batch 32, f32 (ms a batch, frames/s) and the
+     ``compute_multiview_features`` driver; the projection of a 50000-point
+     scene into 64 views of 41x32x128 features (ms) and the
+     ``project_multiview_{features,labels,color}`` drivers;
+   - ``verify_parity`` on a fabricated detector checkpoint (no parameter
+     skipped, corners (256, 8, 3), the exact query 5 launches),
+     ``profile_train`` at batch 16 with 3 reps a phase, ``profile_loader``
+     briefly;
+   - the tiny configs card against CPU, same weights, f32 with TF32 off:
+     BLIP-ITM within 1e-4, view selection's rankings equal wherever two
+     frames' cosines differ by more than 1e-4, ENet within 1e-4 of its
+     largest output, the projection's uv and valid (and the features, votes
+     and colours after them) equal off the points within 1e-4 of a rounding
+     tie.
+   The phase's seconds and, at the end, the whole run's are printed.
 
 Bounds: the least time the card could take for a kernel's work, the larger
 of the bytes it must move (each input read once, each output written once)
@@ -219,8 +249,10 @@ detector for the exact query;
 step, a step of the ``train`` script's loop, an eval batch of the ``eval``
 script, on each rank of phase 9 a DDP step, a ``tp=2`` step and a sharded
 eval batch, and phase 10's exact detector, MCAN forward, MCAN train step
-and classifier forward; the exact query's ``launches`` from the exact
-detector) and ``{"ok": true, "device": {...}}``.
+and classifier forward, and phase 11's one ``encode_images`` of view
+selection, "view select"; the exact query's ``launches`` from the exact
+detector; the ViT's three kernels also carry their f32 rows at BLIP-ITM's
+shape, ``itm_f32_shapes``) and ``{"ok": true, "device": {...}}``.
 """
 
 import copy
@@ -415,8 +447,14 @@ def make_cloud(rng: np.random.RandomState, b: int, n: int) -> np.ndarray:
 def phase_device():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port's kernels run only on the card")
-    import bridgeqa_tpu_torch.models.bridgeqa  # noqa: F401  (fails outside the repository)
+    import importlib
+    import pkgutil
 
+    import bridgeqa_tpu_torch  # fails outside the repository
+
+    # every module of the port, the tools' and drivers' included
+    for mod in pkgutil.walk_packages(bridgeqa_tpu_torch.__path__, "bridgeqa_tpu_torch."):
+        importlib.import_module(mod.name)
     foreign = sorted(m for m in sys.modules if m in ("jax", "bridgeqa_tpu")
                      or m.startswith(("jax.", "bridgeqa_tpu.")))
     if foreign:
@@ -3359,6 +3397,635 @@ def phase_nonmain(device, reps: int = 5) -> dict:
     return record, paths
 
 
+# ------------------------------------------------------------------ phase 11
+
+ITM_IMAGE = 384  # BLIP-ITM base, the view-selection tool's default
+ITM_TOKENS = (ITM_IMAGE // 16) ** 2 + 1
+ITM_FRAMES = 64  # one image batch of the tool
+ITM_ROWS = ITM_FRAMES * ITM_TOKENS
+ITM_KERNEL_TOL = 1e-3  # of each kernel's largest output, f32 against its plain version
+ITM_TOWER_TOL = 0.01  # relative L2 error of each image's tower output
+VIEW_SCENES, VIEW_FRAMES, VIEW_QUESTIONS = 2, 96, 16
+ENET_BATCH = 32
+ENET_H, ENET_W = 256, 328
+PROJ_POINTS, PROJ_VIEWS = 50000, 64
+TOOLS_DIR = OUT_DIR / "tools"
+PROFILE_TRAIN_REPS = 3
+# card against CPU at the tiny configs, f32 with TF32 off on both
+TINY_ITM_TOL = 1e-4  # features, cosines and logits, absolute
+TINY_ENET_TOL = 1e-4  # of the largest feature
+TINY_TIE_TOL = 1e-4  # of a half-integer before rounding, of a cosine between frames
+
+
+def itm_config(tiny: bool):
+    from bridgeqa_tpu_torch.models.blip_itm import BlipITMConfig
+    from bridgeqa_tpu_torch.models.med import MedConfig
+
+    if not tiny:
+        return BlipITMConfig(image_size=ITM_IMAGE)
+    med = MedConfig(vocab_size=200, hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+                    intermediate_size=128, max_position_embeddings=64, encoder_width=128)
+    return BlipITMConfig(med=med, image_size=48, vit="custom", embed_dim=32,
+                         vit_custom_embed_dim=128, vit_custom_depth=2, vit_custom_heads=2)
+
+
+def build_itm(cfg, device, seed: int):
+    """BLIP-ITM in f32 (as the JAX tool builds it) with weights from
+    ``seed`` and every bias and LayerNorm parameter perturbed."""
+    from bridgeqa_tpu_torch.models.blip_itm import BLIPITM
+    from bridgeqa_tpu_torch.models.layers import init_weights
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return perturb_affine(init_weights(BLIPITM(cfg, device=device), gen), gen)
+
+
+def expected_encode_launches(depth: int) -> dict:
+    """The kernels one ``encode_images`` launches: every ViT block's, and
+    the final LayerNorm."""
+    from bridgeqa_tpu_torch.ops import vit_block as vb
+
+    want = {k: n * depth for k, n in vb.LAUNCHES_PER_BLOCK.items()}
+    want["scoring_layernorm"] += 1
+    return {k: want.get(k, 0) for k in read_launches()}
+
+
+def itm_kernel_rows(device, reps: int = 3) -> tuple[dict, list]:
+    """The fused ViT's kernels in f32 at the ITM shape (64 frames of 577
+    tokens) against their plain versions: each within ``ITM_KERNEL_TOL`` of
+    its own largest output; card time (``device_ms``), plain and library
+    time, bound. Returns ({kernel: rows}, failures)."""
+    from bridgeqa_tpu_torch.ops import scoring_layer as sl
+    from bridgeqa_tpu_torch.ops import vit_block as vb
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    rows, failures = {"scoring_gemm": [], "vit_attention": [], "scoring_layernorm": []}, []
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=device) * scale
+
+    def row(name, shape, got, want, fn, plain, library, flops, nbytes, calls):
+        err = max_err(got, want)
+        tol = ITM_KERNEL_TOL * float(want.abs().max())
+        if not err <= tol:
+            failures.append(f"{name} {shape}: f32 error {err} over {tol}")
+        ms, plain_ms, lib_ms = device_ms(fn, reps), device_ms(plain, 1), device_ms(library, reps)
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_F32)
+        rows[name].append(dict(shape=shape, calls=calls, max_abs_err=err, tolerance=tol, ms=ms,
+                               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                               bound_by=bound_by))
+        log(f"ITM f32 {name} {shape}: err {err:.3g} (tol {tol:.3g}); kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
+            f"{calls} calls an encode")
+
+    h = HIDDEN
+    for name, k, n, gelu, with_res in VIT_GEMM_SHAPES:
+        x, w, b = randn(ITM_ROWS, k), randn(n, k, scale=0.02), randn(n, scale=0.5)
+        res = randn(ITM_ROWS, n, scale=2.0) if with_res else None
+        row("scoring_gemm", f"{name}: ({ITM_ROWS}, {k}) x ({n}, {k})^T",
+            sl.scoring_gemm(x, w, b, gelu, res), sl.scoring_gemm_plain(x, w, b, gelu, res),
+            lambda: sl.scoring_gemm(x, w, b, gelu, res),
+            lambda: sl.scoring_gemm_plain(x, w, b, gelu, res), lambda: F.linear(x, w, b),
+            2.0 * ITM_ROWS * n * k, 4 * (ITM_ROWS * k + n * k + n
+                                         + ITM_ROWS * n * (2 if with_res else 1)), 12)
+        del x, w, b, res
+    qkv = randn(ITM_FRAMES, ITM_TOKENS, 3 * h)
+    q, k, v = qkv.view(ITM_FRAMES, ITM_TOKENS, 3, VIT_HEADS, h // VIT_HEADS).permute(2, 0, 3, 1, 4)
+    got, want = vb.vit_attention(qkv, heads=VIT_HEADS), vb.vit_attention_plain(qkv, heads=VIT_HEADS)
+    row("vit_attention", f"({ITM_FRAMES}, {ITM_TOKENS}, {3 * h}), {VIT_HEADS} heads of 64",
+        got, want, lambda: vb.vit_attention(qkv, heads=VIT_HEADS),
+        lambda: vb.vit_attention_plain(qkv, heads=VIT_HEADS),
+        lambda: F.scaled_dot_product_attention(q, k, v),
+        4.0 * ITM_FRAMES * VIT_HEADS * ITM_TOKENS ** 2 * (h // VIT_HEADS),
+        4 * ITM_FRAMES * ITM_TOKENS * 4 * h, 12)
+    rel = head_rel_l2(got, want, VIT_HEADS)
+    log(f"ITM f32 vit_attention: max relative L2 error per image and head {rel:.3g}")
+    del qkv, q, k, v, got, want
+    a, r = randn(ITM_ROWS, h), randn(ITM_ROWS, h, scale=2.0)
+    scale, shift = randn(h, scale=0.5) + 1.0, randn(h, scale=0.5)
+    row("scoring_layernorm", f"LN1 and final norm: ({ITM_ROWS}, {h})",
+        sl.add_layernorm(a, None, scale, shift, 1e-6),
+        sl.add_layernorm_plain(a, None, scale, shift, 1e-6),
+        lambda: sl.add_layernorm(a, None, scale, shift, 1e-6),
+        lambda: sl.add_layernorm_plain(a, None, scale, shift, 1e-6),
+        lambda: F.layer_norm(a, (h,), scale, shift, 1e-6), 8.0 * ITM_ROWS * h,
+        4 * 2 * ITM_ROWS * h + 8 * h, 13)
+    (gsum, got), (wsum, want) = (sl.add_layernorm(a, r, scale, shift, 1e-6, keep_sum=True),
+                                 sl.add_layernorm_plain(a, r, scale, shift, 1e-6, keep_sum=True))
+    if not torch.equal(gsum, wsum):
+        failures.append("scoring_layernorm LN2: the kept sum is not bitwise a + r")
+    row("scoring_layernorm", f"LN2 keeping the sum: ({ITM_ROWS}, {h}) + ({ITM_ROWS}, {h})",
+        got, want, lambda: sl.add_layernorm(a, r, scale, shift, 1e-6, keep_sum=True),
+        lambda: sl.add_layernorm_plain(a, r, scale, shift, 1e-6, keep_sum=True),
+        lambda: F.layer_norm(a + r, (h,), scale, shift, 1e-6), 10.0 * ITM_ROWS * h,
+        4 * 4 * ITM_ROWS * h + 8 * h, 12)
+    del a, r, gsum, got, wsum, want
+    torch.cuda.empty_cache()
+    return rows, failures
+
+
+def itm_tower(device, model, images) -> tuple[dict, list]:
+    """The image tower three ways on the same frames: the kernels
+    (``vit_block.FUSED_MODE`` "auto"), the fused blocks through their plain
+    versions, and the module loop ("off"); each image's output within
+    ``ITM_TOWER_TOL`` relative of the kernels'. Returns (the launches of one
+    ``encode_images``, failures)."""
+    from bridgeqa_tpu_torch.ops import scoring_layer as sl
+    from bridgeqa_tpu_torch.ops import vit_block as vb
+
+    vit, failures = model.visual_encoder, []
+    norm = vit.norm
+
+    def plain_tower():
+        x = vb.fused_vit_blocks(vit, vit.embed(images), block=vb.vit_block_plain)
+        return sl.add_layernorm_plain(x.reshape(-1, vit.embed_dim), None, norm.weight,
+                                      norm.bias, norm.eps).reshape(x.shape)
+
+    def module_tower():
+        try:
+            vb.FUSED_MODE = "off"
+            return vit(images)
+        finally:
+            vb.FUSED_MODE = "auto"
+
+    with torch.inference_mode():
+        reset_launches()
+        model.encode_images(images)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = expected_encode_launches(len(vit.blocks))
+        if launches != want:
+            failures.append(f"encode_images launches {launches}, derived {want}")
+        got = vit(images).float().flatten(1)
+        times = {"kernels": time_ms(lambda: vit(images), 1), "plain": time_ms(plain_tower, 1),
+                 "module loop": time_ms(module_tower, 1)}
+        errs = {}
+        for name, fn in (("plain", plain_tower), ("module loop", module_tower)):
+            ref = fn().float().flatten(1)
+            errs[name] = float(((got - ref).norm(dim=1) / ref.norm(dim=1)).max())
+            if not errs[name] <= ITM_TOWER_TOL:
+                failures.append(f"ITM tower, kernels against {name}: {errs[name]} relative")
+            del ref
+    frames_s = {k: ITM_FRAMES / (v / 1e3) for k, v in times.items()}
+    log(f"ITM tower (ViT-B/16 at {ITM_IMAGE} px, f32, {ITM_FRAMES} frames of {ITM_TOKENS} "
+        f"tokens): kernels {times['kernels']:.1f} ms, fused blocks through the plain versions "
+        f"{times['plain']:.1f} ms, module loop {times['module loop']:.1f} ms; frames/s "
+        f"{json.dumps({k: round(v, 1) for k, v in frames_s.items()})}; max relative L2 error "
+        f"per image against the kernels {json.dumps(errs)} (tol {ITM_TOWER_TOL}); launches per "
+        f"encode_images {json.dumps({k: n for k, n in launches.items() if n})}")
+    return launches, failures
+
+
+class _FramePool:
+    """A ``SceneViewsPool`` stand-in for the view lookup's round trip: a
+    frame's "image" is its number (the card's machine reads no JPEG)."""
+
+    def get(self, scene_id, name):
+        return np.float32(name[:-4]), np.zeros((2, 2), np.float32), np.eye(4, dtype=np.float32)
+
+
+def view_selection(device, model) -> list:
+    """``select_best_views`` at full width: ``VIEW_SCENES`` synthetic scenes
+    of ``VIEW_FRAMES`` frames at 384 px (two image batches a scene, the
+    second padded), ``VIEW_QUESTIONS`` questions and the rule-based
+    composer; the launches of 2 x 2 ``encode_images``; the i2tfile through
+    ``load_scene_view_map`` and ``make_view_lookup``; ``itm_scores`` at batch
+    8 finite. Then the ``view_select`` driver at full width."""
+    from bridgeqa_tpu_torch.data import views
+    from bridgeqa_tpu_torch.data.sources import synthetic_records, synthetic_tokenizer
+    from bridgeqa_tpu_torch.scripts import view_select as view_script
+    from bridgeqa_tpu_torch.tools import compose_decl
+    from bridgeqa_tpu_torch.tools.view_select import save_i2tfile, select_best_views
+
+    failures = []
+    records = synthetic_records(VIEW_QUESTIONS, num_scenes=VIEW_SCENES)
+    tokenizer = synthetic_tokenizer()
+    decl = compose_decl.compose_declarations(records, str(TOOLS_DIR / "decl.json"),
+                                             resume=False)
+    frames = view_script.SyntheticFrames(ITM_IMAGE, VIEW_FRAMES)
+    batches = VIEW_SCENES * -(-VIEW_FRAMES // ITM_FRAMES)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    i2t = select_best_views(model, records, tokenizer, frames, decl_map=decl,
+                            image_batch=ITM_FRAMES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {k: n * batches for k, n in expected_encode_launches(len(model.visual_encoder.blocks)).items()}
+    if launches != want:
+        failures.append(f"view selection launches {launches}, derived {want}")
+    path = TOOLS_DIR / "i2t.json"
+    save_i2tfile(i2t, str(path))
+    loaded = views.load_scene_view_map(str(path))
+    lookup = views.make_view_lookup(_FramePool(), loaded, topk=3)
+    bad = [r["question_id"] for r in records
+           if lookup(r["scene_id"], str(r["question_id"]))[0].tolist()
+           != [int(n[:-4]) for n in i2t["view"][str(r["question_id"])][:3]]]
+    if loaded != i2t["view"] or len(loaded) != VIEW_QUESTIONS or bad:
+        failures.append(f"i2tfile round trip: {len(loaded)} questions, lookups differ for {bad}")
+    if any(len(v) != VIEW_FRAMES or sorted(s, reverse=True) != s
+           for v, s in zip(i2t["view"].values(), i2t["itm_scores"].values())):
+        failures.append("view selection: a ranking is not every frame, best first")
+    ids, mask = tokenizer.encode_batch([decl[str(r["question_id"])] for r in records[:8]], 40)
+    with torch.inference_mode():
+        _, images = frames(records[0]["scene_id"])
+        logits = model.itm_scores(torch.from_numpy(images[:8]).to(device),
+                                  torch.from_numpy(ids).to(device),
+                                  torch.from_numpy(mask).to(device))
+    if logits.shape != (8, 2) or not bool(torch.isfinite(logits).all()):
+        failures.append(f"itm_scores: {tuple(logits.shape)}, finite "
+                        f"{bool(torch.isfinite(logits).all())}")
+    log(f"view selection ({VIEW_SCENES} scenes x {VIEW_FRAMES} frames at {ITM_IMAGE} px, "
+        f"{VIEW_QUESTIONS} questions, {batches} image batches of {ITM_FRAMES}): {wall:.2f} s, "
+        f"{VIEW_SCENES * VIEW_FRAMES / wall:.1f} frames/s, {wall / VIEW_SCENES * 1e3:.0f} ms a "
+        f"scene; launches {json.dumps({k: n for k, n in launches.items() if n})}; itm_scores at "
+        f"batch 8 {tuple(logits.shape)}, finite")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out = view_script.main(["--synthetic", "--device", "cuda",
+                            "--out", str(TOOLS_DIR / "driver_i2t.json")])
+    launches = read_launches()
+    n_batches = len({r["scene_id"] for r in synthetic_records(8)})
+    want = {k: n * n_batches for k, n in expected_encode_launches(12).items()}
+    if launches != want or len(out["view"]) != 8:
+        failures.append(f"view_select driver: {len(out['view'])} questions, launches {launches}, "
+                        f"derived {want}")
+    log(f"view_select driver (--synthetic, base at {ITM_IMAGE} px): {len(out['view'])} "
+        f"questions in {time.perf_counter() - t0:.1f} s with the model's build")
+    return failures
+
+
+def enet_and_projection(device) -> list:
+    """ENet's encoder at 256x328, batch 32, f32, and the projection of a
+    ``PROJ_POINTS``-point scene into ``PROJ_VIEWS`` views of 41x32x128
+    features: times; then their drivers on synthetic data."""
+    from bridgeqa_tpu_torch.models.enet import ENetEncoder
+    from bridgeqa_tpu_torch.models.layers import init_weights
+    from bridgeqa_tpu_torch.scripts import (compute_multiview_features,
+                                            project_multiview_color,
+                                            project_multiview_features,
+                                            project_multiview_labels)
+    from bridgeqa_tpu_torch.tools import projection
+
+    failures = []
+    gen = torch.Generator(device=device).manual_seed(12)
+    encoder = init_weights(ENetEncoder(device), gen)
+    frames = torch.rand(ENET_BATCH, ENET_H, ENET_W, 3, generator=gen, device=device)
+    with torch.inference_mode():
+        feats = encoder(frames)
+        ms = time_ms(lambda: encoder(frames), 5)
+    if feats.shape != (ENET_BATCH, ENET_H // 8, ENET_W // 8, 128) or not bool(
+            torch.isfinite(feats).all()):
+        failures.append(f"ENet: {tuple(feats.shape)}")
+    log(f"ENet encoder (batch {ENET_BATCH} at {ENET_H}x{ENET_W}, f32, cuDNN): {ms:.2f} ms a "
+        f"batch, {ENET_BATCH / ms * 1e3:.1f} frames/s; features {tuple(feats.shape)}")
+    del encoder, frames, feats
+
+    # the scene: points in a 6 x 6 x 3 m room, cameras at 1.5 m looking
+    # across it, each depth map the nearest point it sees (so hits are real)
+    rng = np.random.RandomState(13)
+    w, h = projection.FEATURE_DIMS
+    intr = projection.adjust_intrinsic(np.array([[577.870605, 0, 319.5, 0],
+                                                 [0, 577.870605, 239.5, 0], [0, 0, 1, 0],
+                                                 [0, 0, 0, 1]]), (640, 480), (w, h))
+    points = (rng.rand(PROJ_POINTS, 3) * [6.0, 6.0, 3.0]).astype(np.float32)
+    poses = np.zeros((PROJ_VIEWS, 4, 4), np.float32)
+    for k in range(PROJ_VIEWS):
+        yaw = 2 * np.pi * k / PROJ_VIEWS
+        fwd = np.array([np.cos(yaw), np.sin(yaw), 0.0])
+        down = np.array([0.0, 0.0, -1.0])
+        right = np.cross(down, fwd)
+        poses[k, :3, :3] = np.stack([right, down, fwd], 1)
+        poses[k, :3, 3] = [3.0 - 2.0 * fwd[0], 3.0 - 2.0 * fwd[1], 1.5]
+        poses[k, 3, 3] = 1.0
+    helper = projection.ProjectionHelper(intr)
+    pts, pose_t = torch.from_numpy(points).to(device), torch.from_numpy(poses).to(device)
+    with torch.inference_mode():
+        pcam = (torch.cat([pts, torch.ones_like(pts[:, :1])], 1)
+                @ torch.linalg.inv(pose_t).transpose(1, 2))[..., :3]
+        z = pcam[..., 2]
+        safe_z = torch.where(z.abs() < 1e-6, 1e-6, z)
+        u = torch.round(float(intr[0, 0]) * pcam[..., 0] / safe_z + float(intr[0, 2]))
+        v = torch.round(float(intr[1, 1]) * pcam[..., 1] / safe_z + float(intr[1, 2]))
+        seen_by = ((u >= 0) & (u < w) & (v >= 0) & (v < h) & (z >= projection.DEPTH_MIN)
+                   & (z <= projection.DEPTH_MAX))
+        pixel = (v.clamp(0, h - 1) * w + u.clamp(0, w - 1)).long()
+        depth = torch.full((PROJ_VIEWS, h * w), 1e9, device=device)
+        depth.scatter_reduce_(1, pixel, torch.where(seen_by, z, 1e9), "amin")
+        depth = depth.view(PROJ_VIEWS, h, w)
+        depth = torch.where(depth < 1e9, depth, 0.0)
+        features = torch.rand(PROJ_VIEWS, h, w, 128, generator=gen, device=device)
+        out = projection.project_scene_multiview(helper, pts, pose_t, depth, features)
+        _, valid = helper.project(pts, pose_t, depth)
+        ms = time_ms(lambda: projection.project_scene_multiview(helper, pts, pose_t, depth,
+                                                                features), 5)
+    seen = float((valid.any(0)).float().mean())
+    if out.shape != (PROJ_POINTS, 128) or not bool(torch.isfinite(out).all()) or seen == 0:
+        failures.append(f"projection: {tuple(out.shape)}, {seen} of the points seen")
+    log(f"projection ({PROJ_POINTS} points, {PROJ_VIEWS} views of {w}x{h}x128, maxpool): "
+        f"{ms:.2f} ms; {int(valid.sum())} hits, {seen:.1%} of the points seen by a view")
+    del depth, features, out, valid, pcam, z, u, v, pixel, seen_by
+
+    t0 = time.perf_counter()
+    n = compute_multiview_features.main(["--synthetic", "--device", "cuda",
+                                         "--out", str(TOOLS_DIR / "multiview")])
+    files = sorted((TOOLS_DIR / "multiview").rglob("*.npy"))
+    shapes = {np.load(f).shape for f in files}
+    if n != 8 or len(files) != 8 or shapes != {(ENET_H // 8, ENET_W // 8, 128)}:
+        failures.append(f"compute_multiview_features: {n} frames, {len(files)} files {shapes}")
+    for mod, extra in ((project_multiview_features, []),
+                       (project_multiview_labels, ["--what", "labels"]),
+                       (project_multiview_color, [])):
+        name = mod.__name__.rsplit(".", 1)[-1]
+        out_dir = TOOLS_DIR / name
+        n = mod.main(["--synthetic", "--device", "cuda", "--out", str(out_dir)] + extra)
+        arr = np.load(out_dir / "synth0000_00.npy")
+        if n != 1 or not np.isfinite(arr).all():
+            failures.append(f"{name}: {n} scenes, finite {np.isfinite(arr).all()}")
+        log(f"{name} driver: {arr.shape} {arr.dtype}")
+    log(f"multiview drivers: {time.perf_counter() - t0:.1f} s")
+    return failures
+
+
+def reference_detector_state_dict(tree, seed: int) -> dict:
+    """A reference checkpoint's detector (the ScanQA module names, torch
+    layouts) at the shapes of ``tree``, a DET-stage model's
+    ``export_jax_variables``, drawn from ``seed``: the detector part of
+    ``tests/test_torch_converters.py::_RefStateDict``."""
+    rng = np.random.RandomState(seed)
+    sd = {}
+
+    def draw(shape, scale=0.05):
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    def conv1x1(key, node):
+        cin, cout = node["kernel"].shape
+        sd[f"{key}.weight"] = draw((cout, cin, 1))
+        if "bias" in node:
+            sd[f"{key}.bias"] = draw(node["bias"].shape)
+
+    def norm(key, node):
+        n = node["scale"].shape
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = 1.0 + draw(n, 0.1), draw(n, 0.1)
+        sd[f"{key}.running_mean"] = draw(n, 0.3)
+        sd[f"{key}.running_var"] = rng.uniform(0.5, 2.0, n).astype(np.float32)
+
+    def shared_mlp(prefix, node):
+        j = 0
+        while f"layer{j}" in node:
+            conv1x1(f"{prefix}.layer{j}.conv", node[f"layer{j}"])
+            norm(f"{prefix}.layer{j}.bn.bn", node[f"bn{j}"])
+            j += 1
+
+    p = tree["params"]["detector"]
+    for name in ("sa1", "sa2", "sa3", "sa4"):
+        shared_mlp(f"detection_backbone.{name}.mlp_module", p["backbone_net"][name]["mlp_module"])
+    for name in ("fp1", "fp2"):
+        shared_mlp(f"detection_backbone.{name}.mlp", p["backbone_net"][name]["mlp"])
+    for i in (1, 2, 3):
+        conv1x1(f"voting_net.conv{i}", p["vgen"][f"conv{i}"])
+    for i in (1, 2):
+        norm(f"voting_net.bn{i}", p["vgen"][f"bn{i}"])
+    prop = p["proposal"]
+    shared_mlp("proposal_net.vote_aggregation.mlp_module", prop["vote_aggregation"]["mlp_module"])
+    conv1x1("proposal_net.proposal.0", prop["proposal_mlp"]["layer0"])
+    norm("proposal_net.proposal.1", prop["proposal_mlp"]["bn0"])
+    conv1x1("proposal_net.proposal.3", prop["proposal_mlp"]["layer1"])
+    norm("proposal_net.proposal.4", prop["proposal_mlp"]["bn1"])
+    conv1x1("proposal_net.proposal.6", prop["proposal_out"])
+    return sd
+
+
+def parity_and_profilers(device) -> list:
+    """``verify_parity`` on a fabricated detector checkpoint (20000
+    synthetic points, 256 proposals, the exact query on the card), then
+    ``profile_train`` at batch 16 with ``PROFILE_TRAIN_REPS`` reps a phase
+    and ``profile_loader`` briefly."""
+    from bridgeqa_tpu_torch.convert import export_jax_variables
+    from bridgeqa_tpu_torch.models.bridgeqa import BridgeQA, BridgeQAConfig
+    from bridgeqa_tpu_torch.ops import grouping
+    from bridgeqa_tpu_torch.scripts import profile_loader, profile_train, verify_parity
+
+    failures = []
+    det = BridgeQA(BridgeQAConfig(num_answers=1, stage="DET"), device="cpu")
+    sd = reference_detector_state_dict(export_jax_variables(det), seed=3)
+    ckpt = TOOLS_DIR / "detector.pth"
+    torch.save({"model": {f"module.{k}": torch.from_numpy(v) for k, v in sd.items()}}, ckpt)
+    reset_launches()
+    t0 = time.perf_counter()
+    report = verify_parity.main(["--checkpoint", str(ckpt), "--synthetic", "--device", "cuda",
+                                 "--out", str(TOOLS_DIR / "parity_report.json")])
+    launches = read_launches()
+    corners = np.asarray(report["bbox_corners"])
+    if (report["params_skipped"] or report["params_loaded"] != len(sd)
+            or corners.shape != (256, 8, 3) or not np.isfinite(corners).all()
+            or launches["ball_query_exact"] != 5 or launches["ball_query_stripes"] != 0
+            or grouping.FORCE_MODE is not None):
+        failures.append(f"verify_parity: loaded {report['params_loaded']} of {len(sd)}, skipped "
+                        f"{report['params_skipped'][:3]}, corners {corners.shape}, launches "
+                        f"{launches}")
+    log(f"verify_parity (fabricated detector checkpoint, 20000 points): {report['params_loaded']}"
+        f" arrays loaded, {len(report['params_skipped'])} skipped, {report['num_boxes_kept']} "
+        f"boxes kept, {time.perf_counter() - t0:.1f} s; launches "
+        f"{json.dumps({k: n for k, n in launches.items() if n})}")
+
+    t0 = time.perf_counter()
+    reps, profile_train.REPS = profile_train.REPS, PROFILE_TRAIN_REPS
+    try:
+        results = profile_train.main(["--batch", "16", "--device", "cuda"])
+    finally:
+        profile_train.REPS = reps
+    if set(results) != set(profile_train.PHASES) or not all(t > 0 for t in results.values()):
+        failures.append(f"profile_train: {results}")
+    log(f"profile_train (batch 16, {PROFILE_TRAIN_REPS} reps a phase): "
+        f"{time.perf_counter() - t0:.1f} s with the model's build")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    sps = profile_loader.main(["--device", "cuda", "--batch", "4", "--num_workers", "2",
+                               "--min_samples", "16"])
+    if not sps > 0:
+        failures.append(f"profile_loader: {sps} samples/s")
+    log(f"profile_loader (batch 4, 2 workers, 16 samples): {time.perf_counter() - t0:.1f} s")
+    return failures
+
+
+def _tie_free(helper, points, poses):
+    """(N,) True for the points whose u and v, before rounding, lie more
+    than ``TINY_TIE_TOL`` from a half-integer in every view (CPU, f32)."""
+    intr = torch.as_tensor(helper.intrinsic)
+    pcam = (torch.cat([points, torch.ones_like(points[:, :1])], 1)
+            @ torch.linalg.inv(poses).transpose(1, 2))[..., :3]
+    z = torch.where(pcam[..., 2].abs() < 1e-6, 1e-6, pcam[..., 2])
+    pre = torch.stack([intr[0, 0] * pcam[..., 0] / z + intr[0, 2],
+                       intr[1, 1] * pcam[..., 1] / z + intr[1, 2]], -1)
+    return ((pre - pre.floor() - 0.5).abs() > TINY_TIE_TOL).all(-1).all(0)
+
+
+def tools_reference(device) -> list:
+    """The tiny configs on the card against the CPU, same weights, f32 (TF32
+    off): BLIP-ITM's features, cosines and logits within ``TINY_ITM_TOL``
+    (the fused ViT forced on the CPU, the kernels on the card); view
+    selection's rankings equal wherever two frames' cosines differ by more
+    than ``TINY_TIE_TOL``; ENet within ``TINY_ENET_TOL`` of its largest
+    feature; the projection's uv and valid equal and its features, label
+    votes and colours equal on the points no view rounds on a tie."""
+    from bridgeqa_tpu_torch.data.sources import synthetic_records, synthetic_tokenizer
+    from bridgeqa_tpu_torch.models.enet import create_enet_for_3d
+    from bridgeqa_tpu_torch.models.layers import init_weights
+    from bridgeqa_tpu_torch.ops import vit_block as vb
+    from bridgeqa_tpu_torch.scripts import project_multiview_labels as labels
+    from bridgeqa_tpu_torch.tools import projection
+    from bridgeqa_tpu_torch.tools.view_select import select_best_views
+
+    failures, errs, cpu = [], {}, torch.device("cpu")
+    cpu_itm = build_itm(itm_config(tiny=True), cpu, seed=14)
+    card_itm = copy.deepcopy(cpu_itm).to(device)
+    rng = np.random.RandomState(14)
+    images = rng.rand(3, 48, 48, 3).astype(np.float32)
+    ids = rng.randint(1, 200, (3, 12)).astype(np.int32)
+    mask = np.ones((3, 12), np.int32)
+    mask[1, 7:] = 0
+
+    def itm_outputs(model, dev):
+        args = [torch.from_numpy(a).to(dev) for a in (images, ids, mask)]
+        with torch.inference_mode():
+            return {"encode_images": model.encode_images(args[0]),
+                    "encode_texts": model.encode_texts(*args[1:]),
+                    "itc_scores": model(*args), "itm_scores": model(*args, match_head="itm")}
+
+    try:
+        vb.FUSED_MODE = "force"
+        want = itm_outputs(cpu_itm, cpu)
+    finally:
+        vb.FUSED_MODE = "auto"
+    reset_launches()
+    got = itm_outputs(card_itm, device)
+    if read_launches()["vit_attention"] != 3 * 2:
+        failures.append("tiny ITM: the ViT's kernels did not run on the card")
+    for key in want:
+        errs[key] = max_err(got[key].cpu(), want[key])
+        if not errs[key] <= TINY_ITM_TOL:
+            failures.append(f"tiny ITM {key}: {errs[key]}")
+
+    records = synthetic_records(6, num_scenes=2)
+
+    def frames(scene_id):
+        r = np.random.RandomState(sum(map(ord, scene_id)))
+        return [f"{i * 20}.jpg" for i in range(7)], r.rand(7, 48, 48, 3).astype(np.float32)
+
+    try:
+        vb.FUSED_MODE = "force"
+        want_i2t = select_best_views(cpu_itm, records, synthetic_tokenizer(), frames,
+                                     image_batch=4, text_len=12)
+    finally:
+        vb.FUSED_MODE = "auto"
+    got_i2t = select_best_views(card_itm, records, synthetic_tokenizer(), frames, image_batch=4,
+                                text_len=12)
+    for qid, names in want_i2t["view"].items():
+        score = dict(zip(names, want_i2t["itm_scores"][qid]))
+        rank = {n: i for i, n in enumerate(got_i2t["view"][qid])}
+        if any(score[a] > score[b] + TINY_TIE_TOL and rank[a] > rank[b]
+               for a in names for b in names):
+            failures.append(f"tiny view selection: question {qid} ranked otherwise")
+    errs["view scores"] = max(float(np.abs(np.subtract(got_i2t["itm_scores"][q],
+                                                       want_i2t["itm_scores"][q])).max())
+                              for q in want_i2t["itm_scores"])
+    del cpu_itm, card_itm
+
+    gen = torch.Generator().manual_seed(15)
+    cpu_enc, cpu_cls = create_enet_for_3d(41, device=cpu)
+    for m in (cpu_enc, cpu_cls):
+        init_weights(m, gen)
+    with torch.no_grad():  # random statistics and slopes, so none hides
+        for m in cpu_enc.modules():
+            if hasattr(m, "running_var"):
+                m.running_mean.normal_(0.0, 0.2, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+                m.weight.normal_(1.0, 0.2, generator=gen)
+                m.bias.normal_(0.0, 0.2, generator=gen)
+            elif hasattr(m, "alpha"):
+                m.alpha.uniform_(0.0, 0.5, generator=gen)
+    card_enc, card_cls = copy.deepcopy(cpu_enc).to(device), copy.deepcopy(cpu_cls).to(device)
+    x = torch.rand(2, 48, 64, 3, generator=gen)
+    with torch.inference_mode():
+        want = cpu_cls(cpu_enc(x))
+        got = card_cls(card_enc(x.to(device))).cpu()
+    errs["enet"] = max_err(got, want) / float(want.abs().max())
+    if not errs["enet"] <= TINY_ENET_TOL:
+        failures.append(f"tiny ENet: {errs['enet']} of the largest logit")
+
+    w, h = projection.FEATURE_DIMS
+    intr = np.eye(4)
+    intr[0, 0] = intr[1, 1] = 20.0
+    intr[0, 2], intr[1, 2] = w / 2, h / 2
+    helper = projection.ProjectionHelper(intr)
+    points = torch.from_numpy((rng.rand(3000, 3) * [3, 3, 4] - [1.5, 1.5, 0]).astype(np.float32))
+    poses = torch.eye(4).repeat(4, 1, 1)
+    poses[:, :3, 3] = torch.from_numpy(rng.randn(4, 3).astype(np.float32) * 0.2)
+    depths = torch.from_numpy(rng.uniform(0.5, 4.0, (4, h, w)).astype(np.float32))
+    feats = torch.from_numpy(rng.rand(4, h, w, 16).astype(np.float32))
+    maps = torch.from_numpy(rng.randint(-1, 6, (4, h, w)).astype(np.int32))
+    keep = _tie_free(helper, points, poses)
+
+    def project(dev):
+        a = [t.to(dev) for t in (points, poses, depths, feats, maps)]
+        uv, valid = helper.project(a[0], a[1], a[2])
+        return {"uv": uv, "valid": valid,
+                "maxpool": projection.project_scene_multiview(helper, *a[:4]),
+                "labels": labels.project_labels(helper, *a[:3], a[4], 5),
+                "color": labels.project_color(helper, *a[:3], a[3][..., :3])}
+
+    want, got = project(cpu), {k: v.cpu() for k, v in project(device).items()}
+    for key in want:
+        # the points off the ties: along the views' axis for uv and valid
+        g, w_ = ((t.transpose(0, 1)[keep] if key in ("uv", "valid") else t[keep])
+                 for t in (got[key], want[key]))
+        # the colours are means over the views: summed in another order
+        ok = (max_err(g, w_) <= 1e-6) if key == "color" else torch.equal(g, w_)
+        if not ok:
+            failures.append(f"tiny projection {key}: the card differs from the CPU")
+    errs["projection points on a tie"] = int((~keep).sum())
+    log(f"tools reference (tiny configs, f32, card vs CPU): errors {json.dumps(errs)} (ITM "
+        f"tol {TINY_ITM_TOL}, ENet {TINY_ENET_TOL} of its largest logit, ties "
+        f"{TINY_TIE_TOL}); projection: uv, valid, features, votes and colours equal off the "
+        f"ties, {int(want['valid'].sum())} hits")
+    return failures
+
+
+def phase_tools(device) -> tuple[dict, dict]:
+    """Phase 11: the offline tools on the card. (a) BLIP-ITM base at 384 px
+    in f32: the fused ViT's kernels at its shape (64 frames of 577 tokens)
+    against their plain versions (``itm_kernel_rows``), and the tower three
+    ways with the launches of one ``encode_images`` (``itm_tower``); (b)
+    view selection at full width and its driver (``view_selection``); (c)
+    ENet, the projection and their drivers (``enet_and_projection``); (d)
+    ``verify_parity``, ``profile_train`` and ``profile_loader``
+    (``parity_and_profilers``); (e) the tiny configs card against CPU
+    (``tools_reference``). Returns ({kernel: its ITM rows}, the launches of
+    one ``encode_images``, the "view select" path)."""
+    t_phase = time.perf_counter()
+    TOOLS_DIR.mkdir(parents=True, exist_ok=True)
+    rows, failures = itm_kernel_rows(device)
+    model = build_itm(itm_config(tiny=False), device, seed=10)
+    gen = torch.Generator(device=device).manual_seed(10)
+    images = torch.rand(ITM_FRAMES, ITM_IMAGE, ITM_IMAGE, 3, generator=gen, device=device)
+    launches, tower_failures = itm_tower(device, model, images)
+    failures += tower_failures
+    del images
+    failures += view_selection(device, model)
+    del model
+    torch.cuda.empty_cache()
+    failures += enet_and_projection(device)
+    failures += parity_and_profilers(device)
+    failures += tools_reference(device)
+    if failures:
+        raise AssertionError(f"tool checks failed: {failures}")
+    log(f"tools: phase {time.perf_counter() - t_phase:.1f} s")
+    return rows, launches
+
+
 def report_ratios(kernels: dict) -> None:
     """Each product's time over ``F.linear``'s, and the per-forward sums of
     both (decoder and ViT shapes, each shape's ms times its calls); the ViT
@@ -3408,6 +4075,7 @@ def summarize(kernel, launches: int, by_path: dict) -> dict:
 
 
 def main() -> int:
+    t_run = time.perf_counter()
     device = phase_device()
     phase_build()
     cfg = main_config()
@@ -3428,6 +4096,7 @@ def main() -> int:
     parallel_launches = phase_parallel(device, resident_samples_per_s)
     exact_record, nonmain_launches = phase_nonmain(device)
     kernels.append(exact_record)
+    itm_rows, view_select_launches = phase_tools(device)
     records = []
     for k in kernels:
         name = k["name"]
@@ -3437,8 +4106,13 @@ def main() -> int:
                    "train": train_launches[name], "train loop": loop_launches[name],
                    "eval": eval_launches[name],
                    **{f"{p} per rank": n[name] for p, n in parallel_launches.items()},
-                   **{p: n[name] for p, n in nonmain_launches.items()}}
-        records.append(dict(summarize(k, by_path[path], by_path), launches_path=path))
+                   **{p: n[name] for p, n in nonmain_launches.items()},
+                   "view select": view_select_launches[name]}
+        record = dict(summarize(k, by_path[path], by_path), launches_path=path)
+        if name in itm_rows:  # phase 11: f32 at BLIP-ITM's 577 tokens, 64 frames
+            record["itm_f32_shapes"] = itm_rows[name]
+        records.append(record)
+    log(f"whole run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
