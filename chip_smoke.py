@@ -11,13 +11,14 @@ result is printed):
    JAX and nothing of the JAX package (``bridgeqa_tpu``).
 2. build: compile every ``bridgeqa_tpu_torch/csrc/*.cu`` for sm_90a; print
    ptxas's register, spill and shared-memory lines for the redesigned
-   kernels (the bf16 GEMM, the ViT attention, FPS's cluster kernel, the
-   vocabulary pass, the scoring attentions' pipeline, the ball query and its
-   backward);
+   kernels (the GEMM and the ViT attention in bf16 and f32, FPS's cluster
+   kernel, the vocabulary pass, the scoring attentions' pipeline, the ball
+   query and its backward);
    disassemble the library (``cuobjdump -sass``) and fail unless every
    instantiation of the bf16 GEMM and the vocabulary pass's bf16 kernel
-   hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads), and every
-   instantiation of the scoring attentions' pipeline ``UTMALDG``.
+   hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads), every instantiation
+   of the scoring attentions' pipeline ``UTMALDG``, and the f32 GEMM's and
+   ViT attention's (3xTF32) ``HMMA`` (mma.sync).
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at every shape the main path gives it, batch 8.
    - FPS and the stripe ball query, with padding points, duplicate points,
@@ -93,6 +94,16 @@ result is printed):
    one forward under ``torch.profiler``: the card's busy share, the casts'
    launches and time (``aten::copy_``), and the table by kernel in
    ``build/profile_main_path.txt``.
+   Then the drivers' default, the same forward in f32 (``predict``, ``eval``
+   and validation without ``--bf16``; ``phase_main_path_f32``, about 10 s):
+   the f32 instantiations of every fused kernel, launches as derived, the
+   latency (median of 3), one profiled forward (device time, each kernel's
+   card time, ``build/profile_main_path_f32.txt``), and the f32 module path
+   (``fused_scoring="off"``, ``FUSED_MODE = "off"``) on the same weights and
+   batch: the top-1 answer of each decoder and of their ensemble equal on
+   every row, the largest score difference printed; then each f32 kernel's
+   card time at the forward's shapes beside its library call and its bound
+   (``f32_kernel_rows``).
 6. generate: open-ended answers by KV-cached beam search,
    ``BridgeQA.forward(batch, inference="generate")``, 2 x 5 beams a
    question, answers of up to 20 tokens, the 2D decoder sharpened
@@ -205,7 +216,9 @@ result is printed):
    - BLIP-ITM base at 384 px in f32, as the JAX tool builds it: the fused
      ViT's kernels at its shape (64 frames of 577 tokens, 36928 rows; f32
      instantiations) against their plain versions, each within 1e-3 of its
-     own largest output, with card, plain and library time and bound; the
+     own largest output, the GEMM's and the attention's (3xTF32) also
+     against an f64 reference within 1e-5 of it (``F32_ROUTE_TOL``), with
+     card, plain and library time and bounds (FFMA; 3xTF32); the
      tower three ways on 64 frames (the kernels, the fused blocks through
      the plain versions, the module loop), each image within 1% relative
      L2 of the kernels'; the launches of one ``encode_images`` as derived
@@ -236,7 +249,8 @@ Bounds: the least time the card could take for a kernel's work, the larger
 of the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its operations over the peak rate for their type
 (989 TFLOP/s bf16 tensor-core, 67 TFLOP/s f32), NVIDIA's H100 SXM data
-sheet. Work that depends on the data (the ball query's scan, masked keys,
+sheet. The two 3xTF32 kernels' rows also carry the route's bound: three
+times their operations at 495 TFLOP/s TF32. Work that depends on the data (the ball query's scan, masked keys,
 causal prefixes) is counted for this run's data.
 
 Matrix products run in full f32 where f32 is used: TF32 is switched off
@@ -244,7 +258,8 @@ for both cuBLAS and cuDNN, and the patch embedding is a matrix product.
 The last two lines are a ``{"kernels": [...]}`` JSON object (each
 kernel's ``launches`` from the path it serves, named by ``launches_path``:
 the rank forward, the train step for the backward kernel, or the exact
-detector for the exact query;
+detector for the exact query; ``f32_shapes``, the f32 rows at the rank
+forward's shapes;
 ``launches_by_path`` from the rank forward, the generate forward, a train
 step, a step of the ``train`` script's loop, an eval batch of the ``eval``
 script, on each rank of phase 9 a DDP step, a ``tp=2`` step and a sharded
@@ -478,13 +493,15 @@ def card_name_and_power() -> str:
 # mangled names)
 PTXAS_KERNELS = ("gemm_kernel", "vit_attention_bf16_kernel", "fps_cluster_kernel",
                  "vocab_wgmma_kernel", "attention_pipe_kernel", "ball_query_stripes_kernel",
-                 "ball_query_backward_kernel", "ball_query_exact_kernel")
+                 "ball_query_backward_kernel", "ball_query_exact_kernel", "gemm_f32_kernel",
+                 "vit_attention_f32_kernel")
 # kernels whose SASS must hold Hopper instructions (parts of their mangled
 # names: wg::gemm_kernel<...>, the vocabulary pass, the scoring attentions'
-# pipeline), and which: the wgmma product (HGMMA) and the TMA tile load
-# (UTMALDG)
+# pipeline, the 3xTF32 products and ViT attention), and which: the wgmma
+# product (HGMMA), the TMA tile load (UTMALDG), the mma.sync product (HMMA)
 SASS_KERNELS = {"wg11gemm_kernel": ("HGMMA", "UTMALDG"), "vocab_wgmma_kernel": ("HGMMA", "UTMALDG"),
-                "attention_pipe_kernel": ("UTMALDG",)}
+                "attention_pipe_kernel": ("UTMALDG",), "gemm_f32_kernel": ("HMMA",),
+                "vit_attention_f32_kernel": ("HMMA",)}
 
 
 def ptxas_lines(build_log: str) -> list[str]:
@@ -540,8 +557,8 @@ def phase_build():
     for line in cuda_lib.build_log.splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
-    log("ptxas, the redesigned kernels (bf16 GEMM, ViT attention, FPS, vocabulary pass, scoring "
-        "attentions, ball query):")
+    log("ptxas, the redesigned kernels (GEMM and ViT attention in bf16 and f32, FPS, vocabulary "
+        "pass, scoring attentions, ball query):")
     for line in ptxas_lines(cuda_lib.build_log) or ["(library reused: no build log)"]:
         log(f"  {line}")
     for fn, c in sass_check(cuda_lib.library_path).items():
@@ -1462,6 +1479,240 @@ def phase_main_path(device, reps: int = 5):
         f"{json.dumps({k: round(v, 2) for k, v in host_stages.items()})}, "
         f"sum {sum(host_stages.values()):.1f}")
     return launches
+
+
+# the f32 rank forward: the hand-written kernels by the parts of their names
+# the profiler shows, for the card time of each in one forward
+F32_PROFILE_KERNELS = {"scoring_gemm": ("gemm_f32_kernel",),
+                       "vit_attention": ("vit_attention_f32_kernel",),
+                       "scoring_attention": ("attention_kernel",),
+                       "scoring_layernorm": ("add_layernorm_kernel",),
+                       "vocab_loss": ("vocab_f32_kernel", "vocab_merge_kernel"),
+                       "fps": ("fps_cluster_kernel",),
+                       "ball_query_stripes": ("ball_query_stripes_kernel", "ball_query_warp_kernel")}
+PEAK_TF32 = 495e12  # tensor cores, dense (NVIDIA's data sheet)
+TF32_PASSES = 3  # 3xTF32: the f32 products' and the f32 ViT attention's route
+
+
+def tf32_bound(flops: float, nbytes: float) -> float:
+    """ms: the 3xTF32 route's least time, three TF32 passes at the tensor
+    cores' peak, or the bytes at the HBM rate."""
+    return bound(TF32_PASSES * flops, nbytes, PEAK_TF32)[0]
+
+
+def f32_kernel_rows(device, layers: int, depth: int, reps: int = 3) -> dict:
+    """The f32 instantiations the f32 rank forward launches, at its shapes:
+    card time (``device_ms``), the library call's, the bound at the CUDA
+    cores' f32 rate and, for the two 3xTF32 kernels, at TF32's; ``calls`` a
+    forward as the config gives them (the log's per-forward sums use them;
+    only each kernel's total is counted, in ``phase_main_path_f32``). Their
+    agreement with the plain versions at these shapes is phase 3's. Returns
+    {kernel: rows}."""
+    from bridgeqa_tpu_torch.ops import scoring_layer as sl
+    from bridgeqa_tpu_torch.ops import vit_block as vb
+    from bridgeqa_tpu_torch.ops import vocab_loss as vl
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    rows = {k: [] for k in ("scoring_gemm", "scoring_attention", "scoring_layernorm", "vocab_loss",
+                            "vit_attention")}
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=device) * scale
+
+    def row(name, shape, fn, library, flops, nbytes, calls, route=False):
+        ms = device_ms(fn, reps)
+        lib_ms = None if library is None else device_ms(library, reps)
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_F32)
+        rows[name].append(dict(shape=shape, calls=calls, ms=ms, library_ms=lib_ms,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               tf32x3_bound_ms=tf32_bound(flops, nbytes) if route else None))
+        lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
+        log(f"f32 {name} {shape}: kernel {ms:.3f} ms, library {lib}, bound {bound_ms:.3f} ms "
+            f"({bound_by}, FFMA)" + (f", {rows[name][-1]['tf32x3_bound_ms']:.3f} ms (3xTF32)"
+                                     if route else "") + f", {calls} calls a forward")
+
+    passes = layers * SCORING_PASSES
+    h, hd = HIDDEN, HIDDEN // HEADS
+    for m, shapes, calls in ((DECODER_ROWS, [s + (False,) for s in GEMM_SHAPES], passes),
+                             (VIT_ROWS, VIT_GEMM_SHAPES, depth)):
+        for name, k, n, gelu, with_res in shapes:
+            x, w, b = randn(m, k), randn(n, k, scale=0.02), randn(n, scale=0.5)
+            res = randn(m, n, scale=2.0) if with_res else None
+            row("scoring_gemm", f"{name}: ({m}, {k}) x ({n}, {k})^T",
+                lambda: sl.scoring_gemm(x, w, b, gelu, res), lambda: F.linear(x, w, b),
+                2.0 * m * n * k, 4 * (m * k + n * k + n + m * n * (2 if with_res else 1)), calls,
+                route=True)
+            del x, w, b, res
+    la, seqs = ANSWER_LEN, DECODER_ROWS // ANSWER_LEN
+    qkv = randn(DECODER_ROWS, 3 * h)
+    q, k, v = qkv.view(seqs, la, 3, HEADS, hd).permute(2, 0, 3, 1, 4)
+    row("scoring_attention", f"self: ({DECODER_ROWS}, {3 * h}), {seqs} answers of {la}",
+        lambda: sl.self_attention(qkv, la=la, heads=HEADS),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        4.0 * HEADS * seqs * (la * (la + 1) // 2) * hd, 4 * 4 * DECODER_ROWS * h, passes)
+    del qkv, q, k, v
+    qc = randn(DECODER_ROWS, h)
+    ck, cv = randn(BATCH, QUESTION_LEN, h), randn(BATCH, QUESTION_LEN, h)
+    cbias = torch.zeros(BATCH, QUESTION_LEN, device=device)
+    rows_q = DECODER_ROWS // BATCH
+    qh = qc.view(BATCH, rows_q, HEADS, hd).transpose(1, 2)
+    kh = ck.view(BATCH, QUESTION_LEN, HEADS, hd).transpose(1, 2)
+    vh = cv.view(BATCH, QUESTION_LEN, HEADS, hd).transpose(1, 2)
+    row("scoring_attention", f"cross: ({DECODER_ROWS}, {h}) against ({BATCH}, {QUESTION_LEN}, {h})",
+        lambda: sl.cross_attention(qc, ck, cv, cbias, heads=HEADS),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=cbias[:, None, None, :]),
+        4.0 * DECODER_ROWS * h * QUESTION_LEN,
+        4 * (2 * DECODER_ROWS * h + 2 * BATCH * QUESTION_LEN * h + BATCH * QUESTION_LEN), passes)
+    del qc, ck, cv, qh, kh, vh
+    scale, shift = randn(h, scale=0.5) + 1.0, randn(h, scale=0.5)
+    for m, eps, mode, calls in ((DECODER_ROWS, 1e-12, "add", 3 * passes),
+                                (VIT_ROWS, 1e-6, "none", depth + 1), (VIT_ROWS, 1e-6, "sum", depth)):
+        a = randn(m, h)
+        r = None if mode == "none" else randn(m, h, scale=2.0)
+        keep = mode == "sum"
+        row("scoring_layernorm", {"add": f"decoder add + LN: ({m}, {h})",
+                                  "none": f"vit LN1 and final norm: ({m}, {h})",
+                                  "sum": f"vit LN2 keeping the sum: ({m}, {h})"}[mode],
+            lambda: sl.add_layernorm(a, r, scale, shift, eps, keep_sum=keep),
+            lambda: F.layer_norm(a if r is None else a + r, (h,), scale, shift, eps),
+            (8.0 if r is None else 10.0) * m * h,
+            4 * ((2 if r is None else 3 + keep) * m * h) + 8 * h, calls)
+        del a, r
+    hv, table = randn(VOCAB_ROWS, h), randn(VOCAB, h, scale=0.02)
+    vbias = randn(VOCAB, scale=0.5)
+    labels = torch.randint(0, VOCAB, (VOCAB_ROWS,), generator=gen, device=device,
+                           dtype=torch.int32)
+    row("vocab_loss", f"({VOCAB_ROWS}, {h}) x ({VOCAB}, {h})^T",
+        lambda: vl.lm_vocab_reductions(hv, table, vbias, labels), None,
+        2.0 * VOCAB_ROWS * VOCAB * h, 4 * (VOCAB_ROWS * h + VOCAB * h + VOCAB + 4 * VOCAB_ROWS),
+        SCORING_PASSES)
+    del hv, table
+    qkv = randn(BATCH, VIT_TOKENS, 3 * h)
+    q, k, v = qkv.view(BATCH, VIT_TOKENS, 3, VIT_HEADS, hd).permute(2, 0, 3, 1, 4)
+    row("vit_attention", f"({BATCH}, {VIT_TOKENS}, {3 * h}), {VIT_HEADS} heads of {hd}",
+        lambda: vb.vit_attention(qkv, heads=VIT_HEADS),
+        lambda: F.scaled_dot_product_attention(q, k, v),
+        4.0 * BATCH * VIT_HEADS * VIT_TOKENS ** 2 * hd, 4 * BATCH * VIT_TOKENS * 4 * h, depth,
+        route=True)
+    del qkv, q, k, v
+    torch.cuda.empty_cache()
+    for name, rs in rows.items():
+        ms = sum(r["ms"] * r["calls"] for r in rs)
+        lib = (None if any(r["library_ms"] is None for r in rs)
+               else sum(r["library_ms"] * r["calls"] for r in rs))
+        log(f"f32 {name} per forward: {ms:.2f} ms, library "
+            f"{'none' if lib is None else f'{lib:.2f} ms'}, FFMA bound "
+            f"{sum(r['bound_ms'] * r['calls'] for r in rs):.2f} ms")
+    return rows
+
+
+def phase_main_path_f32(device, reps: int = 3) -> dict:
+    """The drivers' default: the main path's rank forward in f32 (``predict``,
+    ``eval`` and validation compute in f32 unless ``--bf16``), batch 8,
+    k_test 256, ``fused_scoring="auto"`` and ``vit_block.FUSED_MODE =
+    "auto"``: the f32 instantiations of every fused kernel. Launches as
+    derived; latency (median of ``reps``); one profiled forward (device
+    time, the card time of each kernel, ``build/profile_main_path_f32.txt``);
+    then the f32 module path (``fused_scoring="off"``, ``FUSED_MODE =
+    "off"``) on the same weights and batch: the top-1 answer equal on every
+    row, the largest difference of the scores both paths computed printed.
+    Then the kernels' rows at the forward's shapes (``f32_kernel_rows``).
+    Returns {kernel: rows}."""
+    from bridgeqa_tpu_torch.models.med import MedConfig
+    from bridgeqa_tpu_torch.ops import vit_block as vb
+
+    t_phase = time.perf_counter()
+    cfg = main_config()
+    model = build_model(cfg, device)  # f32 parameters and compute: no set_compute_dtype
+    batch = make_batch(cfg, BATCH, NUM_POINTS, IMAGE_SIZE, QUESTION_LEN, ANSWER_LEN, device)
+    expected = expected_launches(cfg)
+    # the module path on the same weights: a copy whose decoders' configs say
+    # "off"
+    module = copy.deepcopy(model)
+    for m in module.modules():
+        if isinstance(getattr(m, "config", None), MedConfig):
+            m.config = dataclasses.replace(m.config, fused_scoring="off")
+
+    def forward(m):
+        return m(batch, inference="rank", k_test=K_TEST)
+
+    with torch.inference_mode():
+        reset_launches()
+        out = forward(model)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        failed = [f"{k}: {launches[k]} launches, derived {n}" for k, n in expected.items()
+                  if launches[k] != n]
+        if not all(bool(torch.isfinite(out[k].float()).all())
+                   for k in ("answer_scores", "answer_scores_2d", "answer_scores_scene")):
+            failed.append("scores not finite")
+        latency, times = _timed(lambda: forward(model), reps)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            forward(model)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        try:
+            vb.FUSED_MODE = "off"
+            reset_launches()
+            ref = forward(module)
+            torch.cuda.synchronize()
+            module_launches = read_launches()
+            module_latency, module_times = _timed(lambda: forward(module), reps)
+        finally:
+            vb.FUSED_MODE = "auto"
+    del module
+    fused = [k for k, n in module_launches.items()
+             if n and k not in ("fps", "ball_query_stripes")]
+    if fused:
+        failed.append(f"the module path launched {fused}")
+    OUT_DIR.mkdir(exist_ok=True)
+    busy_ms = profile_table(prof, OUT_DIR / "profile_main_path_f32.txt")[0]
+    by_kernel = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name()] = by_kernel.get(e.name(), 0.0) + e.duration_ns() / 1e6
+    ours = {k: sum(ms for name, ms in by_kernel.items() if any(p in name for p in parts))
+            for k, parts in F32_PROFILE_KERNELS.items()}
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    log("f32 rank forward, the card's largest kernels (ms of one forward): "
+        + "; ".join(f"{name[:70]} {ms:.2f}" for name, ms in top))
+    # top-1 by each decoder's log-probability sums and by the ensemble
+    # exp(s_2d) + exp(w s_3d) taken in log space (random weights put every
+    # sum near -100, where the ensemble itself underflows to 0 in f32)
+    weight = model.blip_model.cfg.scene_ensemble_weight
+
+    def ranked(o):
+        s2d, s3d = o["answer_scores_2d"].double(), o["answer_scores_scene"].double()
+        return {"2d": s2d, "scene": s3d, "ensemble": torch.logaddexp(s2d, weight * s3d)}
+
+    got_r, ref_r = ranked(out), ranked(ref)
+    same = {k: int((got_r[k].argmax(1) == ref_r[k].argmax(1)).sum()) for k in got_r}
+    margin = [round(float(a - b), 4) for a, b in got_r["ensemble"].topk(2, dim=1).values.tolist()]
+    diffs = {}
+    for key in ("answer_scores_2d", "answer_scores_scene"):
+        both = (out[key] != -1e4) & (ref[key] != -1e4)
+        diffs[key] = float((out[key] - ref[key]).abs()[both].max())
+    if any(n != BATCH for n in same.values()):
+        failed.append(f"top-1 answers differ from the module path's: equal on {same} of {BATCH}")
+    log(f"f32 rank forward at batch {BATCH}, fused kernels: median {latency:.1f} ms over {reps} "
+        f"({', '.join(f'{t:.1f}' for t in times)}), {BATCH / latency * 1e3:.2f} QA pairs/s; "
+        f"profiled: {busy_ms:.1f} ms of device time in {wall_ms:.1f} ms (busy "
+        f"{busy_ms / wall_ms:.0%}); the hand-written kernels' card ms "
+        f"{json.dumps({k: round(v, 2) for k, v in ours.items()})}; launches "
+        f"{json.dumps(launches)}, derived {json.dumps(expected)}")
+    log(f"f32 module path on the same weights: median {module_latency:.1f} ms over {reps} "
+        f"({', '.join(f'{t:.1f}' for t in module_times)}); top-1 equal on {json.dumps(same)} "
+        f"of {BATCH} rows; the ensemble's top-1 minus top-2 per row {margin}; largest score "
+        f"difference {json.dumps(diffs)}")
+    del model, out, ref
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"f32 rank forward: {failed}")
+    rows = f32_kernel_rows(device, decoder_layers(cfg), vit_depth(cfg))
+    log(f"f32 rank forward step: {time.perf_counter() - t_phase:.1f} s")
+    return rows
 
 
 # generate: 2 x 5 beams a question, answers of up to 20 tokens (the BLIP
@@ -3405,6 +3656,10 @@ ITM_FRAMES = 64  # one image batch of the tool
 ITM_ROWS = ITM_FRAMES * ITM_TOKENS
 ITM_KERNEL_TOL = 1e-3  # of each kernel's largest output, f32 against its plain version
 ITM_TOWER_TOL = 0.01  # relative L2 error of each image's tower output
+# the 3xTF32 kernels against an f64 reference, of the largest output: f32's
+# accuracy (one TF32 pass misses it by an order of magnitude,
+# tests/test_torch_f32_split.py)
+F32_ROUTE_TOL = 1e-5
 VIEW_SCENES, VIEW_FRAMES, VIEW_QUESTIONS = 2, 96, 16
 ENET_BATCH = 32
 ENET_H, ENET_W = 256, 328
@@ -3463,40 +3718,67 @@ def itm_kernel_rows(device, reps: int = 3) -> tuple[dict, list]:
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=device) * scale
 
-    def row(name, shape, got, want, fn, plain, library, flops, nbytes, calls):
+    def row(name, shape, got, want, fn, plain, library, flops, nbytes, calls, exact=None):
+        """``exact``: the f64 reference of a 3xTF32 kernel, held to
+        ``F32_ROUTE_TOL`` of its largest output."""
         err = max_err(got, want)
         tol = ITM_KERNEL_TOL * float(want.abs().max())
         if not err <= tol:
             failures.append(f"{name} {shape}: f32 error {err} over {tol}")
+        route = {}
+        if exact is not None:
+            ref = exact()
+            rel = float((got.double() - ref).abs().max() / ref.abs().max())
+            route = dict(f64_rel_err=rel, tf32x3_bound_ms=tf32_bound(flops, nbytes))
+            del ref
+            if not rel <= F32_ROUTE_TOL:
+                failures.append(f"{name} {shape}: {rel} of the largest output from the f64 "
+                                f"reference, over {F32_ROUTE_TOL}")
         ms, plain_ms, lib_ms = device_ms(fn, reps), device_ms(plain, 1), device_ms(library, reps)
         bound_ms, bound_by = bound(flops, nbytes, PEAK_F32)
         rows[name].append(dict(shape=shape, calls=calls, max_abs_err=err, tolerance=tol, ms=ms,
                                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                               bound_by=bound_by))
-        log(f"ITM f32 {name} {shape}: err {err:.3g} (tol {tol:.3g}); kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}), "
-            f"{calls} calls an encode")
+                               bound_by=bound_by, **route))
+        log(f"ITM f32 {name} {shape}: err {err:.3g} (tol {tol:.3g})"
+            + (f", {route['f64_rel_err']:.3g} of the largest output from f64 (tol "
+               f"{F32_ROUTE_TOL})" if route else "")
+            + f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound "
+            f"{bound_ms:.3f} ms ({bound_by}, FFMA)"
+            + (f", {route['tf32x3_bound_ms']:.3f} ms (3xTF32)" if route else "")
+            + f", {calls} calls an encode")
 
     h = HIDDEN
     for name, k, n, gelu, with_res in VIT_GEMM_SHAPES:
         x, w, b = randn(ITM_ROWS, k), randn(n, k, scale=0.02), randn(n, scale=0.5)
         res = randn(ITM_ROWS, n, scale=2.0) if with_res else None
+
+        def exact():
+            y = x.double() @ w.double().T + b.double()
+            y = 0.5 * y * (1.0 + torch.erf(y * 0.5 ** 0.5)) if gelu else y
+            return y if res is None else res.double() + y
+
         row("scoring_gemm", f"{name}: ({ITM_ROWS}, {k}) x ({n}, {k})^T",
             sl.scoring_gemm(x, w, b, gelu, res), sl.scoring_gemm_plain(x, w, b, gelu, res),
             lambda: sl.scoring_gemm(x, w, b, gelu, res),
             lambda: sl.scoring_gemm_plain(x, w, b, gelu, res), lambda: F.linear(x, w, b),
             2.0 * ITM_ROWS * n * k, 4 * (ITM_ROWS * k + n * k + n
-                                         + ITM_ROWS * n * (2 if with_res else 1)), 12)
+                                         + ITM_ROWS * n * (2 if with_res else 1)), 12, exact)
         del x, w, b, res
     qkv = randn(ITM_FRAMES, ITM_TOKENS, 3 * h)
     q, k, v = qkv.view(ITM_FRAMES, ITM_TOKENS, 3, VIT_HEADS, h // VIT_HEADS).permute(2, 0, 3, 1, 4)
     got, want = vb.vit_attention(qkv, heads=VIT_HEADS), vb.vit_attention_plain(qkv, heads=VIT_HEADS)
+
+    def exact():
+        qd, kd, vd = q.double(), k.double(), v.double()
+        ctx = torch.softmax(qd @ kd.transpose(-1, -2) / (h // VIT_HEADS) ** 0.5, dim=-1) @ vd
+        return ctx.transpose(1, 2).reshape(ITM_FRAMES, ITM_TOKENS, h)
+
     row("vit_attention", f"({ITM_FRAMES}, {ITM_TOKENS}, {3 * h}), {VIT_HEADS} heads of 64",
         got, want, lambda: vb.vit_attention(qkv, heads=VIT_HEADS),
         lambda: vb.vit_attention_plain(qkv, heads=VIT_HEADS),
         lambda: F.scaled_dot_product_attention(q, k, v),
         4.0 * ITM_FRAMES * VIT_HEADS * ITM_TOKENS ** 2 * (h // VIT_HEADS),
-        4 * ITM_FRAMES * ITM_TOKENS * 4 * h, 12)
+        4 * ITM_FRAMES * ITM_TOKENS * 4 * h, 12, exact)
     rel = head_rel_l2(got, want, VIT_HEADS)
     log(f"ITM f32 vit_attention: max relative L2 error per image and head {rel:.3g}")
     del qkv, q, k, v, got, want
@@ -4087,6 +4369,7 @@ def main() -> int:
     phase_vit_pass(device)
     phase_reference(device)
     launches = phase_main_path(device)
+    f32_rows = phase_main_path_f32(device)
     phase_generate_reference(device)
     generate_launches = phase_generate(device)
     kernels += phase_train_kernels(device)
@@ -4109,6 +4392,10 @@ def main() -> int:
                    **{p: n[name] for p, n in nonmain_launches.items()},
                    "view select": view_select_launches[name]}
         record = dict(summarize(k, by_path[path], by_path), launches_path=path)
+        if name in f32_rows:  # phase 5: f32 at the rank forward's shapes; a shape's
+            # calls are the config's reckoning, not counted, and stay in the log
+            record["f32_shapes"] = [{k: v for k, v in r.items() if k != "calls"}
+                                    for r in f32_rows[name]]
         if name in itm_rows:  # phase 11: f32 at BLIP-ITM's 577 tokens, 64 frames
             record["itm_f32_shapes"] = itm_rows[name]
         records.append(record)

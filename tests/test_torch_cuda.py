@@ -22,9 +22,14 @@ machine does not have; this file imports none.) On the edge cases
   keys, all but one key masked, and attention shapes that take the
   tensor-core kernel (bf16, head width 64) and the CUDA-core one;
 - the ViT kernels likewise: the GEMM's residual epilogue, LayerNorm without
-  a residual and keeping the sum, the attention over 1, 17, 64, 65, 833, 901
-  and 1025 tokens (65, 833 and 1025 leave one valid key in the last tile),
-  and a whole block;
+  a residual and keeping the sum, the attention over 1, 17, 64, 65, 577, 833,
+  901 and 1025 tokens (65, 577, 833 and 1025 leave one valid key in the last
+  tile), and a whole block;
+- the f32 GEMM and ViT attention (3xTF32 on the tensor cores) against an f64
+  reference within 1e-5 of the largest output, where one TF32 pass would
+  miss by an order of magnitude: the GEMM at BLIP-ITM's 36928 rows and at K
+  3072, the attention at 1, 65, 577 and 901 tokens; the f32 GEMM at any K,
+  at odd N and at 4-byte alignment (its 4-byte copies);
 - the bf16 GEMM's TMA edges: M, N and K that are no multiple of the tile or
   of the 64-wide box, with GELU and with the residual; its GELU against the
   erf GELU at every |x| up to 6, within two f32 ulp or one bf16 rounding;
@@ -722,7 +727,7 @@ def test_layernorm_vit_modes_match_plain(card, dtype, rows, cols, mode):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n", [1, 17, 64, 65, 833, 901, 1025])
+@pytest.mark.parametrize("n", [1, 17, 64, 65, 577, 833, 901, 1025])
 def test_vit_attention_matches_plain(card, dtype, n):
     rng = np.random.RandomState(n)
     b, heads = 2, 3
@@ -733,6 +738,59 @@ def test_vit_attention_matches_plain(card, dtype, n):
     _assert_close(got, vit_block.vit_attention_plain(qkv, heads=heads), f"vit attention, n {n}")
     if n == 1:  # one key: the context is its value
         assert torch.equal(got, qkv[..., 2 * heads * vit_block.HEAD_DIM:])
+
+
+F32_ROUTE_TOL = 1e-5  # of the largest output, against f64
+
+
+def _route_err(got, exact):
+    return float((got.double() - exact).abs().max() / exact.abs().max())
+
+
+@pytest.mark.parametrize("m,n,k,gelu,residual", [(36928, 2304, 768, False, False),
+                                                 (36928, 768, 3072, False, True),
+                                                 (1000, 3072, 768, True, False)])
+def test_scoring_gemm_f32_keeps_f32_accuracy(card, m, n, k, gelu, residual):
+    rng = np.random.RandomState(m + n + k)
+    x = _randn(rng, m, k, device=card)
+    w = _randn(rng, n, k, scale=0.02, device=card)
+    b = _randn(rng, n, scale=0.5, device=card)
+    res = _randn(rng, m, n, scale=2.0, device=card) if residual else None
+    got = _counted("scoring_gemm", lambda: scoring_layer.scoring_gemm(x, w, b, gelu, res))
+    _assert_close(got, scoring_layer.scoring_gemm_plain(x, w, b, gelu, res), "f32 gemm")
+    y = x.double() @ w.double().T + b.double()
+    y = 0.5 * y * (1.0 + torch.erf(y * 0.5**0.5)) if gelu else y
+    y = y if res is None else res.double() + y
+    assert _route_err(got, y) <= F32_ROUTE_TOL
+
+
+@pytest.mark.parametrize("n", [1, 65, 577, 901])
+def test_vit_attention_f32_keeps_f32_accuracy(card, n):
+    rng = np.random.RandomState(n + 1)
+    heads = 12
+    qkv = _randn(rng, 3, n, 3 * heads * vit_block.HEAD_DIM, device=card)
+    got = vit_block.vit_attention(qkv, heads=heads)
+    q, k, v = qkv.double().view(3, n, 3, heads, vit_block.HEAD_DIM).permute(2, 0, 3, 1, 4)
+    ctx = torch.softmax(q @ k.transpose(-1, -2) / vit_block.HEAD_DIM**0.5, dim=-1) @ v
+    assert _route_err(got, ctx.transpose(1, 2).reshape(got.shape)) <= F32_ROUTE_TOL
+
+
+@pytest.mark.parametrize("n", [130, 131])
+@pytest.mark.parametrize("k", [1, 3, 75, 777, 768])
+def test_scoring_gemm_f32_any_k(card, k, n):
+    """K no multiple of 4 and x, w at a 4-byte offset take the kernel's
+    4-byte copies; 37 rows and 130 or 131 columns fill no tile; the
+    residual lies at a 4-byte offset."""
+    rng = np.random.RandomState(k + n)
+    m = 37
+    xs = _randn(rng, m * k + 1, device=card)
+    ws = _randn(rng, n * k + 1, scale=0.05, device=card)
+    x, w = xs[1:].view(m, k), ws[1:].view(n, k)
+    b = _randn(rng, n, scale=0.5, device=card)
+    res = _randn(rng, m * n + 1, scale=2.0, device=card)[1:].view(m, n)
+    for gelu, r in ((True, None), (False, res)):
+        got = _counted("scoring_gemm", lambda: scoring_layer.scoring_gemm(x, w, b, gelu, r))
+        _assert_close(got, scoring_layer.scoring_gemm_plain(x, w, b, gelu, r), f"f32 gemm, k {k}")
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
