@@ -52,13 +52,31 @@
 // The consumers' math, not the memory, sets the pace at the main path's
 // shapes (clock stamps of a block's warps: they seldom wait on a stage);
 // PERF.md has the times against the bound.
-// f32, other head widths and longer windows run on the CUDA cores
-// (attention_kernel below): rows padded by two elements so that a lane per
-// key reads without bank conflicts, one warp per query row, a lane per key
-// for the scores, the max and the sum by warp shuffles, then a lane per
-// pair of head dimensions for the product with V, one block per (tile,
-// head).
+// f32 at head width 64 (the drivers' default f32 predict and eval), both
+// modes, runs on the tensor cores in 3xTF32 (scoring_attention_f32_kernel
+// below; its body and numerics in attention_f32.cuh, the f32 ViT
+// attention's too): a persistent grid over the pipeline's units of (segment
+// of row tiles, head), 8 warps of 16 rows, two blocks an SM, cp.async loads.
+// Cross (at most 128 question keys): a unit's question's keys, values and
+// bias for its head come in once, whole; then each warp loads its own 16
+// query rows a tile, so no block barrier falls between a unit's tiles and
+// the other warps' products cover a warp's load. Self (any answer of at most
+// 128 rows): the block loads a tile's Q, K and V for its head, and each warp
+// attends over its window (the start of its first row's answer to its last
+// row, at most la + 15 keys) in 64-key steps; keys outside a row's answer or
+// after the row weigh exactly 0. At the main path's shapes self is bound by
+// bytes (the 226 MB QKV block read once, 75 MB written: 0.09 ms a call) and
+// cross by its products (6.0 GFLOP a call, ~21 GFLOP in TF32 passes); with
+// two blocks an SM one block's loads are in flight while the other computes.
+// Other head widths, bf16 windows past 128 keys and f32 questions past 128
+// keys run on the CUDA cores (attention_kernel below): rows padded by two
+// elements so that a lane per key reads without bank conflicts, one warp per
+// query row, a lane per key for the scores, the max and the sum by warp
+// shuffles, then a lane per pair of head dimensions for the product with V,
+// one block per (tile, head).
 
+#include "attention_f32.cuh"
+#include "smem_attribute.cuh"
 #include "tile_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -586,13 +604,137 @@ attention_pipe_kernel(const __grid_constant__ CUtensorMap map_q,
   if (lane == 0) wg::bulk_wait();  // the context's last TMA stores are done
 }
 
+// ------------------------------------------------- the f32 tensor-core kernel
+//
+// Both attentions in f32 at head width 64 (the drivers' default f32 predict
+// and eval): 3xTF32 on mma.sync through attention_f32.cuh's body. See the
+// note at the top of the file.
+using attn32::kQPitch;
+using attn32::kVPitch;
+constexpr int kF32Threads = kConsumers * 32;  // 8 warps of 16 rows of a 128-row tile
+// key rows of a block's K and V: self, a tile's rows and the slack of its
+// last window's last chunk; cross, a question's lk <= 128 keys rounded up to
+// a chunk
+constexpr int kF32SelfKeys = kTileRows + 8;
+constexpr int kF32CrossKeys = kTileRows;
+static_assert(kHd == attn32::kHd && kConsumers * 16 == kTileRows, "8 warps of 16 rows of 64");
+
+// dynamic shared memory of a block with `keys` key rows: Q, K, V and (cross)
+// the keys' bias
+__host__ __device__ constexpr int f32_smem(bool self, int keys) {
+  return (kTileRows * kQPitch + keys * (kQPitch + kVPitch) + (self ? 0 : keys)) * 4;
+}
+
+struct F32Args {
+  const float *q, *k, *v;
+  float* out;
+  int q_stride, kv_stride;
+  float scale;
+};
+
+template <bool SELF>
+__global__ void __launch_bounds__(kF32Threads, 2)
+scoring_attention_f32_kernel(const F32Args a, const Sched sc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int keys = SELF ? kF32SelfKeys : (sc.lk + 7) / 8 * 8;
+  float* sq = reinterpret_cast<float*>(smem_raw);  // [kTileRows][kQPitch]: warp w's rows 16w, +16
+  float* sk = sq + kTileRows * kQPitch;            // [keys][kQPitch]
+  float* sv = sk + keys * kQPitch;                 // [keys][kVPitch]
+  float* sb = sv + keys * kVPitch;                 // cross: [keys], -inf past lk
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int w0 = warp * 16;
+
+  // zero the rows once: rows no load writes (past a self tile's answers,
+  // past the question's keys, a ragged tile's last queries) must hold finite
+  // values, since a masked key's weight is 0 and 0 * NaN is not
+  for (int i = threadIdx.x; i < kTileRows * kQPitch + keys * (kQPitch + kVPitch);
+       i += kF32Threads)
+    sq[i] = 0.0f;
+  // rows [0, n) of src (stride floats a row, the head's first column) into
+  // dst at `pitch`, by the threads [first, first + count) of the block
+  auto load_rows = [&](float* dst, int pitch, const float* src, int stride, int n, int first,
+                       int count) {
+    for (int c = static_cast<int>(threadIdx.x) - first; c >= 0 && c < n * 16; c += count) {
+      const int r = c >> 4, d = (c & 15) * 4;
+      tile::cp_async16(dst + r * pitch + d, src + static_cast<size_t>(r) * stride + d, true);
+    }
+  };
+
+  for (int u = blockIdx.x; u < sc.units; u += gridDim.x) {
+    const Span us = unit_span(sc, u);
+    const int col = us.head * kHd;
+    __syncthreads();  // the zeros are stored, and every warp is done with the last unit's rows
+    if (!SELF) {  // the question's keys, values and bias for this head, once a unit
+      const size_t kv0 = static_cast<size_t>(us.question) * sc.lk;
+      load_rows(sk, kQPitch, a.k + kv0 * a.kv_stride + col, a.kv_stride, sc.lk, 0, kF32Threads);
+      load_rows(sv, kVPitch, a.v + kv0 * a.kv_stride + col, a.kv_stride, sc.lk, 0, kF32Threads);
+      for (int j = threadIdx.x; j < keys; j += kF32Threads)
+        sb[j] = j < sc.lk ? __ldg(sc.bias + kv0 + j) : -INFINITY;
+    }
+    for (int tl = us.t0; tl < us.t1; ++tl) {
+      const int r0 = us.question * sc.rows_per_q + tl * sc.tile_rows;
+      const int nrows = min(sc.tile_rows, sc.rows_per_q - tl * sc.tile_rows);
+      const size_t q0 = static_cast<size_t>(r0) * a.q_stride + col;
+      if (SELF) {  // the tile's Q, K and V rows, by the whole block
+        if (tl > us.t0) __syncthreads();  // every warp is done with the last tile's rows
+        const size_t k0 = static_cast<size_t>(r0) * a.kv_stride + col;
+        load_rows(sq, kQPitch, a.q + q0, a.q_stride, nrows, 0, kF32Threads);
+        load_rows(sk, kQPitch, a.k + k0, a.kv_stride, nrows, 0, kF32Threads);
+        load_rows(sv, kVPitch, a.v + k0, a.kv_stride, nrows, 0, kF32Threads);
+        tile::cp_async_commit();
+        tile::cp_async_wait<0>();
+        __syncthreads();
+      } else {  // each warp its own 16 query rows; no other warp reads them
+        __syncwarp();  // every lane is done with the warp's last rows
+        load_rows(sq + w0 * kQPitch, kQPitch, a.q + q0 + static_cast<size_t>(w0) * a.q_stride,
+                  a.q_stride, max(0, min(16, nrows - w0)), w0 * 2, 32);
+        tile::cp_async_commit();
+        tile::cp_async_wait<0>();
+        if (tl == us.t0) __syncthreads();  // and the unit's keys, values and bias are in
+        else __syncwarp();
+      }
+      if (w0 >= nrows) continue;
+      attn32::Rows st;
+      attn32::init(st);
+      const float* q = sq + (w0 + g) * kQPitch + 2 * t;
+      if (SELF) {
+        // rows (in the tile) of this thread, their answers' first keys; the
+        // warp's window runs from its first row's answer to its last row
+        int row[2], first[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          row[h] = w0 + g + 8 * h;
+          first[h] = ((r0 + row[h]) / sc.la) * sc.la - r0;
+        }
+        const int end = min(w0 + 16, nrows);
+        for (int k0 = ((r0 + w0) / sc.la) * sc.la - r0; k0 < end; k0 += attn32::kTileKeys)
+          attn32::attend_chunks((min(end - k0, attn32::kTileKeys) + 7) / 8, st, q,
+                                sk + k0 * kQPitch, sv + k0 * kVPitch, a.scale,
+                                [&](float s, int key, int h) {
+                                  return k0 + key >= first[h] && k0 + key <= row[h] ? s : -INFINITY;
+                                });
+      } else {
+        for (int k0 = 0; k0 < sc.lk; k0 += attn32::kTileKeys)
+          attn32::attend_chunks((min(sc.lk - k0, attn32::kTileKeys) + 7) / 8, st, q,
+                                sk + k0 * kQPitch, sv + k0 * kVPitch, a.scale,
+                                [&](float s, int key, int) { return s + sb[k0 + key]; });
+      }
+      float* orow = a.out + static_cast<size_t>(r0 + w0 + g) * sc.out_stride + col;
+      attn32::store(st, orow, orow + 8 * static_cast<size_t>(sc.out_stride), w0 + g < nrows,
+                    w0 + g + 8 < nrows);
+    }
+  }
+}
+
 // What a call launched, for the caller's record (the C entry's `launch`), in
-// this order: 1 for the tensor-core pipeline or 0 for the CUDA-core kernel;
-// blocks; threads a block; dynamic shared memory of a block, bytes; blocks
-// of the kernel an SM holds (the occupancy query) and SMs of the card (the
-// pipeline's; 0 otherwise); the TMA ring's depth, the units of (segment,
-// head) the grid walks and the row tiles a unit (the pipeline's; 0
-// otherwise); rows a tile.
+// this order: the kernel, 1 for the bf16 tensor-core pipeline, 2 for the
+// f32 tensor-core kernel, 0 for the CUDA-core kernel; blocks; threads a
+// block; dynamic shared memory of a block, bytes; blocks of the kernel an SM
+// holds (the occupancy query) and SMs of the card (the tensor-core kernels';
+// 0 otherwise); the TMA ring's depth (the pipeline's; 0 otherwise); the units
+// of (segment, head) the grid walks and the row tiles a unit (the
+// tensor-core kernels'; 0 otherwise); rows a tile.
 constexpr int kLaunchFields = 10;
 
 template <int KCH, bool SELF>
@@ -663,6 +805,38 @@ int dispatch_pipe(int chunks, const void* q, const void* k, const void* v, const
   }
 }
 
+template <bool SELF>
+int launch_f32(const void* q, const void* k, const void* v, const float* bias, void* out, int rows,
+               int heads, int q_stride, int kv_stride, int out_stride, int la, int rows_per_q,
+               int lk, float scale, int* launch, cudaStream_t stream) {
+  auto kernel = scoring_attention_f32_kernel<SELF>;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  const int smem = f32_smem(SELF, SELF ? kF32SelfKeys : (lk + 7) / 8 * 8);
+  // the limit once, at the most any call takes, so every call fits it
+  cudaError_t err = set_smem_once(fn, f32_smem(SELF, SELF ? kF32SelfKeys : kF32CrossKeys));
+  int dev = 0, sms = 0, resident = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = blocks_per_sm_once(fn, kF32Threads, smem, &resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (resident < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  Sched sc{};
+  // a persistent grid: as many blocks as the card holds at once
+  schedule(sc, SELF, rows, heads, la, rows_per_q, sms * resident);
+  sc.bias = bias;
+  sc.la = la;
+  sc.lk = lk;
+  sc.out_stride = out_stride;
+  const F32Args args{static_cast<const float*>(q), static_cast<const float*>(k),
+                     static_cast<const float*>(v), static_cast<float*>(out), q_stride, kv_stride,
+                     scale};
+  kernel<<<sc.grid, kF32Threads, smem, stream>>>(args, sc);
+  const int record[kLaunchFields] = {2, sc.grid, kF32Threads, smem, resident, sms,
+                                     0, sc.units, sc.seg, sc.tile_rows};
+  for (int i = 0; i < kLaunchFields; ++i) launch[i] = record[i];
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_simt(const void* q, const void* k, const void* v, const float* bias, void* out,
                 int rows, int heads, int hd, int q_stride, int kv_stride, int out_stride, int la,
@@ -713,8 +887,10 @@ extern "C" int bq_scoring_attention(const void* q, const void* k, const void* v,
       (mode == 1 && (rows_per_q <= 0 || rows % rows_per_q || lk <= 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the tensor-core kernel: bf16, head width 64, 16-byte rows, a window
-  // of at most 128 keys; the CUDA-core kernel takes everything else
+  // the tensor-core kernels: bf16 (the pipeline) with a window of at most
+  // 128 keys, or f32 with any answer and at most 128 question keys, each at
+  // head width 64 and with 16-byte rows; the CUDA-core kernel takes
+  // everything else
   const bool aligned = ((reinterpret_cast<size_t>(q) | reinterpret_cast<size_t>(k) |
                          reinterpret_cast<size_t>(v) | reinterpret_cast<size_t>(out)) % 16) == 0;
   const int chunks = mma_chunks(mode, la, lk);
@@ -725,6 +901,14 @@ extern "C" int bq_scoring_attention(const void* q, const void* k, const void* v,
                                 la, rows_per_q, lk, scale, launch, s);
     return dispatch_pipe<false>(chunks, q, k, v, bias, out, rows, heads, q_stride, out_stride, la,
                                rows_per_q, lk, scale, launch, s);
+  }
+  if (dtype == 0 && hd == kHd && aligned && (mode == 0 || lk <= kF32CrossKeys) &&
+      q_stride % 4 == 0 && kv_stride % 4 == 0 && out_stride % 2 == 0) {
+    if (mode == 0)
+      return launch_f32<true>(q, k, v, bias, out, rows, heads, q_stride, kv_stride, out_stride,
+                              la, rows_per_q, lk, scale, launch, s);
+    return launch_f32<false>(q, k, v, bias, out, rows, heads, q_stride, kv_stride, out_stride, la,
+                             rows_per_q, lk, scale, launch, s);
   }
   if (dtype == 1)
     return launch_simt<bf16>(q, k, v, bias, out, rows, heads, hd, q_stride, kv_stride, out_stride,

@@ -33,17 +33,12 @@
 // predict and eval run it; its numerics in tile_gemm.cuh): 3xTF32 on the
 // tensor cores, mma.sync m16n8k8. At BLIP-ITM's shape (36928 rows, the ViT's
 // four products) an encode does 6.27e12 FLOP: 94 ms at the CUDA cores' 67
-// TFLOP/s, 38 ms for the three passes at TF32's 495. The design: 128 x 128
-// block tiles, 8 warps of 64 x 32, K 16 a stage through a 4-stage cp.async
-// ring (16-byte copies where K % 4 == 0, else 4-byte ones; rows and K past
-// the edges zero-filled), two blocks an SM. Each warp reads its fragments as
-// float2 (a thread's two K positions of a fragment are adjacent in shared
-// memory: the same K permutation on both operands, so the product is
-// unchanged; a 24-float row pitch keeps the reads free of bank conflicts),
-// splits them into hi and lo in registers and runs the three products, small
-// ones first, into a fresh accumulator that joins the sum by an f32 add. The
-// epilogue is the bf16 kernel's on the f32 accumulator: bias,
-// exact erf-GELU, residual, in that order.
+// TFLOP/s, 38 ms for the three passes at TF32's 495. The design: the main
+// loop of tile_gemm.cuh (128 x 128 block tiles, 8 warps of 64 x 32, a
+// 4-stage cp.async ring, float2 fragment reads, the three products into a
+// fresh accumulator a step), two blocks an SM, and the bf16 kernel's
+// epilogue on the f32 accumulator: bias, exact erf-GELU, residual, in that
+// order.
 
 #include "smem_attribute.cuh"
 #include "tile_gemm.cuh"
@@ -53,31 +48,10 @@ namespace {
 
 using wg::gelu_exact;
 
-constexpr int kF32BM = 128, kF32BN = 128, kF32BK = 16;
-constexpr int kF32Stages = 4;
-constexpr int kF32Pitch = kF32BK + 8;  // floats a row of a stage
-constexpr int kF32Threads = 256;       // 8 warps: 2 (rows) x 4 (columns), 64 x 32 each
-constexpr int kF32StageFloats = (kF32BM + kF32BN) * kF32Pitch;
-constexpr int kF32SmemBytes = kF32Stages * kF32StageFloats * static_cast<int>(sizeof(float));
-static_assert(kF32BM == kF32BN, "load_tile serves both operands");
-
-// rows [r0, r0 + 128) and K [k0, k0 + 16) of src (`rows` rows of k floats)
-// into dst [128][kF32Pitch]; what lies past either edge is zero-filled
-template <bool kVec>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int rows,
-                                          int k, int r0, int k0) {
-  constexpr int kPer = kVec ? 4 : 1;  // floats a copy
-  constexpr int kRowCopies = kF32BK / kPer;
-#pragma unroll
-  for (int i = 0; i < kF32BM * kRowCopies / kF32Threads; ++i) {
-    const int c = threadIdx.x + i * kF32Threads;
-    const int r = c / kRowCopies, kc = (c % kRowCopies) * kPer;
-    const bool ok = r0 + r < rows && k0 + kc < k;  // K % 4 == 0 where kVec: all 4 or none
-    const float* from = ok ? src + static_cast<size_t>(r0 + r) * k + k0 + kc : src;
-    if constexpr (kVec) tile::cp_async16(dst + r * kF32Pitch + kc, from, ok);
-    else tile::cp_async4(dst + r * kF32Pitch + kc, from, ok);
-  }
-}
+using tile::kF32BM;
+using tile::kF32BN;
+using tile::kF32SmemBytes;
+using tile::kF32Threads;
 
 template <bool kVec>
 __global__ void __launch_bounds__(kF32Threads, 2)
@@ -85,71 +59,12 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ bias, const float* __restrict__ res,
                 float* __restrict__ y, int m, int n, int k, int gelu) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* smem = reinterpret_cast<float*>(smem_raw);  // [stage][A 128 rows | W 128 rows][pitch]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp >> 2, wn = warp & 3;
   const int row0 = blockIdx.y * kF32BM, col0 = blockIdx.x * kF32BN;
-  const int tiles = (k + kF32BK - 1) / kF32BK;
-  auto load = [&](int slot, int kt) {
-    float* stage = smem + slot * kF32StageFloats;
-    load_tile<kVec>(stage, x, m, k, row0, kt * kF32BK);
-    load_tile<kVec>(stage + kF32BM * kF32Pitch, w, n, k, col0, kt * kF32BK);
-  };
-
   float acc[4][4][4];  // [m16 tile][n8 tile][fragment]
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < kF32Stages - 1; ++s) {
-    if (s < tiles) load(s, s);
-    tile::cp_async_commit();
-  }
-  for (int kt = 0; kt < tiles; ++kt) {
-    tile::cp_async_wait<kF32Stages - 2>();
-    __syncthreads();  // tile kt has landed, and every warp is done with the slot refilled next
-    if (kt + kF32Stages - 1 < tiles) load((kt + kF32Stages - 1) % kF32Stages, kt + kF32Stages - 1);
-    tile::cp_async_commit();
-    const float* stage = smem + (kt % kF32Stages) * kF32StageFloats;
-    // a thread's fragment K positions t and t + 4 of each 8 are read from
-    // K positions 2t and 2t + 1, in A and W alike
-    const float* a = stage + (wm * 64 + g) * kF32Pitch + 2 * t;
-    const float* b = stage + (kF32BM + wn * 32 + g) * kF32Pitch + 2 * t;
-#pragma unroll
-    for (int ks = 0; ks < kF32BK / 8; ++ks) {
-      unsigned bh[4][2], bl[4][2];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 v = *reinterpret_cast<const float2*>(b + j * 8 * kF32Pitch + ks * 8);
-        tile::split_tf32(v.x, bh[j][0], bl[j][0]);
-        tile::split_tf32(v.y, bh[j][1], bl[j][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 top = *reinterpret_cast<const float2*>(a + i * 16 * kF32Pitch + ks * 8);
-        const float2 low = *reinterpret_cast<const float2*>(a + (i * 16 + 8) * kF32Pitch + ks * 8);
-        unsigned ah[4], al[4];
-        tile::split_tf32(top.x, ah[0], al[0]);
-        tile::split_tf32(low.x, ah[1], al[1]);
-        tile::split_tf32(top.y, ah[2], al[2]);
-        tile::split_tf32(low.y, ah[3], al[3]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float step[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          tile::mma_tf32(step, al, bh[j][0], bh[j][1]);
-          tile::mma_tf32(step, ah, bl[j][0], bl[j][1]);
-          tile::mma_tf32(step, ah, bh[j][0], bh[j][1]);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[i][j][c] += step[c];
-        }
-      }
-    }
-  }
+  tile::f32_mainloop<kVec>(x, w, m, n, k, row0, col0, reinterpret_cast<float*>(smem_raw), acc);
 
   // epilogue: acc[i][j][2h + e] is row wm * 64 + i * 16 + g + 8h, column
   // wn * 32 + j * 8 + 2t + e of the tile

@@ -1,15 +1,8 @@
-// The f32 matrix-product tile of the streaming vocabulary loss
-// (vocab_loss.cu; its bf16 kernel runs on wgmma_gemm.cuh), the cp.async,
-// ldmatrix, mma.sync and ex2 helpers of the attention kernels, and the 3xTF32
-// helpers of the f32 products and the f32 ViT attention (scoring_gemm.cu,
-// vit_attention.cu).
-//
-// The tile is 64 x 64 of Y = X * W^T, X (M, K) and W (N, K) row-major, K
-// contiguous in both (W is the tied word table), on the CUDA cores: 256
-// threads of 4 x 4 outputs each, K advancing 16 at a time through shared
-// memory. The accumulator stays in registers; the caller's epilogue reads it
-// through simt_row and simt_col. It exists so that a float32 model runs the
-// same path; any K.
+// The Hopper helpers of the port's matrix and attention kernels: the
+// cp.async, ldmatrix, mma.sync and ex2 helpers of the attention kernels, and
+// the 3xTF32 helpers and main loop of the f32 products, the f32 vocabulary
+// pass and the f32 attentions (scoring_gemm.cu, vocab_loss.cu,
+// attention_f32.cuh).
 //
 // 3xTF32: an f32 operand x is split into hi = tf32(x) (10 mantissa bits,
 // rounded to nearest, ties away from zero: cvt.rna) and lo = tf32(x - hi);
@@ -22,8 +15,8 @@
 // an instruction and all of one sign; so the callers run one 8-deep step's
 // passes into a fresh accumulator and add that to the running sum in f32,
 // rounded to nearest, so the truncation does not build up over K. The card
-// tests hold both callers within 1e-5 of the largest output against an f64
-// product at K 3072 (tests/test_torch_cuda.py, *_keeps_f32_accuracy);
+// tests hold every caller within 1e-5 of the largest output against an f64
+// reference (tests/test_torch_cuda.py, *_keeps_f32_accuracy);
 // tests/test_torch_f32_split.py emulates the split on the CPU.
 
 #pragma once
@@ -131,55 +124,117 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// ----------------------------------------------------------------- f32 tile
+// ------------------------------------------------------ the 3xTF32 main loop
 
-constexpr int kSimtBM = 64;
-constexpr int kSimtBN = 64;
-constexpr int kSimtBK = 16;
-constexpr int kSimtThreads = 256;
-constexpr int kSimtSmemFloats = kSimtBK * (kSimtBM + 1) + kSimtBK * (kSimtBN + 1);
-constexpr int kSimtColGroups = 16;
+// Y = X * W^T on a 128 x 128 block tile, X (m, k) and W (n, k) row-major, K
+// contiguous in both: 8 warps of 64 x 32 (2 rows of warps by 4 columns), K
+// 16 a stage through a 4-stage cp.async ring (16-byte copies where K % 4 ==
+// 0 and both pointers are 16-byte aligned, else 4-byte ones; rows and K past
+// the edges zero-filled). Each warp reads its fragments as float2 (a
+// thread's fragment K positions t and t + 4 of each 8 come from K positions
+// 2t and 2t + 1, in X and W alike, so the product is unchanged; a 24-float
+// row pitch keeps the reads free of bank conflicts), splits them into hi and
+// lo in registers and runs the three products, small ones first, into a
+// fresh accumulator that joins the sum by an f32 add. The f32 products
+// (scoring_gemm.cu) and the f32 vocabulary pass (vocab_loss.cu) run it, each
+// with its own epilogue.
+constexpr int kF32BM = 128;
+constexpr int kF32BN = 128;
+constexpr int kF32BK = 16;
+constexpr int kF32Stages = 4;
+constexpr int kF32Pitch = kF32BK + 8;  // floats a row of a stage
+constexpr int kF32Threads = 256;
+constexpr int kF32StageFloats = (kF32BM + kF32BN) * kF32Pitch;
+constexpr int kF32SmemBytes = kF32Stages * kF32StageFloats * static_cast<int>(sizeof(float));
+static_assert(kF32BM == kF32BN, "f32_load_tile serves both operands");
 
-// Accumulator layout of the f32 tile: acc[i][j] holds row simt_row(i),
-// column simt_col(j) of the 64 x 64 tile.
-__device__ __forceinline__ int simt_row(int i) { return (threadIdx.x >> 4) + 16 * i; }
-__device__ __forceinline__ int simt_col(int j) { return (threadIdx.x & 15) + 16 * j; }
-__device__ __forceinline__ int simt_col_group() { return threadIdx.x & 15; }
+// rows [r0, r0 + 128) and K [k0, k0 + 16) of src (`rows` rows of k floats)
+// into dst [128][kF32Pitch]; what lies past either edge is zero-filled
+template <bool kVec>
+__device__ __forceinline__ void f32_load_tile(float* dst, const float* __restrict__ src, int rows,
+                                              int k, int r0, int k0) {
+  constexpr int kPer = kVec ? 4 : 1;  // floats a copy
+  constexpr int kRowCopies = kF32BK / kPer;
+#pragma unroll
+  for (int i = 0; i < kF32BM * kRowCopies / kF32Threads; ++i) {
+    const int c = threadIdx.x + i * kF32Threads;
+    const int r = c / kRowCopies, kc = (c % kRowCopies) * kPer;
+    const bool ok = r0 + r < rows && k0 + kc < k;  // K % 4 == 0 where kVec: all 4 or none
+    const float* from = ok ? src + static_cast<size_t>(r0 + r) * k + k0 + kc : src;
+    if constexpr (kVec) cp_async16(dst + r * kF32Pitch + kc, from, ok);
+    else cp_async4(dst + r * kF32Pitch + kc, from, ok);
+  }
+}
 
-__device__ __forceinline__ void simt_tile(const float* __restrict__ x, const float* __restrict__ w,
-                                          int m, int n, int k, int row0, int col0, float* smem,
-                                          float (&acc)[4][4]) {
-  float* sa = smem;                             // [BK][BM + 1]
-  float* sb = smem + kSimtBK * (kSimtBM + 1);   // [BK][BN + 1]
-  const int tid = threadIdx.x;
+// acc = X[row0, +128) * W[col0, +128)^T over all of K, in 3xTF32. smem:
+// kF32SmemBytes, which the block may reuse once this returns (it waits for
+// every warp before its first load). acc[i][j][2h + e] is row wm * 64 + i *
+// 16 + g + 8h, column wn * 32 + j * 8 + 2t + e of the tile (warp = 4 wm +
+// wn, g = lane / 4, t = lane % 4).
+template <bool kVec>
+__device__ __forceinline__ void f32_mainloop(const float* __restrict__ x,
+                                             const float* __restrict__ w, int m, int n, int k,
+                                             int row0, int col0, float* smem,
+                                             float (&acc)[4][4][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int tiles = (k + kF32BK - 1) / kF32BK;
+  auto load = [&](int slot, int kt) {
+    float* stage = smem + slot * kF32StageFloats;
+    f32_load_tile<kVec>(stage, x, m, k, row0, kt * kF32BK);
+    f32_load_tile<kVec>(stage + kF32BM * kF32Pitch, w, n, k, col0, kt * kF32BK);
+  };
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  for (int k0 = 0; k0 < k; k0 += kSimtBK) {
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int e = tid + q * kSimtThreads;
-      const int r = e >> 4, kc = e & 15;
-      const int gk = k0 + kc;
-      const int gr = row0 + r, gc = col0 + r;
-      sa[kc * (kSimtBM + 1) + r] = gr < m && gk < k ? x[static_cast<size_t>(gr) * k + gk] : 0.0f;
-      sb[kc * (kSimtBN + 1) + r] = gc < n && gk < k ? w[static_cast<size_t>(gc) * k + gk] : 0.0f;
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.0f;
+
+  __syncthreads();  // every warp is done with what the block kept in smem before
+#pragma unroll
+  for (int s = 0; s < kF32Stages - 1; ++s) {
+    if (s < tiles) load(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < tiles; ++kt) {
+    cp_async_wait<kF32Stages - 2>();
+    __syncthreads();  // tile kt has landed, and every warp is done with the slot refilled next
+    if (kt + kF32Stages - 1 < tiles) load((kt + kF32Stages - 1) % kF32Stages, kt + kF32Stages - 1);
+    cp_async_commit();
+    const float* stage = smem + (kt % kF32Stages) * kF32StageFloats;
+    const float* a = stage + (wm * 64 + g) * kF32Pitch + 2 * t;
+    const float* b = stage + (kF32BM + wn * 32 + g) * kF32Pitch + 2 * t;
+#pragma unroll
+    for (int ks = 0; ks < kF32BK / 8; ++ks) {
+      unsigned bh[4][2], bl[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 v = *reinterpret_cast<const float2*>(b + j * 8 * kF32Pitch + ks * 8);
+        split_tf32(v.x, bh[j][0], bl[j][0]);
+        split_tf32(v.y, bh[j][1], bl[j][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 top = *reinterpret_cast<const float2*>(a + i * 16 * kF32Pitch + ks * 8);
+        const float2 low = *reinterpret_cast<const float2*>(a + (i * 16 + 8) * kF32Pitch + ks * 8);
+        unsigned ah[4], al[4];
+        split_tf32(top.x, ah[0], al[0]);
+        split_tf32(low.x, ah[1], al[1]);
+        split_tf32(top.y, ah[2], al[2]);
+        split_tf32(low.y, ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float step[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_tf32(step, al, bh[j][0], bh[j][1]);
+          mma_tf32(step, ah, bl[j][0], bl[j][1]);
+          mma_tf32(step, ah, bh[j][0], bh[j][1]);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[i][j][c] += step[c];
+        }
+      }
     }
-    __syncthreads();
-#pragma unroll
-    for (int kc = 0; kc < kSimtBK; ++kc) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sa[kc * (kSimtBM + 1) + simt_row(i)];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sb[kc * (kSimtBN + 1) + simt_col(j)];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-    }
-    __syncthreads();
   }
 }
 

@@ -42,30 +42,18 @@
 //
 // The f32 instantiation (BLIP-ITM's tower and the drivers' default f32
 // predict and eval run it) is the same one sweep on the tensor cores in
-// 3xTF32 (tile_gemm.cuh): one block of 8 warps per (128 query rows, image,
-// head), each warp 16 rows, two blocks an SM; the queries and a 2-stage
-// cp.async ring of 64-key K and V tiles in shared memory (106 KB), so each
-// tile crosses L2 once a block, not once a query row. S = Q K^T on mma.sync
-// m16n8k8: hi and lo of Q and K, three products. The scores are scaled and
-// rounded (q . k) * scale, as the plain version's; a row's running max m and
-// its sum and context rescale per tile by exp(m_old - m_new), and e =
-// exp(s - m) (expf, not ex2: e is exactly 1 at a row's max, as the plain
-// version's). P V takes e from the S accumulators as they stand (a thread's
-// keys 2t and 2t + 1 serve as the fragment's K positions t and t + 4, and V's
-// rows are read in the same order) and V split three ways, hi + lo + lo2 = v
-// exactly: lo2 * e_hi, e_lo * v_hi, lo * e_hi, hi * e_hi, each 8 keys' four
-// products into a fresh accumulator that joins the context by an f32 add
-// (tile_gemm.cuh), so where e is a TF32 value (a single key: e = 1) the
-// context is exactly the value. The
-// division by the f32 sum comes at the end. Pitches of 72 (Q, K: float2
-// reads of a row's two dims) and 68 floats (V: reads of two keys' rows at
-// one dim) keep the fragment reads free of bank conflicts. Bound at the ITM
-// shape (64 frames of 577 tokens): 7.9e11 FLOP a 12-block encode, 11.7 ms
+// 3xTF32, through attention_f32.cuh's body (its numerics there): one block
+// of 8 warps per (128 query rows, image, head), each warp 16 rows, two blocks
+// an SM; the queries and a 2-stage cp.async ring of 64-key K and V tiles in
+// shared memory (106 KB), so each tile crosses L2 once a block, not once a
+// query row. Only the last tile masks (keys past N at -inf). Bound at the
+// ITM shape (64 frames of 577 tokens): 7.9e11 FLOP a 12-block encode, 11.7 ms
 // at the CUDA cores' 67 TFLOP/s, 4.8 ms for three TF32 passes at 495.
 
 #include <cmath>
 #include <type_traits>
 
+#include "attention_f32.cuh"
 #include "smem_attribute.cuh"
 #include "tile_gemm.cuh"
 
@@ -270,11 +258,12 @@ vit_attention_bf16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, 
     }
 }
 
+using attn32::kQPitch;
+using attn32::kVPitch;
+
 constexpr int kF32Warps = 8;                  // 16 query rows each
 constexpr int kF32Rows = 16 * kF32Warps;      // query rows of a block
-constexpr int kF32Keys = 64;                  // keys of a tile: 8 chunks of 8
-constexpr int kQPitch = kHd + 8;              // floats a row of Q and of K
-constexpr int kVPitch = kHd + 4;              // floats a row of V
+constexpr int kF32Keys = attn32::kTileKeys;   // keys of a tile: 8 chunks of 8
 constexpr int kF32SmemBytes =
     (kF32Rows * kQPitch + 2 * kF32Keys * (kQPitch + kVPitch)) * static_cast<int>(sizeof(float));
 
@@ -313,16 +302,8 @@ vit_attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
     }
   };
 
-  // per half h (row g + 8h of the warp's 16): the running max of the scaled
-  // scores and this thread's part of the running sum; the context's 8 tiles
-  // of 8 dims in the accumulator layout
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
-  float o[kHd / 8][4];
-#pragma unroll
-  for (int j = 0; j < kHd / 8; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[j][c] = 0.0f;
-
+  attn32::Rows st;
+  attn32::init(st);
   load(0, 0);
   tile::cp_async_commit();
   for (int kt = 0; kt < tiles; ++kt) {
@@ -330,131 +311,24 @@ vit_attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
     tile::cp_async_commit();
     tile::cp_async_wait<1>();
     __syncthreads();  // tile kt (and at kt 0 the queries) has landed
-    // one tile of `chunks` 8-key chunks (the last tile has only as many as
-    // hold keys below n; a constant, so no branch enters the unrolled loops)
-    auto step = [&](auto chunks) {
-      constexpr int kC = decltype(chunks)::value;
-      const float* tk = sk + (kt & 1) * kF32Keys * kQPitch;
-      const float* tv = sv + (kt & 1) * kF32Keys * kVPitch;
-      // S = Q K^T: a thread's fragment dims t and t + 4 of each 8 are read
-      // from dims 2t and 2t + 1, in Q and K alike
-      float s[kC][4];
-#pragma unroll
-      for (int j = 0; j < kC; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[j][c] = 0.0f;
-      const float* qrow = sq + (warp * 16 + g) * kQPitch + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < kHd / 8; ++kk) {
-        const float2 top = *reinterpret_cast<const float2*>(qrow + kk * 8);
-        const float2 low = *reinterpret_cast<const float2*>(qrow + 8 * kQPitch + kk * 8);
-        unsigned ah[4], al[4];
-        tile::split_tf32(top.x, ah[0], al[0]);
-        tile::split_tf32(low.x, ah[1], al[1]);
-        tile::split_tf32(top.y, ah[2], al[2]);
-        tile::split_tf32(low.y, ah[3], al[3]);
-#pragma unroll
-        for (int j = 0; j < kC; ++j) {
-          const float2 kv =
-              *reinterpret_cast<const float2*>(tk + (j * 8 + g) * kQPitch + kk * 8 + 2 * t);
-          unsigned bh0, bl0, bh1, bl1;
-          tile::split_tf32(kv.x, bh0, bl0);
-          tile::split_tf32(kv.y, bh1, bl1);
-          tile::mma_tf32(s[j], al, bh0, bh1);
-          tile::mma_tf32(s[j], ah, bl0, bl1);
-          tile::mma_tf32(s[j], ah, bh0, bh1);
-        }
-      }
-      // the scaled scores, rounded as the plain version's; keys past n at -inf
-      const bool last = (kt + 1) * kF32Keys > n;
-#pragma unroll
-      for (int j = 0; j < kC; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[j][c] = __fmul_rn(s[j][c], scale);
-          if (last && kt * kF32Keys + j * 8 + 2 * t + (c & 1) >= n) s[j][c] = -INFINITY;
-        }
-      // the rows' new maxima; rescale the sums and contexts where they grew
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float tm = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < kC; ++j) tm = fmaxf(tm, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
-        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 1));
-        tm = fmaxf(tm, __shfl_xor_sync(0xffffffffu, tm, 2));
-        const float mn = fmaxf(m[h], tm);  // finite: key 0 lies in tile 0
-        const float alpha = expf(m[h] - mn);  // 0 at the first tile
-        m[h] = mn;
-        l[h] *= alpha;
-#pragma unroll
-        for (int j = 0; j < kHd / 8; ++j) {
-          o[j][2 * h] *= alpha;
-          o[j][2 * h + 1] *= alpha;
-        }
-      }
-      // e = exp(s - m) into the sums and O += E V, 8 keys at a time
-#pragma unroll
-      for (int kk = 0; kk < kC; ++kk) {
-        float e[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          e[c] = expf(s[kk][c] - m[c >> 1]);
-          l[c >> 1] += e[c];
-        }
-        // A: K position t is key 2t (e[0] row g, e[2] row g + 8), t + 4 is
-        // key 2t + 1 (e[1], e[3])
-        unsigned ph[4], pl[4];
-        tile::split_tf32(e[0], ph[0], pl[0]);
-        tile::split_tf32(e[2], ph[1], pl[1]);
-        tile::split_tf32(e[1], ph[2], pl[2]);
-        tile::split_tf32(e[3], ph[3], pl[3]);
-        const float* vrow = tv + (kk * 8 + 2 * t) * kVPitch + g;
-#pragma unroll
-        for (int j = 0; j < kHd / 8; ++j) {
-          unsigned vh0, vl0, vr0, vh1, vl1, vr1;
-          tile::split3_tf32(vrow[j * 8], vh0, vl0, vr0);
-          tile::split3_tf32(vrow[kVPitch + j * 8], vh1, vl1, vr1);
-          float step[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          tile::mma_tf32(step, ph, vr0, vr1);
-          tile::mma_tf32(step, pl, vh0, vh1);
-          tile::mma_tf32(step, ph, vl0, vl1);
-          tile::mma_tf32(step, ph, vh0, vh1);
-#pragma unroll
-          for (int c = 0; c < 4; ++c) o[j][c] += step[c];
-        }
-      }
-    };
     if (active) {
-      static_assert(kF32Keys == 64, "8 chunks of 8");
-      const int chunks = (min(n - kt * kF32Keys, kF32Keys) + 7) / 8;
-      switch (chunks) {
-        case 8: step(std::integral_constant<int, 8>{}); break;
-        case 7: step(std::integral_constant<int, 7>{}); break;
-        case 6: step(std::integral_constant<int, 6>{}); break;
-        case 5: step(std::integral_constant<int, 5>{}); break;
-        case 4: step(std::integral_constant<int, 4>{}); break;
-        case 3: step(std::integral_constant<int, 3>{}); break;
-        case 2: step(std::integral_constant<int, 2>{}); break;
-        default: step(std::integral_constant<int, 1>{}); break;
-      }
+      // the last tile has only as many chunks as hold keys below n, its
+      // keys past n masked
+      const int key0 = kt * kF32Keys;
+      const bool last = key0 + kF32Keys > n;
+      attn32::attend_chunks((min(n - key0, kF32Keys) + 7) / 8, st,
+                            sq + (warp * 16 + g) * kQPitch + 2 * t,
+                            sk + (kt & 1) * kF32Keys * kQPitch, sv + (kt & 1) * kF32Keys * kVPitch,
+                            scale, [&](float s, int key, int) {
+                              return last && key0 + key >= n ? -INFINITY : s;
+                            });
     }
     __syncthreads();  // every warp is done with slot kt & 1 before it is refilled
   }
 
-  // O / l in f32
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float sum = l[h];
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const int row = r0 + warp * 16 + g + 8 * h;
-    if (row >= n) continue;
-    float* orow = out + (static_cast<size_t>(image) * n + row) * hh + head * kHd + 2 * t;
-#pragma unroll
-    for (int j = 0; j < kHd / 8; ++j)
-      *reinterpret_cast<float2*>(orow + j * 8) =
-          make_float2(o[j][2 * h] / sum, o[j][2 * h + 1] / sum);
-  }
+  const int row = r0 + warp * 16 + g;
+  float* orow = out + (static_cast<size_t>(image) * n + row) * hh + head * kHd;
+  attn32::store(st, orow, orow + 8 * static_cast<size_t>(hh), row < n, row + 8 < n);
 }
 
 }  // namespace

@@ -28,9 +28,21 @@
 // share one run of the table in L2 and each keeps its own row panel there.
 // The number of runs is chosen so the units fill the card's blocks in whole
 // waves. A second, O(rows) kernel merges the partials and takes the log.
-// The f32 instantiation (the card-vs-CPU reference) runs on tile_gemm.cuh's
-// SIMT tile.
+//
+// The f32 instantiation (the drivers' default f32 predict and eval run it):
+// 2.11e12 FLOP a forward (two passes), 31.5 ms at the CUDA cores' 67 TFLOP/s
+// and 12.8 ms for three TF32 passes at 495. The product runs on the 3xTF32
+// main loop of tile_gemm.cuh (the f32 products' own: 128 x 128 tiles, 8
+// warps of 64 x 32, a 4-stage cp.async ring, float2 fragment reads, numerics
+// there), one block an SM. The epilogue folds each tile's logits, still in
+// the accumulators, into (max, sum of exp, sum of logits, target logit) per
+// row as the bf16 kernel's does: a thread holds 8 rows and 8 columns of each
+// tile. A unit is (128-row panel, run of tiles), one block each, numbered
+// run-major as the bf16 units; at the run's end the quad's four threads
+// merge by shuffles and the four column warps through shared memory, and
+// one float4 partial per row goes out.
 
+#include "smem_attribute.cuh"
 #include "tile_gemm.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -203,54 +215,91 @@ vocab_wgmma_kernel(const __grid_constant__ CUtensorMap map_h,
   }
 }
 
-__global__ void __launch_bounds__(tile::kSimtThreads)
+// Blocks of vocab_f32_kernel an SM holds (its launch bound). The
+// accumulator's 64 floats and eight row stats' 32 live across the main loop:
+// at two blocks an SM (128 registers) ~1 KB a thread spills, at one (254
+// registers) nothing, and one block measured 2% faster on the H100
+// (f32_variants.py; PERF.md).
+constexpr int kF32Blocks = 1;
+
+// h (rows, hdim) and the table (vocab, hdim), f32; the vocabulary cut into
+// runs of per_run 128-word tiles; block u is unit u: run u / panels, panel
+// u % panels (run-major, so the blocks in flight share one run of the
+// table in L2); partial (runs, rows) float4.
+template <bool kVec>
+__global__ void __launch_bounds__(tile::kF32Threads, kF32Blocks)
 vocab_f32_kernel(const float* __restrict__ h, const float* __restrict__ table,
                  const float* __restrict__ bias, const int* __restrict__ labels,
-                 float4* __restrict__ partial, int rows, int vocab, int hdim,
-                 int tiles_per_split) {
-  __shared__ float smem[tile::kSimtSmemFloats];
-  __shared__ Stat red[tile::kSimtBM * tile::kSimtColGroups];
-  const int row0 = blockIdx.x * tile::kSimtBM;
-  const int vtiles = (vocab + tile::kSimtBN - 1) / tile::kSimtBN;
-  const int vt0 = blockIdx.y * tiles_per_split;
-  const int vt1 = min(vt0 + tiles_per_split, vtiles);
-  Stat st[4];
-  int lab[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + tile::simt_row(i);
-    st[i] = stat_init();
-    lab[i] = row < rows ? labels[row] : -1;
-  }
-  for (int vt = vt0; vt < vt1; ++vt) {
-    const int col0 = vt * tile::kSimtBN;
-    float acc[4][4];
-    tile::simt_tile(h, table, rows, vocab, hdim, row0, col0, smem, acc);
-    int col[4];
-    float b[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      col[j] = col0 + tile::simt_col(j);
-      b[j] = col[j] < vocab ? bias[col[j]] : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = acc[i][j] + b[j];
-      fold(st[i], v, col, vocab, lab[i]);
-    }
-  }
+                 float4* __restrict__ partial, int rows, int vocab, int hdim, int per_run) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int panels = (rows + tile::kF32BM - 1) / tile::kF32BM;
+  const int run = blockIdx.x / panels, row0 = (blockIdx.x % panels) * tile::kF32BM;
+  const int vt0 = run * per_run;
+  const int vt1 = min(vt0 + per_run, (vocab + tile::kF32BN - 1) / tile::kF32BN);
+  // this thread's rows: row(i, hh) = row0 + wm * 64 + i * 16 + g + 8 hh
+  Stat st[4][2];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    red[tile::simt_row(i) * tile::kSimtColGroups + tile::simt_col_group()] = st[i];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) st[i][hh] = stat_init();
+  for (int vt = vt0; vt < vt1; ++vt) {  // none where the run lies wholly past the vocabulary
+    const int col0 = vt * tile::kF32BN;
+    float acc[4][4][4];
+    tile::f32_mainloop<kVec>(h, table, rows, vocab, hdim, row0, col0, smem, acc);
+    // this thread's 8 columns, acc[.][j][2 hh + e] at column 8 j + e, and
+    // their bias
+    int col[8];
+    float b[8];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        col[2 * j + e] = col0 + wn * 32 + j * 8 + 2 * t + e;
+        b[2 * j + e] = col[2 * j + e] < vocab ? __ldg(bias + col[2 * j + e]) : 0.0f;
+      }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = row0 + wm * 64 + i * 16 + g + 8 * hh;
+        float v[8];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) v[c] = acc[i][c / 2][2 * hh + c % 2] + b[c];
+        fold(st[i][hh], v, col, vocab, row < rows ? __ldg(labels + row) : -1);
+      }
+  }
+  // the run's end: the quad shares its rows (shuffles), then the four
+  // column warps share theirs through shared memory, the stages' room
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const Stat o{__shfl_xor_sync(0xffffffffu, st[i][hh].m, off),
+                     __shfl_xor_sync(0xffffffffu, st[i][hh].s, off),
+                     __shfl_xor_sync(0xffffffffu, st[i][hh].sum, off),
+                     __shfl_xor_sync(0xffffffffu, st[i][hh].tgt, off)};
+        merge(st[i][hh], o);
+      }
+  Stat* red = reinterpret_cast<Stat*>(smem);  // [4 column warps][128 rows]
+  __syncthreads();  // every warp is done with the main loop's stages
+  if (t == 0)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        red[wn * tile::kF32BM + wm * 64 + i * 16 + g + 8 * hh] = st[i][hh];
   __syncthreads();
-  if (threadIdx.x < tile::kSimtBM && row0 + static_cast<int>(threadIdx.x) < rows) {
-    Stat a = red[threadIdx.x * tile::kSimtColGroups];
-    for (int g = 1; g < tile::kSimtColGroups; ++g)
-      merge(a, red[threadIdx.x * tile::kSimtColGroups + g]);
-    partial[static_cast<size_t>(blockIdx.y) * rows + row0 + threadIdx.x] =
-        make_float4(a.m, a.s, a.sum, a.tgt);
+  const int r = threadIdx.x;
+  if (r < tile::kF32BM && row0 + r < rows) {
+    Stat a = red[r];
+    for (int c = 1; c < 4; ++c) merge(a, red[c * tile::kF32BM + r]);
+    partial[static_cast<size_t>(run) * rows + row0 + r] = make_float4(a.m, a.s, a.sum, a.tgt);
   }
 }
 
@@ -274,10 +323,10 @@ __global__ void vocab_merge_kernel(const float4* __restrict__ partial, float* __
 
 // h (rows, hdim), table (vocab, hdim): bf16 (dtype 1: hdim % 8 == 0, h and
 // table 16-byte aligned) or f32 (dtype 0); bias (vocab,) f32; labels (rows,)
-// i32; lse, sumlog, tgt (rows,) f32. The vocabulary tiles (128 words for
-// bf16, 64 for f32) are cut into `splits` runs of `tiles_per_split` (even
-// for bf16); partial is f32 scratch of (parts, rows, 4), parts = 2 splits
-// for bf16 (one per run and consumer) and splits for f32. Returns
+// i32; lse, sumlog, tgt (rows,) f32. The vocabulary tiles of 128 words are
+// cut into `splits` runs of `tiles_per_split` (even for bf16); partial is f32
+// scratch of (parts, rows, 4), parts = 2 splits for bf16 (one per run and
+// consumer) and splits for f32 (one per run). Returns
 // cudaGetLastError() after the two launches.
 extern "C" int bq_vocab_reductions(const void* h, const void* table, const float* bias,
                                    const int* labels, float* partial, float* lse, float* sumlog,
@@ -305,8 +354,14 @@ extern "C" int bq_vocab_reductions(const void* h, const void* table, const float
         map_h, map_t, bias, labels, part, rows, vocab, hdim, splits, tiles_per_split);
     parts = 2 * splits;
   } else {
-    const dim3 grid((rows + tile::kSimtBM - 1) / tile::kSimtBM, splits);
-    vocab_f32_kernel<<<grid, tile::kSimtThreads, 0, s>>>(
+    const int units = (rows + tile::kF32BM - 1) / tile::kF32BM * splits;
+    const bool vec = hdim % 4 == 0 &&
+                     (reinterpret_cast<size_t>(h) | reinterpret_cast<size_t>(table)) % 16 == 0;
+    const auto kernel = vec ? vocab_f32_kernel<true> : vocab_f32_kernel<false>;
+    const cudaError_t err =
+        set_smem_once(reinterpret_cast<const void*>(kernel), tile::kF32SmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<units, tile::kF32Threads, tile::kF32SmemBytes, s>>>(
         static_cast<const float*>(h), static_cast<const float*>(table), bias, labels, part, rows,
         vocab, hdim, tiles_per_split);
   }

@@ -11,7 +11,8 @@ so here the layer is eleven launches of three hand-written kernels:
   here too, the last with a residual);
 - ``self_attention`` and ``cross_attention`` (``csrc/scoring_attention.cu``):
   causal attention inside each answer, and each answer's attention to its
-  question's pre-projected keys and values;
+  question's pre-projected keys and values (at head width 64 on the tensor
+  cores: bf16 on a TMA-fed pipeline, f32 in 3xTF32);
 - ``add_layernorm`` (``csrc/scoring_layernorm.cu``): the three residual adds
   and LayerNorms (and the ViT block's LayerNorms: without a residual, or
   keeping the sum).
@@ -50,17 +51,20 @@ NEG = -1e9
 MAX_ANSWER_LEN = 128
 # shared memory one block of the attention kernel may use on Hopper
 _MAX_SMEM = 232448
+# question keys the f32 tensor-core attention holds whole (kF32CrossKeys)
+_F32_MAX_KEYS = 128
 
 # kernel launches since the last reset (chip_smoke.py reads and resets them)
 launches = {"scoring_gemm": 0, "scoring_attention": 0, "scoring_layernorm": 0}
 # launches of each kernel that one ``scoring_layer`` call makes
 LAUNCHES_PER_LAYER = {"scoring_gemm": 6, "scoring_attention": 2, "scoring_layernorm": 3}
 # the fields of an attention launch as the C entry reports them (kLaunchFields
-# in csrc/scoring_attention.cu): "pipeline" 1 for the tensor-core pipeline, 0
-# for the CUDA-core kernel; "blocks"; "threads" a block; "smem" bytes of
-# dynamic shared memory a block; "resident" blocks an SM holds and "sms" of
-# the card (the pipeline's persistent grid); "stages" of its TMA ring;
-# "units" of (segment, head); "seg" row tiles a unit; "tile_rows"
+# in csrc/scoring_attention.cu): "pipeline" 1 for the bf16 tensor-core
+# pipeline, 2 for the f32 tensor-core kernel, 0 for the CUDA-core kernel;
+# "blocks"; "threads" a block; "smem" bytes of dynamic shared memory a block;
+# "resident" blocks an SM holds and "sms" of the card (the tensor-core
+# kernels' persistent grids); "stages" of the pipeline's TMA ring; "units" of
+# (segment, head); "seg" row tiles a unit; "tile_rows"
 ATTENTION_LAUNCH_FIELDS = ("pipeline", "blocks", "threads", "smem", "resident", "sms", "stages",
                            "units", "seg", "tile_rows")
 # the last attention launch, a dict of ATTENTION_LAUNCH_FIELDS
@@ -182,9 +186,15 @@ def self_attention_plain(qkv, *, la: int, heads: int):
 
 
 def cross_attention_smem(lk: int, head_dim: int, dtype: torch.dtype) -> int:
-    """Bytes of shared memory a cross-attention block needs: the keys and
+    """Bytes of shared memory a cross-attention block needs. The f32
+    tensor-core kernel (head width 64, at most 128 keys): 128 query rows,
+    the keys and values of one head (rows of 72 and 68 floats, the keys
+    rounded up to 8) and their bias. The CUDA-core kernel: the keys and
     values of one head (rows padded by two elements), and each warp's query
     row and scores in f32."""
+    if dtype == torch.float32 and head_dim == 64 and lk <= _F32_MAX_KEYS:
+        keys = -(-lk // 8) * 8
+        return (128 * 72 + keys * (72 + 68 + 1)) * 4
     return 2 * lk * (head_dim + 2) * (torch.finfo(dtype).bits // 8) + 8 * (head_dim + lk) * 4
 
 

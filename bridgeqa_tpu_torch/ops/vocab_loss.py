@@ -5,8 +5,9 @@ projects every answer token onto the 30524-word tied table and reduces the
 logits straight into a label-smoothed cross entropy. On a CUDA tensor
 ``lm_vocab_reductions`` launches the hand-written kernel in
 ``csrc/vocab_loss.cu``, which streams vocabulary tiles past panels of rows
-(bf16 on the wgmma main loop of ``csrc/wgmma_gemm.cuh``) and never writes a
-logit; on a CPU tensor it runs
+(bf16 on the wgmma main loop of ``csrc/wgmma_gemm.cuh``, f32 on the 3xTF32
+main loop of ``csrc/tile_gemm.cuh``) and never writes a logit; on a CPU
+tensor it runs
 ``lm_vocab_reductions_plain``. Logits are ``h @ table.T`` accumulated in f32
 plus the f32 bias, never rounded to the working type.
 
@@ -21,8 +22,12 @@ import torch
 from bridgeqa_tpu_torch.ops import cuda_lib
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# vocabulary words per tile of the kernel: bf16 tensor-core tiles, f32 tiles
-_TILE = {torch.bfloat16: 128, torch.float32: 64}
+# vocabulary words (and rows) per tile of the kernel, in either type
+_TILE = 128
+# f32: a run this much busier than the least busy one still counts as level
+# (a unit's start, the ring's fill and its partials, costs more: one tile a
+# run measured 4% slower than 80, f32_variants.py)
+_F32_LEVEL = 1.01
 # rows per block of the plain version
 _PLAIN_ROWS = 2048
 
@@ -33,24 +38,24 @@ launches = 0
 def _splits(rows: int, vocab: int, dtype: torch.dtype, device: torch.device) -> tuple[int, int]:
     """(runs, tiles per run) of the vocabulary tiles.
 
-    bf16: a unit of the kernel is (128-row panel, run), and the persistent
-    grid holds one block per SM; the run length is the even number (the two
-    consumers alternate over a run's tiles) that makes the busiest block's
-    tiles fewest, the longest such run (fewer partials) on a tie. f32: the
-    row blocks times the runs fill the card about four blocks deep."""
-    tile = _TILE[dtype]
-    vtiles = -(-vocab // tile)
-    row_blocks = -(-rows // tile)
+    A unit of the kernel is (128-row panel, run), and the card holds one
+    block an SM in either type. bf16: a persistent grid walks the units,
+    and a run is an even number of tiles (the two consumers alternate over
+    them); f32 (``kF32Blocks`` 1): one block a unit. The run is the longest
+    that makes the busiest SM's tiles fewest (fewer partials), in f32 within
+    ``_F32_LEVEL`` of the fewest."""
+    vtiles = -(-vocab // _TILE)
+    panels = -(-rows // _TILE)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    if dtype == torch.bfloat16:
-        def busiest(per):
-            units = row_blocks * -(-vtiles // per)
-            return -(-units // min(units, sms)) * per
+    bf16 = dtype == torch.bfloat16
 
-        per = min(range(2, vtiles + 2, 2), key=lambda p: (busiest(p), -p))
-        return -(-vtiles // per), per
-    want = min(vtiles, max(1, -(-4 * sms // row_blocks)))
-    per = -(-vtiles // want)
+    def busiest(per):
+        units = panels * -(-vtiles // per)
+        return -(-units // min(units, sms)) * per
+
+    runs = range(2, vtiles + 2, 2) if bf16 else range(1, vtiles + 1)
+    least = min(busiest(p) for p in runs)
+    per = max(p for p in runs if busiest(p) <= (1.0 if bf16 else _F32_LEVEL) * least)
     return -(-vtiles // per), per
 
 

@@ -12,13 +12,14 @@ result is printed):
 2. build: compile every ``bridgeqa_tpu_torch/csrc/*.cu`` for sm_90a; print
    ptxas's register, spill and shared-memory lines for the redesigned
    kernels (the GEMM and the ViT attention in bf16 and f32, FPS's cluster
-   kernel, the vocabulary pass, the scoring attentions' pipeline, the ball
-   query and its backward);
+   kernel, the vocabulary pass and the scoring attentions in bf16 and f32,
+   the ball query and its backward);
    disassemble the library (``cuobjdump -sass``) and fail unless every
    instantiation of the bf16 GEMM and the vocabulary pass's bf16 kernel
    hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads), every instantiation
-   of the scoring attentions' pipeline ``UTMALDG``, and the f32 GEMM's and
-   ViT attention's (3xTF32) ``HMMA`` (mma.sync).
+   of the scoring attentions' pipeline ``UTMALDG``, and the f32 GEMM's, ViT
+   attention's, scoring attentions' and vocabulary pass's (3xTF32) ``HMMA``
+   (mma.sync).
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at every shape the main path gives it, batch 8.
    - FPS and the stripe ball query, with padding points, duplicate points,
@@ -39,7 +40,12 @@ result is printed):
      come out in f32 from exact products: each output (lse, sum of logits,
      target logit) within 1e-3 of its own largest value, and its TFLOP/s;
      also at 1000 rows and a 203-word vocabulary, mostly padding in its last
-     tile. Then a
+     tile. The f32 scoring attentions and vocabulary pass (3xTF32) also at
+     the main path's shapes on f32 inputs against f64 (``f32_route_checks``):
+     within 1e-5 of each output's largest value (``F32_ROUTE_TOL``; the sum
+     of logits of each row's sum of |logit|), both attentions on the f32
+     tensor-core kernel, a single visible key's context bitwise its value.
+     Then a
      whole 12-layer decoder pass and its loss, kernels against plain
      versions in bf16, every bias and LayerNorm parameter perturbed:
      per-sequence losses within 1% relative (rounding points match,
@@ -66,10 +72,12 @@ result is printed):
    ball-query rows' times, the library calls beside them included, are the
    card time of such a loop, read from ``torch.profiler`` (``device_ms``,
    which takes a trace again if it lacks a card record of some launch and
-   counts such traces). The scoring-attention and ball-query rows carry
-   the launch their C entry reports having made (kernel, grid, and the
-   ring's depth and shared memory, or the centres a warp); the main path's
-   attentions must have run the tensor-core pipeline. The ball query's log
+   counts such traces, and after five such traces in a row times the loop
+   by CUDA events behind a spin kernel instead, ``queued_ms``). The
+   scoring-attention and ball-query rows carry the launch their C entry
+   reports having made (kernel, grid, and the ring's depth and shared
+   memory, or the centres a warp); the main path's attentions must have run
+   the tensor-core pipeline. The ball query's log
    lines also give its bound in unfused f32 instructions (its source builds
    with ``-fmad=false``).
    The gather's wrapper waits for the card in its index check; its loop
@@ -101,9 +109,14 @@ result is printed):
    card time, ``build/profile_main_path_f32.txt``), and the f32 module path
    (``fused_scoring="off"``, ``FUSED_MODE = "off"``) on the same weights and
    batch: the top-1 answer of each decoder and of their ensemble equal on
-   every row, the largest score difference printed; then each f32 kernel's
-   card time at the forward's shapes beside its library call and its bound
-   (``f32_kernel_rows``).
+   every row, the largest score difference printed; it fails if a kernel
+   launched in the forward shows no card time in its profile, or if an f32
+   attention took the CUDA-core kernel. Then each f32 kernel's card time at
+   the forward's shapes beside its library call and its bounds (FFMA;
+   3xTF32 for the four kernels on that route), the attentions' launch
+   records, and ``scaled_dot_product_attention`` f32 at the attentions'
+   shapes under each backend that takes f32 and the default, with the
+   backend the default took (``f32_kernel_rows``, ``sdpa_backends``).
 6. generate: open-ended answers by KV-cached beam search,
    ``BridgeQA.forward(batch, inference="generate")``, 2 x 5 beams a
    question, answers of up to 20 tokens, the 2D decoder sharpened
@@ -218,7 +231,8 @@ result is printed):
      instantiations) against their plain versions, each within 1e-3 of its
      own largest output, the GEMM's and the attention's (3xTF32) also
      against an f64 reference within 1e-5 of it (``F32_ROUTE_TOL``), with
-     card, plain and library time and bounds (FFMA; 3xTF32); the
+     card, plain and library time and bounds (FFMA; 3xTF32), and SDPA f32
+     at the attention's shape under each backend (``sdpa_backends``); the
      tower three ways on 64 frames (the kernels, the fused blocks through
      the plain versions, the module loop), each image within 1% relative
      L2 of the kernels'; the launches of one ``encode_images`` as derived
@@ -249,7 +263,7 @@ Bounds: the least time the card could take for a kernel's work, the larger
 of the bytes it must move (each input read once, each output written once)
 over 3.35 TB/s and its operations over the peak rate for their type
 (989 TFLOP/s bf16 tensor-core, 67 TFLOP/s f32), NVIDIA's H100 SXM data
-sheet. The two 3xTF32 kernels' rows also carry the route's bound: three
+sheet. The 3xTF32 kernels' f32 rows also carry the route's bound: three
 times their operations at 495 TFLOP/s TF32. Work that depends on the data (the ball query's scan, masked keys,
 causal prefixes) is counted for this run's data.
 
@@ -259,7 +273,7 @@ The last two lines are a ``{"kernels": [...]}`` JSON object (each
 kernel's ``launches`` from the path it serves, named by ``launches_path``:
 the rank forward, the train step for the backward kernel, or the exact
 detector for the exact query; ``f32_shapes``, the f32 rows at the rank
-forward's shapes;
+forward's shapes, and ``f32_route``, the f32 instantiation's route;
 ``launches_by_path`` from the rank forward, the generate forward, a train
 step, a step of the ``train`` script's loop, an eval batch of the ``eval``
 script, on each rank of phase 9 a DDP step, a ``tp=2`` step and a sharded
@@ -326,6 +340,10 @@ GATHER_SHAPES = [("sa1-like", NUM_POINTS, 4, 2048 * 64), ("sa2-like", 2048, 131,
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# the 3xTF32 kernels against an f64 reference, of the largest output: f32's
+# accuracy (one TF32 pass misses it by an order of magnitude,
+# tests/test_torch_f32_split.py)
+F32_ROUTE_TOL = 1e-5
 OUT_DIR = Path(__file__).resolve().parent / "build"  # listed in .gitignore
 
 
@@ -357,6 +375,9 @@ _LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync", "cudaM
 # traces of a device_ms that lacked some of their launches' work, since the
 # process began: (reps, launch calls, card records) of each
 dropped_traces = []
+# device_ms readings taken by queued_ms after five such traces in a row:
+# (reps, ms) of each
+queued_fallbacks = []
 
 
 def device_ms(fn, reps: int) -> float:
@@ -369,7 +390,10 @@ def device_ms(fn, reps: int) -> float:
     the loop launched). A trace is used only if it holds a card record for
     every launch of the loop; one that lost some (``dropped_traces``) is
     taken again, up to five times, with the names of what it held and what
-    was launched printed, and then the reading fails."""
+    was launched printed. Late in a run (after phase 9's processes shared
+    the card) whole traces come back empty, up to five in a row; then the
+    loop is timed by ``queued_ms`` (CUDA events, the gaps between kernels
+    included; ``queued_fallbacks``)."""
     from collections import Counter
 
     from torch.autograd import DeviceType
@@ -398,7 +422,11 @@ def device_ms(fn, reps: int) -> float:
         log(f"device_ms: a trace of {reps} calls held {len(work)} card records for {loop} "
             f"launches of the loop; taken again. Records "
             f"{dict(Counter(e.name()[:40] for e in work))}, launches {dict(Counter(launched))}")
-    raise RuntimeError("device_ms: torch.profiler lost the card's records five times in a row")
+    ms = queued_ms(fn, reps)
+    queued_fallbacks.append((reps, ms))
+    log(f"device_ms: torch.profiler lost the card's records five times in a row; {reps} calls "
+        f"timed by queued_ms instead: {ms:.4f} ms a call")
+    return ms
 
 
 def queued_ms(fn, reps: int, loops: int = 3) -> float:
@@ -494,14 +522,25 @@ def card_name_and_power() -> str:
 PTXAS_KERNELS = ("gemm_kernel", "vit_attention_bf16_kernel", "fps_cluster_kernel",
                  "vocab_wgmma_kernel", "attention_pipe_kernel", "ball_query_stripes_kernel",
                  "ball_query_backward_kernel", "ball_query_exact_kernel", "gemm_f32_kernel",
-                 "vit_attention_f32_kernel")
+                 "vit_attention_f32_kernel", "scoring_attention_f32_kernel", "vocab_f32_kernel")
 # kernels whose SASS must hold Hopper instructions (parts of their mangled
 # names: wg::gemm_kernel<...>, the vocabulary pass, the scoring attentions'
-# pipeline, the 3xTF32 products and ViT attention), and which: the wgmma
-# product (HGMMA), the TMA tile load (UTMALDG), the mma.sync product (HMMA)
+# pipeline, the 3xTF32 products, ViT attention, scoring attentions and
+# vocabulary pass), and which: the wgmma product (HGMMA), the TMA tile load
+# (UTMALDG), the mma.sync product (HMMA)
 SASS_KERNELS = {"wg11gemm_kernel": ("HGMMA", "UTMALDG"), "vocab_wgmma_kernel": ("HGMMA", "UTMALDG"),
                 "attention_pipe_kernel": ("UTMALDG",), "gemm_f32_kernel": ("HMMA",),
-                "vit_attention_f32_kernel": ("HMMA",)}
+                "vit_attention_f32_kernel": ("HMMA",), "scoring_attention_f32_kernel": ("HMMA",),
+                "vocab_f32_kernel": ("HMMA",)}
+# the route of each kernel's f32 instantiation, for the kernels line
+F32_ROUTES = {
+    "scoring_gemm": "3xTF32 on mma.sync m16n8k8: gemm_f32_kernel on tile_gemm.cuh's main loop",
+    "vit_attention": "3xTF32 on mma.sync m16n8k8: vit_attention_f32_kernel on attention_f32.cuh",
+    "scoring_attention": "3xTF32 on mma.sync m16n8k8: scoring_attention_f32_kernel on "
+                         "attention_f32.cuh (head width 64, at most 128 question keys; else "
+                         "the CUDA-core attention_kernel<float>)",
+    "vocab_loss": "3xTF32 on mma.sync m16n8k8: vocab_f32_kernel on tile_gemm.cuh's main loop",
+    "scoring_layernorm": "CUDA cores: add_layernorm_kernel<float>"}
 
 
 def ptxas_lines(build_log: str) -> list[str]:
@@ -557,8 +596,8 @@ def phase_build():
     for line in cuda_lib.build_log.splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
-    log("ptxas, the redesigned kernels (GEMM and ViT attention in bf16 and f32, FPS, vocabulary "
-        "pass, scoring attentions, ball query):")
+    log("ptxas, the redesigned kernels (GEMM, ViT attention, scoring attentions and vocabulary "
+        "pass in bf16 and f32, FPS, ball query):")
     for line in ptxas_lines(cuda_lib.build_log) or ["(library reused: no build log)"]:
         log(f"  {line}")
     for fn, c in sass_check(cuda_lib.library_path).items():
@@ -725,15 +764,16 @@ def phase_kernels(device, batch: int = BATCH, fps_shapes=FPS_SHAPES, bq_shapes=B
     ]
 
 
-def attention_launch(mode: str):
+def attention_launch(mode: str, pipeline: int = 1):
     """The record of the last attention launch (the C entry's report); the
-    main path's bf16 shapes must have run the tensor-core pipeline."""
+    main path's shapes must have run a tensor-core kernel: bf16 the pipeline
+    (``pipeline`` 1), f32 the 3xTF32 kernel (2)."""
     from bridgeqa_tpu_torch.ops import scoring_layer as sl
 
     launch = dict(sl.last_attention_launch)
-    if launch["pipeline"] != 1:
+    if launch["pipeline"] != pipeline:
         raise AssertionError(f"the {mode} attention at the main path's shape did not run the "
-                             f"tensor-core pipeline: {launch}")
+                             f"tensor-core kernel {pipeline}: {launch}")
     return launch
 
 
@@ -911,6 +951,10 @@ def phase_scoring_kernels(device, layers: int, reps: int = 10):
         log(f"vocab_loss ({rows_v}, {h}) x ({vocab}, {h})^T: {row['tflops']:.1f} TFLOP/s")
         del hv, table, got, want, got32
 
+    route = f32_route_checks(device, gen, failures)
+    for r, key in zip(attn_rows, ("self", "cross")):
+        r["f32_route"] = route[key]
+    vocab_rows[0]["f32_route"] = route["vocab"]
     if failures:
         raise AssertionError(f"scoring kernels and plain versions disagree: {failures}")
     src = "bridgeqa_tpu_torch/csrc/"
@@ -925,6 +969,91 @@ def phase_scoring_kernels(device, layers: int, reps: int = 10):
         dict(name="vocab_loss", route="cuda", source=src + "vocab_loss.cu",
              replaces="bridgeqa_tpu/ops/vocab_loss.py:37", rows=vocab_rows),
     ]
+
+
+def f32_route_checks(device, gen, failures: list) -> dict:
+    """The f32 scoring attentions and vocabulary pass (3xTF32 on mma.sync)
+    at the main path's shapes, on f32 inputs, against f64 references: each
+    output within ``F32_ROUTE_TOL`` of its largest value (the vocabulary's
+    sum of logits within it of each row's sum of |logit|). Both attentions
+    must have run the f32 tensor-core kernel (launch record "pipeline" 2);
+    a single visible key's context must be its value bit for bit (the first
+    row of every answer; a question with one valid key). Appends what fails
+    to ``failures``; returns {"self", "cross", "vocab": results}."""
+    from bridgeqa_tpu_torch.ops import scoring_layer as sl
+    from bridgeqa_tpu_torch.ops import vocab_loss as vl
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=device) * scale
+
+    def rel(got, exact):
+        return float((got.double() - exact).abs().max() / exact.abs().max())
+
+    out = {}
+    rows_n, h, hd, la = DECODER_ROWS, HIDDEN, HIDDEN // HEADS, ANSWER_LEN
+    seqs = rows_n // la
+    qkv = randn(rows_n, 3 * h)
+    got = sl.self_attention(qkv, la=la, heads=HEADS)
+    launch = dict(sl.last_attention_launch)
+    q, k, v = qkv.double().view(seqs, la, 3, HEADS, hd).permute(2, 0, 3, 1, 4)
+    causal = torch.tril(torch.ones(la, la, dtype=torch.bool, device=device))
+    scores = (q @ k.transpose(-1, -2) / hd ** 0.5).masked_fill(~causal, float("-inf"))
+    exact = (torch.softmax(scores, dim=-1) @ v).permute(0, 2, 1, 3).reshape(rows_n, h)
+    out["self"] = dict(f64_rel_err=rel(got, exact), pipeline=launch["pipeline"],
+                       single_key_bitwise=torch.equal(got.view(seqs, la, h)[:, 0],
+                                                      qkv.view(seqs, la, 3 * h)[:, 0, 2 * h:]))
+    del qkv, q, k, v, scores, exact, got
+    rows_q = rows_n // BATCH
+    qc, ck, cv = randn(rows_n, h), randn(BATCH, QUESTION_LEN, h), randn(BATCH, QUESTION_LEN, h)
+    valid = QUESTION_LEN - 4 * torch.arange(BATCH, device=device)
+    valid[1] = 1  # one valid key: its value on every row
+    keep = torch.arange(QUESTION_LEN, device=device)[None, :] < valid[:, None]
+    cbias = torch.where(keep, 0.0, sl.NEG).float()
+    got = sl.cross_attention(qc, ck, cv, cbias, heads=HEADS)
+    launch = dict(sl.last_attention_launch)
+    qd = qc.double().view(BATCH, rows_q, HEADS, hd).transpose(1, 2)
+    kd, vd = (x.double().view(BATCH, QUESTION_LEN, HEADS, hd).transpose(1, 2) for x in (ck, cv))
+    scores = qd @ kd.transpose(-1, -2) / hd ** 0.5 + cbias.double()[:, None, None, :]
+    exact = (torch.softmax(scores, dim=-1) @ vd).transpose(1, 2).reshape(rows_n, h)
+    out["cross"] = dict(f64_rel_err=rel(got, exact), pipeline=launch["pipeline"],
+                        single_key_bitwise=torch.equal(got[rows_q:2 * rows_q],
+                                                       cv[1, :1].expand(rows_q, h)))
+    del qc, ck, cv, qd, kd, vd, scores, exact, got
+    for mode in ("self", "cross"):
+        r = out[mode]
+        if not (r["f64_rel_err"] <= F32_ROUTE_TOL and r["pipeline"] == 2
+                and r["single_key_bitwise"]):
+            failures.append(f"scoring_attention f32 {mode}: {r} (tolerance {F32_ROUTE_TOL}, "
+                            "pipeline 2, the single key's context bitwise its value)")
+        log(f"scoring_attention f32 {mode} at the main path's shape: {r['f64_rel_err']:.3g} of "
+            f"the largest output from f64 (tol {F32_ROUTE_TOL}); launch pipeline "
+            f"{r['pipeline']}; single key bitwise {r['single_key_bitwise']}")
+
+    hv, table = randn(VOCAB_ROWS, h), randn(VOCAB, h, scale=0.02)
+    vbias = randn(VOCAB, scale=0.5)
+    labels = torch.randint(0, VOCAB, (VOCAB_ROWS,), generator=gen, device=device,
+                           dtype=torch.int32)
+    lse, sumlog, tgt = vl.lm_vocab_reductions(hv, table, vbias, labels)
+    want = {key: [] for key in ("lse", "sum", "tgt", "abs")}
+    t64, b64 = table.double(), vbias.double()
+    for lo in range(0, VOCAB_ROWS, 2048):
+        logits = hv[lo:lo + 2048].double() @ t64.T + b64
+        want["lse"].append(torch.logsumexp(logits, dim=-1))
+        want["sum"].append(logits.sum(dim=-1))
+        want["tgt"].append(logits.gather(1, labels[lo:lo + 2048].long()[:, None])[:, 0])
+        want["abs"].append(logits.abs().sum(dim=-1))
+        del logits
+    want = {key: torch.cat(x) for key, x in want.items()}
+    out["vocab"] = dict(
+        lse_f64_rel_err=rel(lse, want["lse"]), target_logit_f64_rel_err=rel(tgt, want["tgt"]),
+        sum_logits_f64_rel_err=float(((sumlog.double() - want["sum"]).abs() / want["abs"]).max()))
+    del hv, table, t64, want
+    if not all(e <= F32_ROUTE_TOL for e in out["vocab"].values()):
+        failures.append(f"vocab_loss f32: {out['vocab']} over {F32_ROUTE_TOL}")
+    log(f"vocab_loss f32 at the main path's shape, from f64 (tol {F32_ROUTE_TOL}): "
+        + json.dumps({k_: float(f"{e:.3g}") for k_, e in out["vocab"].items()}))
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_vit_kernels(device, kernels: dict, depth: int, reps: int = 10):
@@ -1485,19 +1614,69 @@ def phase_main_path(device, reps: int = 5):
 # the profiler shows, for the card time of each in one forward
 F32_PROFILE_KERNELS = {"scoring_gemm": ("gemm_f32_kernel",),
                        "vit_attention": ("vit_attention_f32_kernel",),
-                       "scoring_attention": ("attention_kernel",),
+                       "scoring_attention": ("scoring_attention_f32_kernel",),
                        "scoring_layernorm": ("add_layernorm_kernel",),
                        "vocab_loss": ("vocab_f32_kernel", "vocab_merge_kernel"),
                        "fps": ("fps_cluster_kernel",),
                        "ball_query_stripes": ("ball_query_stripes_kernel", "ball_query_warp_kernel")}
+# the scoring attentions' CUDA-core kernel in f32, which no main-path shape
+# may take
+F32_CUDA_CORE_ATTENTION = "::attention_kernel<float>"
 PEAK_TF32 = 495e12  # tensor cores, dense (NVIDIA's data sheet)
-TF32_PASSES = 3  # 3xTF32: the f32 products' and the f32 ViT attention's route
+TF32_PASSES = 3  # 3xTF32: the route of the f32 products, attentions and vocabulary pass
 
 
 def tf32_bound(flops: float, nbytes: float) -> float:
     """ms: the 3xTF32 route's least time, three TF32 passes at the tensor
     cores' peak, or the bytes at the HBM rate."""
     return bound(TF32_PASSES * flops, nbytes, PEAK_TF32)[0]
+
+
+def sdpa_backends(shape: str, q, k, v, reps: int = 3, **kw) -> dict:
+    """``scaled_dot_product_attention`` on these f32 inputs: card time
+    (``device_ms``) under each backend that takes f32 (the memory-efficient
+    kernel, then the math one, each forced with ``sdpa_kernel``) and under
+    the default, and which backend the default took, read from the kernels a
+    traced call launched. A backend that refuses the inputs reads None."""
+    from torch.autograd import DeviceType
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def call():
+        return F.scaled_dot_product_attention(q, k, v, **kw)
+
+    out = {}
+    for name, backend in (("efficient", SDPBackend.EFFICIENT_ATTENTION),
+                          ("math", SDPBackend.MATH)):
+        with sdpa_kernel(backend):
+            try:
+                call()
+            except RuntimeError as e:  # the backend does not take these inputs
+                out[name] = None
+                log(f"SDPA f32 {shape}: {name} refused ({str(e).splitlines()[0][:120]})")
+                continue
+            out[name] = device_ms(call, reps)
+    out["default"] = device_ms(call, reps)
+    names = []
+    for _ in range(5):  # a trace's first records can be lost: several calls, and again if empty
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                call()
+                torch.cuda.synchronize()
+        names = sorted({e.name() for e in prof.profiler.kineto_results.events()
+                        if e.device_type() == DeviceType.CUDA})
+        if names:
+            break
+    joined = " ".join(names)
+    out["default_took"] = ("unknown: the traces held no card records" if not names
+                           else "efficient" if "MemEff" in joined or "fmha_cutlass" in joined
+                           else "flash" if "flash" in joined else "cudnn" if "cudnn" in joined
+                           else "math")
+    log(f"SDPA f32 {shape}: ms a call " + json.dumps({k_: (None if v_ is None else round(v_, 4))
+                                                      if k_ != "default_took" else v_
+                                                      for k_, v_ in out.items()})
+        + f"; the default's kernels: {[n[:60] for n in names]}")
+    return out
 
 
 def f32_kernel_rows(device, layers: int, depth: int, reps: int = 3) -> dict:
@@ -1519,13 +1698,14 @@ def f32_kernel_rows(device, layers: int, depth: int, reps: int = 3) -> dict:
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=device) * scale
 
-    def row(name, shape, fn, library, flops, nbytes, calls, route=False):
+    def row(name, shape, fn, library, flops, nbytes, calls, route=False, **extra):
         ms = device_ms(fn, reps)
         lib_ms = None if library is None else device_ms(library, reps)
         bound_ms, bound_by = bound(flops, nbytes, PEAK_F32)
         rows[name].append(dict(shape=shape, calls=calls, ms=ms, library_ms=lib_ms,
                                bound_ms=bound_ms, bound_by=bound_by,
-                               tf32x3_bound_ms=tf32_bound(flops, nbytes) if route else None))
+                               tf32x3_bound_ms=tf32_bound(flops, nbytes) if route else None,
+                               **extra))
         lib = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
         log(f"f32 {name} {shape}: kernel {ms:.3f} ms, library {lib}, bound {bound_ms:.3f} ms "
             f"({bound_by}, FFMA)" + (f", {rows[name][-1]['tf32x3_bound_ms']:.3f} ms (3xTF32)"
@@ -1546,10 +1726,14 @@ def f32_kernel_rows(device, layers: int, depth: int, reps: int = 3) -> dict:
     la, seqs = ANSWER_LEN, DECODER_ROWS // ANSWER_LEN
     qkv = randn(DECODER_ROWS, 3 * h)
     q, k, v = qkv.view(seqs, la, 3, HEADS, hd).permute(2, 0, 3, 1, 4)
-    row("scoring_attention", f"self: ({DECODER_ROWS}, {3 * h}), {seqs} answers of {la}",
-        lambda: sl.self_attention(qkv, la=la, heads=HEADS),
+    shape = f"self: ({DECODER_ROWS}, {3 * h}), {seqs} answers of {la}"
+    sl.self_attention(qkv, la=la, heads=HEADS)
+    launch = attention_launch("f32 self", pipeline=2)
+    row("scoring_attention", shape, lambda: sl.self_attention(qkv, la=la, heads=HEADS),
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-        4.0 * HEADS * seqs * (la * (la + 1) // 2) * hd, 4 * 4 * DECODER_ROWS * h, passes)
+        4.0 * HEADS * seqs * (la * (la + 1) // 2) * hd, 4 * 4 * DECODER_ROWS * h, passes,
+        route=True, launch=launch,
+        library_backends=sdpa_backends(shape, q, k, v, is_causal=True))
     del qkv, q, k, v
     qc = randn(DECODER_ROWS, h)
     ck, cv = randn(BATCH, QUESTION_LEN, h), randn(BATCH, QUESTION_LEN, h)
@@ -1558,11 +1742,16 @@ def f32_kernel_rows(device, layers: int, depth: int, reps: int = 3) -> dict:
     qh = qc.view(BATCH, rows_q, HEADS, hd).transpose(1, 2)
     kh = ck.view(BATCH, QUESTION_LEN, HEADS, hd).transpose(1, 2)
     vh = cv.view(BATCH, QUESTION_LEN, HEADS, hd).transpose(1, 2)
-    row("scoring_attention", f"cross: ({DECODER_ROWS}, {h}) against ({BATCH}, {QUESTION_LEN}, {h})",
-        lambda: sl.cross_attention(qc, ck, cv, cbias, heads=HEADS),
-        lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=cbias[:, None, None, :]),
+    shape = f"cross: ({DECODER_ROWS}, {h}) against ({BATCH}, {QUESTION_LEN}, {h})"
+    mask = cbias[:, None, None, :]
+    sl.cross_attention(qc, ck, cv, cbias, heads=HEADS)
+    launch = attention_launch("f32 cross", pipeline=2)
+    row("scoring_attention", shape, lambda: sl.cross_attention(qc, ck, cv, cbias, heads=HEADS),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask),
         4.0 * DECODER_ROWS * h * QUESTION_LEN,
-        4 * (2 * DECODER_ROWS * h + 2 * BATCH * QUESTION_LEN * h + BATCH * QUESTION_LEN), passes)
+        4 * (2 * DECODER_ROWS * h + 2 * BATCH * QUESTION_LEN * h + BATCH * QUESTION_LEN), passes,
+        route=True, launch=launch,
+        library_backends=sdpa_backends(shape, qh, kh, vh, attn_mask=mask))
     del qc, ck, cv, qh, kh, vh
     scale, shift = randn(h, scale=0.5) + 1.0, randn(h, scale=0.5)
     for m, eps, mode, calls in ((DECODER_ROWS, 1e-12, "add", 3 * passes),
@@ -1585,7 +1774,7 @@ def f32_kernel_rows(device, layers: int, depth: int, reps: int = 3) -> dict:
     row("vocab_loss", f"({VOCAB_ROWS}, {h}) x ({VOCAB}, {h})^T",
         lambda: vl.lm_vocab_reductions(hv, table, vbias, labels), None,
         2.0 * VOCAB_ROWS * VOCAB * h, 4 * (VOCAB_ROWS * h + VOCAB * h + VOCAB + 4 * VOCAB_ROWS),
-        SCORING_PASSES)
+        SCORING_PASSES, route=True)
     del hv, table
     qkv = randn(BATCH, VIT_TOKENS, 3 * h)
     q, k, v = qkv.view(BATCH, VIT_TOKENS, 3, VIT_HEADS, hd).permute(2, 0, 3, 1, 4)
@@ -1675,6 +1864,13 @@ def phase_main_path_f32(device, reps: int = 3) -> dict:
             by_kernel[e.name()] = by_kernel.get(e.name(), 0.0) + e.duration_ns() / 1e6
     ours = {k: sum(ms for name, ms in by_kernel.items() if any(p in name for p in parts))
             for k, parts in F32_PROFILE_KERNELS.items()}
+    unseen = [k for k, ms in ours.items() if launches.get(k) and not ms > 0]
+    if unseen:
+        failed.append(f"kernels launched in the f32 forward with no card time in its profile: "
+                      f"{unseen}")
+    cuda_core = [n for n in by_kernel if F32_CUDA_CORE_ATTENTION in n]
+    if cuda_core:
+        failed.append(f"an f32 attention of the forward took the CUDA-core kernel: {cuda_core}")
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     log("f32 rank forward, the card's largest kernels (ms of one forward): "
         + "; ".join(f"{name[:70]} {ms:.2f}" for name, ms in top))
@@ -3656,10 +3852,6 @@ ITM_FRAMES = 64  # one image batch of the tool
 ITM_ROWS = ITM_FRAMES * ITM_TOKENS
 ITM_KERNEL_TOL = 1e-3  # of each kernel's largest output, f32 against its plain version
 ITM_TOWER_TOL = 0.01  # relative L2 error of each image's tower output
-# the 3xTF32 kernels against an f64 reference, of the largest output: f32's
-# accuracy (one TF32 pass misses it by an order of magnitude,
-# tests/test_torch_f32_split.py)
-F32_ROUTE_TOL = 1e-5
 VIEW_SCENES, VIEW_FRAMES, VIEW_QUESTIONS = 2, 96, 16
 ENET_BATCH = 32
 ENET_H, ENET_W = 256, 328
@@ -3781,6 +3973,8 @@ def itm_kernel_rows(device, reps: int = 3) -> tuple[dict, list]:
         4 * ITM_FRAMES * ITM_TOKENS * 4 * h, 12, exact)
     rel = head_rel_l2(got, want, VIT_HEADS)
     log(f"ITM f32 vit_attention: max relative L2 error per image and head {rel:.3g}")
+    rows["vit_attention"][-1]["library_backends"] = sdpa_backends(
+        f"ITM ({ITM_FRAMES}, {VIT_HEADS}, {ITM_TOKENS}, 64)", q, k, v)
     del qkv, q, k, v, got, want
     a, r = randn(ITM_ROWS, h), randn(ITM_ROWS, h, scale=2.0)
     scale, shift = randn(h, scale=0.5) + 1.0, randn(h, scale=0.5)
@@ -4396,9 +4590,13 @@ def main() -> int:
             # calls are the config's reckoning, not counted, and stay in the log
             record["f32_shapes"] = [{k: v for k, v in r.items() if k != "calls"}
                                     for r in f32_rows[name]]
+            record["f32_route"] = F32_ROUTES[name]
         if name in itm_rows:  # phase 11: f32 at BLIP-ITM's 577 tokens, 64 frames
             record["itm_f32_shapes"] = itm_rows[name]
         records.append(record)
+    log(f"device_ms: {len(dropped_traces)} trace(s) lacked card records in the whole run; "
+        f"{len(queued_fallbacks)} reading(s) timed by queued_ms instead (reps, ms): "
+        f"{queued_fallbacks}")
     log(f"whole run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -25,11 +25,15 @@ machine does not have; this file imports none.) On the edge cases
   a residual and keeping the sum, the attention over 1, 17, 64, 65, 577, 833,
   901 and 1025 tokens (65, 577, 833 and 1025 leave one valid key in the last
   tile), and a whole block;
-- the f32 GEMM and ViT attention (3xTF32 on the tensor cores) against an f64
-  reference within 1e-5 of the largest output, where one TF32 pass would
-  miss by an order of magnitude: the GEMM at BLIP-ITM's 36928 rows and at K
-  3072, the attention at 1, 65, 577 and 901 tokens; the f32 GEMM at any K,
-  at odd N and at 4-byte alignment (its 4-byte copies);
+- the f32 kernels on the tensor cores (3xTF32) against an f64 reference
+  within 1e-5 of the largest output, where one TF32 pass would miss by an
+  order of magnitude: the GEMM at BLIP-ITM's 36928 rows and at K 3072, the
+  ViT attention at 1, 65, 577 and 901 tokens, the scoring attentions at the
+  main path's shapes and at answers of 1, 5 and 128 and 7, 80 and 130
+  question keys (a single visible key's context is its value bit for bit),
+  and the vocabulary pass at the main path's 22528 x 30524 x 768; the f32
+  GEMM and vocabulary pass at any K, at odd N and at 4-byte alignment (their
+  4-byte copies);
 - the bf16 GEMM's TMA edges: M, N and K that are no multiple of the tile or
   of the 64-wide box, with GELU and with the residual; its GELU against the
   erf GELU at every |x| up to 6, within two f32 ulp or one bf16 rounding;
@@ -363,10 +367,11 @@ def test_self_attention_matches_plain(card, dtype, la, seqs, heads, hd):
     got = _counted("scoring_attention",
                    lambda: scoring_layer.self_attention(qkv, la=la, heads=heads))
     _assert_close(got, scoring_layer.self_attention_plain(qkv, la=la, heads=heads), "self")
-    # bf16 at head width 64 and a window of at most 128 keys (la + 15) takes
-    # the tensor-core pipeline, everything else the CUDA-core kernel
-    pipeline = dtype == torch.bfloat16 and hd == 64 and la + 15 <= 128
-    assert scoring_layer.last_attention_launch["pipeline"] == int(pipeline)
+    # head width 64 takes a tensor-core kernel: the bf16 pipeline where the
+    # window (la + 15 keys) is at most 128, the f32 kernel at any la;
+    # everything else the CUDA-core kernel
+    pipeline = (0 if hd != 64 else 2 if dtype == torch.float32 else 1 if la + 15 <= 128 else 0)
+    assert scoring_layer.last_attention_launch["pipeline"] == pipeline
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -388,8 +393,9 @@ def test_cross_attention_matches_plain(card, dtype, lk):
                    lambda: scoring_layer.cross_attention(qc, ck, cv, cbias, heads=heads))
     want = scoring_layer.cross_attention_plain(qc, ck, cv, cbias, heads=heads)
     _assert_close(got, want, f"cross, lk {lk}")
-    pipeline = dtype == torch.bfloat16 and lk <= 128
-    assert scoring_layer.last_attention_launch["pipeline"] == int(pipeline)
+    # at most 128 keys: the bf16 pipeline or the f32 tensor-core kernel
+    pipeline = 0 if lk > 128 else 1 if dtype == torch.bfloat16 else 2
+    assert scoring_layer.last_attention_launch["pipeline"] == pipeline
     # the question with one valid key copies that key's value
     _assert_close(got[rows_per_q:2 * rows_per_q], cv[1, :1].expand(rows_per_q, h), "one key")
 
@@ -510,8 +516,8 @@ def test_vocab_reductions_edges(card, dtype, rows, vocab, hdim, scale):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_vocab_reductions_run_past_vocab(card, dtype):
-    """Runs of two tiles over a vocabulary of 203 words (two bf16 tiles,
-    four f32 ones): the last run lies wholly past it."""
+    """Runs of two tiles over a vocabulary of 203 words (two tiles of 128
+    words in either type): the last runs lie wholly past it."""
     rng = np.random.RandomState(17)
     h = _randn(rng, 300, 64, dtype=dtype, device=card)
     table = _randn(rng, 203, 64, scale=0.1, dtype=dtype, device=card)
@@ -791,6 +797,127 @@ def test_scoring_gemm_f32_any_k(card, k, n):
     for gelu, r in ((True, None), (False, res)):
         got = _counted("scoring_gemm", lambda: scoring_layer.scoring_gemm(x, w, b, gelu, r))
         _assert_close(got, scoring_layer.scoring_gemm_plain(x, w, b, gelu, r), f"f32 gemm, k {k}")
+
+
+def _assert_f32_attention_launch(rows_heads: int):
+    """The last attention call ran the f32 tensor-core kernel: a persistent
+    grid no larger than the blocks the card holds at once, 8 warps, shared
+    memory within a block's 227 KB (and within two blocks' share of an SM
+    where two are resident), and units whose tiles cover every (row, head)."""
+    launch = scoring_layer.last_attention_launch
+    assert launch["pipeline"] == 2 and launch["threads"] == 8 * 32
+    assert 1 <= launch["resident"] and launch["blocks"] <= launch["resident"] * launch["sms"]
+    assert launch["blocks"] <= launch["units"] and launch["stages"] == 0
+    assert launch["smem"] <= 232448 and launch["resident"] * (launch["smem"] + 1024) <= 233472
+    assert launch["units"] * launch["seg"] * launch["tile_rows"] >= rows_heads
+
+
+def _self_attention_f64(qkv, la, heads):
+    r, h3 = qkv.shape
+    hd = h3 // 3 // heads
+    q, k, v = qkv.double().view(r // la, la, 3, heads, hd).permute(2, 0, 3, 1, 4)
+    causal = torch.tril(torch.ones(la, la, dtype=torch.bool, device=qkv.device))
+    s = (q @ k.transpose(-1, -2) / hd**0.5).masked_fill(~causal, float("-inf"))
+    return (torch.softmax(s, dim=-1) @ v).permute(0, 2, 1, 3).reshape(r, h3 // 3)
+
+
+def _cross_attention_f64(qc, ck, cv, cbias, heads):
+    r, h = qc.shape
+    nq, lk, _ = ck.shape
+    hd = h // heads
+    q = qc.double().view(nq, r // nq, heads, hd).transpose(1, 2)
+    k, v = (x.double().view(nq, lk, heads, hd).transpose(1, 2) for x in (ck, cv))
+    s = q @ k.transpose(-1, -2) / hd**0.5 + cbias.double()[:, None, None, :]
+    return (torch.softmax(s, dim=-1) @ v).transpose(1, 2).reshape(r, h)
+
+
+@pytest.mark.parametrize("la,seqs", [(12, 2048), (1, 300), (5, 301), (128, 20)])
+def test_self_attention_f32_keeps_f32_accuracy(card, la, seqs):
+    """The f32 tensor-core kernel at 12 heads of 64: answers of 12 (2048 of
+    them, the main path's 24576 rows), of 1 (no key but the row's own), of 5
+    (windows across three answers) and of 128 (a tile of one answer; the
+    last warps' windows take two 64-key steps, rescaled between them).
+    Within 1e-5 of the largest output against
+    f64; the first row of every answer sees only itself, so its context is
+    its own value bit for bit."""
+    heads = 12
+    h = heads * 64
+    rng = np.random.RandomState(la + seqs)
+    qkv = _randn(rng, la * seqs, 3 * h, device=card)
+    got = _counted("scoring_attention",
+                   lambda: scoring_layer.self_attention(qkv, la=la, heads=heads))
+    _assert_f32_attention_launch(la * seqs * heads)
+    assert _route_err(got, _self_attention_f64(qkv, la, heads)) <= F32_ROUTE_TOL
+    assert torch.equal(got.view(seqs, la, h)[:, 0], qkv.view(seqs, la, 3 * h)[:, 0, 2 * h:])
+
+
+@pytest.mark.parametrize("nq,rows_per_q", [(8, 3072), (5, 200)])
+@pytest.mark.parametrize("lk", [7, 80, 130])
+def test_cross_attention_f32_keeps_f32_accuracy(card, lk, nq, rows_per_q):
+    """f32 cross attention at 12 heads of 64: the main path's 8 questions of
+    3072 rows and 5 of 200 (a 72-row last tile), against 7, 80 and 130 keys
+    with a -1e9 bias on some (question 1 has one valid key, question 2 half
+    of them, the others a random count). Up to 128 keys take the f32
+    tensor-core kernel, 130 the CUDA-core one. Within 1e-5 of the largest
+    output against f64; the question with one valid key gives that key's
+    value on every row, bit for bit."""
+    heads = 12
+    h = heads * 64
+    rng = np.random.RandomState(lk + nq)
+    qc = _randn(rng, nq * rows_per_q, h, device=card)
+    ck, cv = _randn(rng, nq, lk, h, device=card), _randn(rng, nq, lk, h, device=card)
+    valid = rng.randint(1, lk + 1, nq)
+    valid[1], valid[2] = 1, max(1, lk // 2)
+    mask = np.arange(lk)[None, :] < valid[:, None]
+    cbias = torch.from_numpy(np.where(mask, 0.0, scoring_layer.NEG).astype(np.float32)).to(card)
+    got = _counted("scoring_attention",
+                   lambda: scoring_layer.cross_attention(qc, ck, cv, cbias, heads=heads))
+    if lk <= 128:
+        _assert_f32_attention_launch(nq * rows_per_q * heads)
+    else:
+        assert scoring_layer.last_attention_launch["pipeline"] == 0
+    assert _route_err(got, _cross_attention_f64(qc, ck, cv, cbias, heads)) <= F32_ROUTE_TOL
+    assert torch.equal(got[rows_per_q:2 * rows_per_q], cv[1, :1].expand(rows_per_q, h))
+
+
+def test_vocab_reductions_f32_keeps_f32_accuracy(card):
+    """The f32 vocabulary pass at the main path's (22528, 30524, 768)
+    against logits taken in f64 (in row chunks): lse and the target logit
+    within 1e-5 of their largest value, each row's sum of logits within 1e-5
+    of its sum of |logit|."""
+    rows, vocab, hdim = 22528, 30524, 768
+    rng = np.random.RandomState(22)
+    h = _randn(rng, rows, hdim, device=card)
+    table = _randn(rng, vocab, hdim, scale=0.05, device=card)
+    bias = _randn(rng, vocab, scale=0.5, device=card)
+    labels = torch.from_numpy(rng.randint(0, vocab, rows).astype(np.int32)).to(card)
+    lse, sumlog, tgt = vocab_loss.lm_vocab_reductions(h, table, bias, labels)
+    want = {k: [] for k in ("lse", "sum", "tgt", "abs")}
+    t64, b64 = table.double(), bias.double()
+    for s in range(0, rows, 2048):
+        logits = h[s:s + 2048].double() @ t64.T + b64
+        want["lse"].append(torch.logsumexp(logits, dim=-1))
+        want["sum"].append(logits.sum(dim=-1))
+        want["tgt"].append(logits.gather(1, labels[s:s + 2048].long()[:, None])[:, 0])
+        want["abs"].append(logits.abs().sum(dim=-1))
+        del logits
+    want = {k: torch.cat(v) for k, v in want.items()}
+    assert _route_err(lse, want["lse"]) <= F32_ROUTE_TOL
+    assert _route_err(tgt, want["tgt"]) <= F32_ROUTE_TOL
+    assert float(((sumlog.double() - want["sum"]).abs() / want["abs"]).max()) <= F32_ROUTE_TOL
+
+
+@pytest.mark.parametrize("hdim", [3, 75, 768])
+def test_vocab_reductions_f32_any_k(card, hdim):
+    """Widths no multiple of 4, and h and the table at a 4-byte offset, take
+    the f32 kernel's 4-byte copies; 300 rows and 203 words fill no tile."""
+    rng = np.random.RandomState(hdim)
+    rows, vocab = 300, 203
+    h = _randn(rng, rows * hdim + 1, device=card)[1:].view(rows, hdim)
+    table = _randn(rng, vocab * hdim + 1, scale=0.1, device=card)[1:].view(vocab, hdim)
+    bias = _randn(rng, vocab, scale=0.5, device=card)
+    labels = torch.from_numpy(rng.randint(0, vocab, rows).astype(np.int32)).to(card)
+    _vocab_check(h, table, bias, labels)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -1,6 +1,7 @@
-"""The 3xTF32 route of the port's f32 products and f32 ViT attention,
-emulated on the CPU (``csrc/tile_gemm.cuh``: ``to_tf32``, ``split_tf32``,
-``split3_tf32``).
+"""The 3xTF32 route of the port's f32 kernels (the products, the ViT and
+scoring attentions, the vocabulary pass), emulated on the CPU
+(``csrc/tile_gemm.cuh``: ``to_tf32``, ``split_tf32``, ``split3_tf32``;
+``csrc/attention_f32.cuh``).
 
 An f32 operand x is split into hi = tf32(x) and lo = tf32(x - hi), TF32 being
 10 mantissa bits rounded to nearest with ties away from zero
@@ -12,7 +13,9 @@ at the ViT's two depths (K = 768 and 3072) to the f64 product within 1e-5 of
 the largest output, where the card's gate for the f32 kernels allows 1e-3,
 and show that one TF32 pass (hi_a * hi_b alone) misses that 1e-5: the reason
 the one-pass route is refused. The attention's P V splits V three ways, so
-that a single key's context is exactly its value.
+that a single key's context is exactly its value. The vocabulary pass's
+reductions and the scoring attentions' two masks (causal inside an answer; a
+-1e9 bias on question padding) keep that accuracy on the route's products.
 """
 
 import numpy as np
@@ -108,3 +111,70 @@ def test_one_key_context_is_its_value():
         acc = acc + term
     assert torch.equal(acc, v)
     assert not torch.equal(el * vh + vl * eh + vh * eh, v)
+
+
+def _emulated_attention(q, k, v, bias):
+    """softmax(q k^T / 8 + bias) v on the kernels' route: q, k (B, M or N,
+    64) and v (B, N, 64) f32, bias (B, M, N); S in 3xTF32, e = exp(s - max),
+    P V with e split two ways and V three ways, summed in the kernels' order,
+    then divided by the f32 sum."""
+    (qh, ql), (kh, kl) = split(q), split(k)
+    s = (ql @ kh.transpose(1, 2) + qh @ kl.transpose(1, 2) + qh @ kh.transpose(1, 2)) * 0.125
+    s = s + bias
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    (eh, el), (vh, vl) = split(e), split(v)
+    vr = (v - vh) - vl
+    o = ((eh @ vr + el @ vh) + eh @ vl) + eh @ vh
+    return o / e.sum(dim=-1, keepdim=True)
+
+
+def _f64_attention(q, k, v, bias):
+    s = q.double() @ k.double().transpose(1, 2) * 0.125 + bias.double()
+    return torch.softmax(s, dim=-1) @ v.double()
+
+
+@pytest.mark.parametrize("mode", ["self", "cross"])
+def test_attention_masks_keep_f32_accuracy(mode):
+    """Self: 64 answers of 12 under the causal mask; cross: 96 rows against
+    80 question keys of which the last 30 carry -1e9. Within 1e-5 of the
+    largest output against f64."""
+    rng = np.random.RandomState(3 if mode == "self" else 4)
+    b, m, n = (64, 12, 12) if mode == "self" else (2, 96, 80)
+    q, k, v = (torch.from_numpy(rng.randn(b, r, 64).astype(np.float32)) for r in (m, n, n))
+    if mode == "self":
+        bias = torch.where(torch.tril(torch.ones(m, n, dtype=torch.bool)), 0.0, -1e9)
+    else:
+        bias = torch.where(torch.arange(n) < 50, 0.0, -1e9)[None, :].expand(m, n)
+    bias = bias.expand(b, m, n).float()
+    exact = _f64_attention(q, k, v, bias)
+    err = float((_emulated_attention(q, k, v, bias).double() - exact).abs().max())
+    assert err <= SPLIT_TOL * float(exact.abs().max()), err
+
+
+def test_single_visible_key_context_is_its_value():
+    """A question with one valid key and -1e9 on the others: every row's
+    weights are exactly (1, 0, ...), so its context is that key's value bit
+    for bit."""
+    rng = np.random.RandomState(5)
+    q, k, v = (torch.from_numpy(rng.randn(1, r, 64).astype(np.float32)) for r in (40, 80, 80))
+    bias = torch.where(torch.arange(80) < 1, 0.0, -1e9)[None, None, :].expand(1, 40, 80).float()
+    assert torch.equal(_emulated_attention(q, k, v, bias), v[:, :1].expand(1, 40, 64))
+
+
+def test_vocab_reductions_keep_f32_accuracy():
+    """The vocabulary pass's (lse, sum of logits, target logit) of 3xTF32
+    logits (64 rows x 4096 words x 768, plus an f32 bias) against f64: lse
+    and the target logit within 1e-5 of their largest value, each row's sum
+    of logits within 1e-5 of its sum of |logit|."""
+    rng = np.random.RandomState(6)
+    h = torch.from_numpy(rng.randn(64, 768).astype(np.float32))
+    table = torch.from_numpy((rng.randn(4096, 768) * 0.05).astype(np.float32))
+    bias = torch.from_numpy((rng.randn(4096) * 0.5).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, 4096, 64))
+    logits = three_products(h, table) + bias
+    exact = h.double() @ table.double().T + bias.double()
+    for got, want in ((torch.logsumexp(logits, dim=-1), torch.logsumexp(exact, dim=-1)),
+                      (logits.gather(1, labels[:, None]), exact.gather(1, labels[:, None]))):
+        assert float((got.double() - want).abs().max()) <= SPLIT_TOL * float(want.abs().max())
+    rel = (logits.sum(dim=-1).double() - exact.sum(dim=-1)).abs() / exact.abs().sum(dim=-1)
+    assert float(rel.max()) <= SPLIT_TOL
