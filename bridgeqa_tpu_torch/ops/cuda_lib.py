@@ -58,8 +58,8 @@ _SIGNATURES = {
     "bq_cluster_barrier_loop": [_I, _I, _I, _P],
     "bq_ball_query_stripes": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               ctypes.c_float, _I, _IP, _P],
-    "bq_ball_query_backward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "bq_ball_query_exact": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _IP, _P],
+    "bq_ball_query_backward": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _IP, _P],
+    "bq_ball_query_exact": [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _IP, _P],
     "bq_scoring_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bq_scoring_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                              ctypes.c_float, _I, _IP, _P],

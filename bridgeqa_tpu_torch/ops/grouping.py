@@ -64,9 +64,12 @@ backward_launches = 0
 # "staged" (stripes staged in shared memory) or "warp" (a warp per centre),
 # "blocks", "centres_per_warp", "staged_whole" (the cloud staged once)}
 last_launch = None
+# what the last backward launch was, as its C entry reports it: {"blocks",
+# "cluster" (blocks a cloud, a thread-block cluster above 1), "threads"}
+last_backward_launch = None
 # launches of the exact query's kernel since the last reset, and what the
-# last one was: {"blocks", "warps_per_block" (a centre a warp), "tile_points"
-# (points a block stages at a time)}
+# last one was: {"blocks", "warps_per_block", "centres_per_warp",
+# "tile_points" (points a stage holds), "stages" (tiles in flight)}
 exact_launches = 0
 last_exact_launch = None
 # test and ablation hook, as the JAX package's: None or "stripes" keep the
@@ -74,6 +77,44 @@ last_exact_launch = None
 FORCE_MODE = None
 # centres a warp of the staged kernel may be set to test
 CENTRES_PER_WARP = (1, 2, 4, 8)
+# the exact kernel's block (csrc/ball_query_exact.cu: kWarps, kTile,
+# kStages): 8 warps, two stages of 1024 points as float4s in shared memory
+EXACT_WARPS = 8
+EXACT_TILE = 1024
+EXACT_STAGES = 2
+# the backward kernel's block (csrc/ball_query_backward.cu: kThreads)
+BACKWARD_THREADS = 1024
+
+
+def exact_plan(b: int, m: int, sms: int) -> dict:
+    """The exact kernel's launch for ``b`` clouds of ``m`` centres on a card
+    of ``sms`` SMs. A warp serves C centres, the largest of 8, 4, 2 that
+    still gives every SM a block (else 1); a block of ``EXACT_WARPS`` warps
+    serves 8 C consecutive centres of one cloud, so a cloud takes ``groups``
+    blocks: block k serves cloud k // groups, and its warp w the centres
+    (k % groups) * 8 C + w C + i, i < C, below m."""
+    c = next((c for c in (8, 4, 2) if b * -(-m // (EXACT_WARPS * c)) >= sms), 1)
+    groups = -(-m // (EXACT_WARPS * c))
+    return dict(centres_per_warp=c, groups=groups, blocks=b * groups,
+                warps_per_block=EXACT_WARPS, shared_bytes=EXACT_STAGES * EXACT_TILE * 16)
+
+
+def backward_plan(b: int, n: int, m: int, nsample: int) -> dict:
+    """The backward kernel's launch for ``b`` clouds of ``n`` points and
+    ``m`` centres of ``nsample`` slots. A cloud takes k blocks (a
+    thread-block cluster where k > 1): block r zeroes the cloud's outputs
+    of points [r P, (r + 1) P) (P = ceil(n / k)) and of centres
+    [r Q, (r + 1) Q) (Q = ceil(m / k)), and serves those centres' slots. k
+    is the largest of 8, 4, 2 that leaves a block at least a slot a thread
+    (else 1). The kernel keeps no sums in shared memory: it adds in global
+    memory."""
+    k = next((k for k in (8, 4, 2) if -(-m // k) * nsample >= BACKWARD_THREADS), 1)
+    return dict(blocks_per_cloud=k, points_per_block=-(-n // k), centres_per_block=-(-m // k),
+                blocks=b * k, threads=BACKWARD_THREADS)
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stripe_plan(n: int, nsample: int) -> tuple[int, int]:
@@ -115,7 +156,8 @@ def ball_query_exact(radius: float, nsample: int, xyz: torch.Tensor,
     filled with the first of them, all 0 where none qualifies. xyz (B, N, 3),
     new_xyz (B, M, 3), cast to f32 and detached (the output is an index);
     returns (B, M, nsample) int32. On a CUDA tensor one launch of
-    ``csrc/ball_query_exact.cu``; on a CPU tensor ``ball_query_exact_plain``."""
+    ``csrc/ball_query_exact.cu`` as ``exact_plan`` lays it out; on a CPU
+    tensor ``ball_query_exact_plain``."""
     global exact_launches, last_exact_launch
     _check_clouds(xyz, new_xyz)
     if nsample < 1:
@@ -127,14 +169,18 @@ def ball_query_exact(radius: float, nsample: int, xyz: torch.Tensor,
     cuda_lib.check_cuda("ball_query_exact", torch.float32, xyz, new_xyz)
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
+    plan = exact_plan(b, m, _sms(xyz.device))
     idx = torch.empty((b, m, nsample), dtype=torch.int32, device=xyz.device)
-    record = (ctypes.c_int * 3)()
+    record = (ctypes.c_int * 5)()
     rc = cuda_lib.lib().bq_ball_query_exact(
         xyz.data_ptr(), new_xyz.data_ptr(), idx.data_ptr(), b, n, m, nsample, _r2(radius),
-        record, cuda_lib.stream_handle(xyz.device))
+        plan["centres_per_warp"], plan["groups"], record, cuda_lib.stream_handle(xyz.device))
     cuda_lib.check(rc, "bq_ball_query_exact")
-    exact_launches += 1
-    last_exact_launch = dict(blocks=record[0], warps_per_block=record[1], tile_points=record[2])
+    if record[0]:
+        exact_launches += 1
+        last_exact_launch = dict(blocks=record[0], warps_per_block=record[1],
+                                 centres_per_warp=record[2], tile_points=record[3],
+                                 stages=record[4])
     return idx
 
 
@@ -252,14 +298,16 @@ def _launch(radius, nsample, xyz, new_xyz, feats, centres_per_warp):
 def ball_query_stripes_backward(idx: torch.Tensor, g_rel: torch.Tensor,
                                 g_grouped: torch.Tensor | None, n: int):
     """Cotangents of the stripe ball query's inputs from those of its
-    outputs: idx (B, M, S) from the forward, g_rel (B, M, S, 3), g_grouped
-    (B, M, S, F) or None, n the cloud's length. Returns (g_xyz (B, N, 3),
-    g_center (B, M, 3), g_feats (B, N, F) or None), f32: the rel and
-    feature cotangents added onto the points each slot picked and the rel
-    cotangents' negated sum on each centre. On a CUDA tensor one launch of
-    ``csrc/ball_query_backward.cu`` (f32 atomics, so not bitwise repeatable);
-    on a CPU tensor ``ball_query_stripes_backward_plain``."""
-    global backward_launches
+    outputs: idx (B, M, S) int32 from the forward, g_rel (B, M, S, 3),
+    g_grouped (B, M, S, F) or None, n the cloud's length. Returns (g_xyz
+    (B, N, 3), g_center (B, M, 3), g_feats (B, N, F) or None), f32: the rel
+    and feature cotangents added onto the points each slot picked and the
+    rel cotangents' negated sum on each centre. On a CUDA tensor one launch
+    of ``csrc/ball_query_backward.cu`` as ``backward_plan`` lays it out,
+    which zeroes the outputs itself and adds onto them (f32 reductions in
+    an order that varies, so not bitwise repeatable); on a CPU tensor
+    ``ball_query_stripes_backward_plain``."""
+    global backward_launches, last_backward_launch
     b, m, s = idx.shape
     if tuple(g_rel.shape) != (b, m, s, 3) or (g_grouped is not None and (
             g_grouped.dim() != 4 or tuple(g_grouped.shape[:3]) != (b, m, s)
@@ -271,18 +319,25 @@ def ball_query_stripes_backward(idx: torch.Tensor, g_rel: torch.Tensor,
     g_grouped = None if g_grouped is None else g_grouped.float().contiguous()
     if idx.device.type == "cpu":
         return ball_query_stripes_backward_plain(idx, g_rel, g_grouped, n)
+    if idx.dtype != torch.int32:
+        raise ValueError(f"ball_query_stripes_backward: idx must be int32, got {idx.dtype}")
     tensors = [idx.contiguous(), g_rel] + ([g_grouped] if g_grouped is not None else [])
     cuda_lib.check_cuda("ball_query_stripes_backward", torch.float32, *tensors)
     nf = 0 if g_grouped is None else g_grouped.shape[-1]
-    g_xyz = torch.zeros((b, n, 3), dtype=torch.float32, device=idx.device)
+    plan = backward_plan(b, n, m, s)
+    g_xyz = torch.empty((b, n, 3), dtype=torch.float32, device=idx.device)
     g_center = torch.empty((b, m, 3), dtype=torch.float32, device=idx.device)
-    g_feats = torch.zeros((b, n, nf), dtype=torch.float32, device=idx.device) if nf else None
+    g_feats = torch.empty((b, n, nf), dtype=torch.float32, device=idx.device) if nf else None
+    record = (ctypes.c_int * 3)()
     rc = cuda_lib.lib().bq_ball_query_backward(
         tensors[0].data_ptr(), g_rel.data_ptr(), g_grouped.data_ptr() if nf else None,
         g_xyz.data_ptr(), g_center.data_ptr(), g_feats.data_ptr() if nf else None,
-        b, n, m, s, nf, cuda_lib.stream_handle(idx.device))
+        b, n, m, s, nf, plan["blocks_per_cloud"], plan["points_per_block"],
+        plan["centres_per_block"], record, cuda_lib.stream_handle(idx.device))
     cuda_lib.check(rc, "bq_ball_query_backward")
-    backward_launches += 1
+    if record[0]:
+        backward_launches += 1
+        last_backward_launch = dict(blocks=record[0], cluster=record[1], threads=record[2])
     return g_xyz, g_center, g_feats
 
 

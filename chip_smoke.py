@@ -157,8 +157,10 @@ result is printed):
      centres, 64 slots, one feature channel), with duplicate points,
      all-empty balls and stripes filled by the ball's first qualifier: g_xyz,
      g_center and g_feats each within 1e-5 of their largest value (f32
-     atomics add in another order); card times beside the bound and one
-     ``index_add_``.
+     reductions add in another order); ten calls profiled put exactly ten
+     kernels on the card, one a call (the kernel zeroes its outputs: no
+     fill, no memset); its launch (blocks, cluster, threads), card times beside the
+     bound and one ``index_add_``, and the timer that read them.
    - Tiny, card against CPU (``phase_train_reference``): one step of the
      tiny config in f64 (the point kernels in f32, as always; in f32 the
      detector's BatchNorm gradients carry more than 1e-3 of rounding on
@@ -208,7 +210,9 @@ result is printed):
      bitwise against its plain version at the five main-path shapes, SA1
      with an odd nsample (63) and SA1 on a dense cloud (every ball holds
      more than nsample: the early stop), batch 8, with the distance tests
-     the scan needs on this data, its bound and card time;
+     the scan needs on this data, its bound and card time (and the timer
+     that read it), and its launch (blocks, warps a block, centres a warp,
+     tile points, stages);
    - the main path's detector under ``grouping.FORCE_MODE = "exact"`` (the
      exact kernel 5 launches, the stripe kernel 0, FPS 5) and its time
      beside the stripe detector's;
@@ -2315,11 +2319,14 @@ def phase_train_kernels(device, batch: int = TRAIN_BATCH, reps: int = 20):
     ball's first qualifier. The indices come from the forward kernel on the
     same inputs; the cotangents are drawn from a seed. Each of g_xyz,
     g_center and g_feats within ``BQ_BACKWARD_TOL`` of its largest value:
-    the kernel adds with f32 atomics in an order that changes from run to
-    run, the plain version with ``index_add_`` and a sum. Times are card
-    time (``queued_ms``, the outputs' zeroing included); ``library_ms`` is
-    one ``index_add_`` of the xyz cotangents, the scatter part alone (no
-    PyTorch call also gives the centres' sums)."""
+    the kernel adds with f32 reductions in an order that changes from run to
+    run, the plain version with ``index_add_`` and a sum. Ten calls under
+    ``torch.profiler`` must make ten launch calls of any kind and put ten
+    records on the card, each the backward kernel: one kernel a call and
+    nothing else (the kernel zeroes its own outputs; ``backward_card_work``).
+    Times are card time (``queued_ms``, named in each row's ``timer``);
+    ``library_ms`` is one ``index_add_`` of the xyz cotangents, the scatter
+    part alone (no PyTorch call also gives the centres' sums)."""
     from bridgeqa_tpu_torch.ops import grouping
 
     rng = np.random.RandomState(11)
@@ -2340,8 +2347,11 @@ def phase_train_kernels(device, batch: int = TRAIN_BATCH, reps: int = 20):
         before = grouping.backward_launches
         got = grouping.ball_query_stripes_backward(idx, g_rel, g_grouped, n)
         launched = grouping.backward_launches - before
+        launch = dict(grouping.last_backward_launch)
         want = grouping.ball_query_stripes_backward_plain(idx, g_rel, g_grouped, n)
         torch.cuda.synchronize()
+        card_work = backward_card_work(
+            lambda: grouping.ball_query_stripes_backward(idx, g_rel, g_grouped, n))
         errs, rel = {}, {}
         for key, g, w in zip(("g_xyz", "g_center", "g_feats"), got, want):
             if w is None:
@@ -2363,17 +2373,23 @@ def phase_train_kernels(device, batch: int = TRAIN_BATCH, reps: int = 20):
         slots = batch * m * ns
         nbytes = slots * (4 + 12 + 4 * nf) + batch * n * (12 + 4 * nf) + batch * m * 12
         bound_ms, bound_by = bound(slots * (3 + nf + 3), nbytes, PEAK_F32)
-        ok = launched == 1 and empty and all(r <= BQ_BACKWARD_TOL for r in rel.values())
+        # each call one launch, and on the card that one kernel and nothing else
+        one_kernel = (card_work["launch_calls"] == card_work["calls"] == card_work["card_records"]
+                      and all("ball_query_backward" in k for k in card_work["kernels"]))
+        ok = (launched == 1 and one_kernel and empty
+              and all(r <= BQ_BACKWARD_TOL for r in rel.values()))
         rows.append(dict(shape=f"{name}: B={batch}, N={n}, M={m}, nsample={ns}, nf={nf}",
                          calls=calls, ok=ok, max_abs_err=max(errs.values()), rel_err=rel, ms=ms,
                          plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, filled_slots=filled))
+                         bound_by=bound_by, timer="queued_ms", filled_slots=filled,
+                         launch=launch, card_work=card_work))
         log(f"ball query backward {name}: B={batch}, N={n}, M={m}, ns={ns}, nf={nf}: err / largest "
             f"{json.dumps({k: float(f'{v:.3g}') for k, v in rel.items()})} (tol "
             f"{BQ_BACKWARD_TOL}), empty balls {empty}, {filled} slots filled by the ball's first "
             f"qualifier; kernel {ms:.4f} ms card time, plain {plain_ms:.4f} ms, index_add_ of "
             f"the xyz cotangents {library_ms:.4f} ms (card time, queued_ms), bound "
-            f"{bound_ms:.4f} ms ({bound_by})")
+            f"{bound_ms:.4f} ms ({bound_by}); launch {json.dumps(launch)}; card work of "
+            f"{card_work['calls']} calls {json.dumps(card_work)}")
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise AssertionError(f"ball query backward: kernel and plain version disagree: {bad}")
@@ -2385,7 +2401,34 @@ def phase_train_kernels(device, batch: int = TRAIN_BATCH, reps: int = 20):
                                "JAX, no TPU kernel",
                  library_call="index_add_ of the xyz cotangents (the centres' sums not included)",
                  per="one train step: each shape's median times the calls it gets",
-                 rows=rows)]
+                 timer="queued_ms", rows=rows)]
+
+
+def backward_card_work(fn, calls: int = 10, tries: int = 5) -> dict:
+    """What ``calls`` back-to-back calls of ``fn`` put on the card, from
+    ``torch.profiler``: the host's launch calls of any kind (kernels,
+    copies, memsets; ``_LAUNCH_CALLS``) and the card's records with their
+    names. A trace with fewer card records than launch calls (one traced
+    call alone has come back with none) is taken again, up to ``tries``
+    times; the last trace is returned as it is."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.profiler.kineto_results.events()
+        launched = [e.name() for e in events if e.device_type() == DeviceType.CPU
+                    and e.name().startswith(_LAUNCH_CALLS)]
+        work = [e.name() for e in events if e.device_type() == DeviceType.CUDA]
+        if len(work) >= len(launched):
+            break
+    return dict(calls=calls, launch_calls=len(launched), launched=sorted(set(launched)),
+                card_records=len(work), kernels=sorted({w[:60] for w in work}))
 
 
 def no_dropout(cfg):
@@ -3482,10 +3525,12 @@ def phase_exact_kernel(device, batch: int = BATCH, reps: int = 5):
     against its plain version, bitwise, at ``EXACT_SHAPES`` on
     ``make_cloud``'s clouds (padding, duplicates, 4 empty balls but on the
     dense cloud; SA1's 40000 points are no multiple of 128 nor of the
-    kernel's 1024-point tile). Card times (``device_ms``), the distance
-    tests the scan needs on this data and the bound from them; no single
-    PyTorch call computes the query, so ``library_ms`` is None. Returns its
-    record of the kernels line."""
+    kernel's 1024-point tile). Card times (``device_ms``, or its
+    ``queued_ms`` fallback: each row's ``timer`` says which), the distance
+    tests the scan needs on this data and the bound from them, and the
+    launch as ``grouping.last_exact_launch`` reports it; no single PyTorch
+    call computes the query, so ``library_ms`` is None. Returns its record
+    of the kernels line."""
     from bridgeqa_tpu_torch.ops import grouping
 
     rng = np.random.RandomState(21)
@@ -3505,7 +3550,9 @@ def phase_exact_kernel(device, batch: int = BATCH, reps: int = 5):
         same = torch.equal(idx, want)
         tests, full = exact_scan_tests(radius, ns, xyz, ctr)
         ok = same and (full == batch * m if dense else bool((idx[:, :4] == 0).all()))
+        fallbacks = len(queued_fallbacks)
         ms = device_ms(lambda: grouping.ball_query_exact(radius, ns, xyz, ctr), reps)
+        timer = "device_ms" if len(queued_fallbacks) == fallbacks else "queued_ms"
         plain_ms = device_ms(lambda: grouping.ball_query_exact_plain(radius, ns, xyz, ctr),
                              max(1, reps // 2))
         # a distance test: 3 sub, 3 mul, 2 add, a compare
@@ -3513,10 +3560,11 @@ def phase_exact_kernel(device, batch: int = BATCH, reps: int = 5):
         rows.append(dict(shape=f"{name}: N={n}, M={m}, nsample={ns}, r={radius}, batch {batch}",
                          calls=calls, bitwise=ok, max_abs_err=max_err(idx, want), ms=ms,
                          plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                         bound_by=bound_by, distance_tests=tests, full_balls=full,
+                         bound_by=bound_by, timer=timer, distance_tests=tests, full_balls=full,
                          launch=launch))
         log(f"exact ball query {name}: N={n}, M={m}, ns={ns}, r={radius}: bitwise {same}, "
-            f"balls of at least nsample {full} of {batch * m}, kernel {ms:.4f} ms card time, "
+            f"balls of at least nsample {full} of {batch * m}, kernel {ms:.4f} ms card time "
+            f"({timer}), "
             f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {tests} tests, "
             f"{tests / (batch * m * n):.3f} of a full scan), library_ms null; launch "
             f"{json.dumps(launch)}")
@@ -3526,6 +3574,7 @@ def phase_exact_kernel(device, batch: int = BATCH, reps: int = 5):
     return dict(name="ball_query_exact", route="cuda",
                 source="bridgeqa_tpu_torch/csrc/ball_query_exact.cu",
                 replaces="bridgeqa_tpu/ops/grouping.py:112", rows=rows,
+                timer="+".join(sorted({r["timer"] for r in rows})),
                 per="one detector forward in exact mode: each main-path shape's median times "
                     "the calls it gets")
 

@@ -48,17 +48,24 @@ machine does not have; this file imports none.) On the edge cases
   the tiny rank slice (bf16, the detector frozen) reaches the ViT's and both
   decoders' weights;
 - the ball query's backward kernel against its plain version (planted
-  duplicates and empty balls, with and without feature channels; 1e-5 of
-  the largest value, the atomics add in another order), the autograd
-  Function's gradients against the plain forward's autograd, which
-  ``torch.autograd.gradcheck`` holds to finite differences in f64, and a
-  tiny train step on the card against the CPU;
+  duplicates and empty balls, 0 to 4 feature channels, SA1's size; 1e-5 of
+  the largest value, the reductions add in another order) at shapes that
+  take each blocks a cloud the plan gives (1, 2, 4, 8); one hot point that
+  every slot of every centre picks, with sums exact by construction and
+  every other point exactly 0.0 in outputs from torch.empty over memory
+  filled with NaN; the autograd Function's gradients against the plain
+  forward's autograd, which ``torch.autograd.gradcheck`` holds to finite
+  differences in f64, and a tiny train step on the card against the CPU;
 - the feed's pinned copy to the card, bit for bit and without a host sync;
 - the exact scan-order ball query (``csrc/ball_query_exact.cu``) bitwise
-  against its plain version: odd and even nsample, planted d2 == r2, a
-  centre on a point, duplicates, empty, short and full balls (the early
-  stop), centres past a block's 8, clouds that fill no tile; and an
-  exact-mode SA module's gradients on the card against the CPU.
+  against its plain version, each case at the batches that take each
+  centres a warp the plan gives it (1, 2, 4, 8), the launch the plan's:
+  odd and even nsample (1 too), planted d2 == r2, a centre on a point,
+  duplicates, empty, short and full balls (the early stop), clouds of
+  exactly one 1024-point tile and of one more point, centres that fill no
+  block, and a dense cloud where every warp and block stop in the first
+  tile; and an exact-mode SA module's gradients on the card against the
+  CPU.
 f32: 1e-3 absolute (both sides accumulate in f32, in another order). bf16
 outputs: 2^-6 of the largest output, about two steps of bf16 (both round
 once from f32, and a sum taken in another order can flip a rounding, or the
@@ -1119,9 +1126,17 @@ def _bq_case(rng, b, n, m, nf, card):
     return t[0], t[1], None if feats is None else torch.from_numpy(feats).to(card)
 
 
-@pytest.mark.parametrize("n,m,nsample,nf", [(1024, 256, 16, 0), (5000, 512, 64, 1),
-                                            (700, 100, 32, 4), (40, 32, 8, 2)])
-def test_ball_query_backward_kernel_matches_plain(card, n, m, nsample, nf):
+# (points, centres, nsample, feature channels, the blocks a cloud
+# ``backward_plan`` gives them): the train step's shape (a cluster of 4),
+# SA1's size (8), fewer centres (a lone block, a cluster of 2), and 0 to 4
+# feature channels
+_BACKWARD_CASES = [(1024, 256, 16, 0, 4), (1024, 64, 16, 0, 1), (1024, 128, 16, 0, 2),
+                   (5000, 512, 64, 1, 8), (700, 100, 32, 4, 2), (700, 130, 32, 3, 4),
+                   (40, 32, 8, 2, 1), (40000, 2048, 64, 1, 8)]
+
+
+@pytest.mark.parametrize("n,m,nsample,nf,k", _BACKWARD_CASES)
+def test_ball_query_backward_kernel_matches_plain(card, n, m, nsample, nf, k):
     rng = np.random.RandomState(n + nf)
     xyz, ctr, feats = _bq_case(rng, 3, n, m, nf, card)
     with torch.no_grad():
@@ -1132,6 +1147,10 @@ def test_ball_query_backward_kernel_matches_plain(card, n, m, nsample, nf):
     before = grouping.backward_launches
     got = grouping.ball_query_stripes_backward(idx, g_rel, g_grouped, n)
     assert grouping.backward_launches == before + 1
+    plan = grouping.backward_plan(3, n, m, nsample)
+    assert plan["blocks_per_cloud"] == k
+    assert grouping.last_backward_launch == dict(blocks=3 * k, cluster=k,
+                                                 threads=grouping.BACKWARD_THREADS)
     want = grouping.ball_query_stripes_backward_plain(idx, g_rel, g_grouped, n)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
@@ -1140,6 +1159,42 @@ def test_ball_query_backward_kernel_matches_plain(card, n, m, nsample, nf):
             continue
         torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * float(w.abs().max()))
     assert float(got[0][:, 0].abs().sum()) > 0  # the empty balls' slots reach point 0
+
+
+@pytest.mark.parametrize("m,k", [(64, 1), (128, 2), (256, 4), (512, 8)])
+@pytest.mark.parametrize("nf", [0, 1, 2, 3, 4])
+def test_ball_query_backward_hot_point(card, nf, m, k):
+    """Every slot of every centre picks one point (each add of a warp, and
+    of every block of a cluster, lands on the same words), and the outputs
+    come from torch.empty over memory just filled with NaN: the hot point's
+    sums are exact (the cotangents are multiples of 1/8, whose sums round in
+    no order), and every other point reads exactly 0.0. The centre counts
+    take each blocks a cloud ``backward_plan`` gives: 1, 2, 4 and 8."""
+    b, n, ns, hot = 2, 3000, 16, 1234
+    assert grouping.backward_plan(b, n, m, ns)["blocks_per_cloud"] == k
+    idx = torch.full((b, m, ns), hot, dtype=torch.int32, device=card)
+    gen = torch.Generator(device=card).manual_seed(nf)
+    g_rel = torch.randint(-8, 9, (b, m, ns, 3), generator=gen, device=card).float() / 8
+    g_grouped = (torch.randint(-8, 9, (b, m, ns, nf), generator=gen, device=card).float() / 8
+                 if nf else None)
+    # the caching allocator hands these blocks back to the outputs
+    garbage = [torch.full(shape, float("nan"), device=card)
+               for shape in ((b, n, 3), (b, m, 3), (b, n, nf))]
+    del garbage
+    g_xyz, g_center, g_feats = grouping.ball_query_stripes_backward(idx, g_rel, g_grouped, n)
+    assert grouping.last_backward_launch["cluster"] == k
+    want = grouping.ball_query_stripes_backward_plain(idx, g_rel, g_grouped, n)
+    torch.cuda.synchronize()
+    assert torch.equal(g_xyz, want[0]) and torch.equal(g_center, want[1])
+    assert torch.equal(g_xyz[:, hot], g_rel.sum(dim=(1, 2)))
+    others = torch.ones(n, dtype=torch.bool, device=card)
+    others[hot] = False
+    assert bool((g_xyz[:, others] == 0).all())
+    if nf:
+        assert torch.equal(g_feats, want[2])
+        assert bool((g_feats[:, others] == 0).all())
+    else:
+        assert g_feats is None
 
 
 def test_ball_query_gradients_match_the_plain_autograd(card):
@@ -1171,23 +1226,48 @@ def test_ball_query_gradients_match_the_plain_autograd(card):
     assert torch.autograd.gradcheck(fn, small, eps=1e-6, atol=1e-6)
 
 
-# (points, centres, nsample, radius): odd and even nsample, clouds shorter
-# than a warp, than a tile and of several tiles, radii that leave most balls
-# short and ones that fill them (the early stop)
+# (points, centres, nsample, radius): odd and even nsample (1 too), clouds
+# shorter than a warp, of exactly one 1024-point tile, of one tile and one
+# point, and of several tiles, centres that fill no block at any C (m of
+# 8 C - 1 and 8 C + 1 for C = 8), radii that leave most balls short and ones
+# that fill them (the early stop)
 _EXACT_CASES = [(20, 5, 3, 0.5), (300, 100, 7, 0.35), (1025, 37, 16, 0.35), (5000, 64, 63, 0.3),
-                (5000, 64, 32, 2.5), (40000, 100, 64, 0.2)]
+                (5000, 64, 32, 2.5), (40000, 100, 64, 0.2), (1024, 63, 16, 0.35),
+                (1025, 65, 1, 0.35), (1024, 65, 3, 2.5), (2049, 2048, 32, 0.3)]
+# the SMs of an H100 SXM, for which the batches below are chosen
+_H100_SMS = 132
 
 
-@pytest.mark.parametrize("n,m,nsample,radius", _EXACT_CASES)
-def test_ball_query_exact_kernel_matches_plain(card, n, m, nsample, radius):
+def _exact_batches(m: int, sms: int = _H100_SMS) -> list[int]:
+    """The fewest clouds at which ``exact_plan`` gives ``m`` centres each
+    centres a warp (8, 4, 2, 1) it gives them at some batch."""
+    first = {}
+    for b in range(1, 2 * sms + 1):
+        first.setdefault(grouping.exact_plan(b, m, sms)["centres_per_warp"], b)
+    return sorted(first.values())
+
+
+_EXACT_RUNS = [(*case, b) for case in _EXACT_CASES for b in _exact_batches(case[1])]
+
+
+def test_exact_runs_take_every_centres_a_warp(card):
+    """On this card the runs below take the exact kernel at each C."""
+    sms = grouping._sms(card)
+    assert {grouping.exact_plan(b, m, sms)["centres_per_warp"]
+            for _, m, _, _, b in _EXACT_RUNS} == set(grouping.CENTRES_PER_WARP)
+
+
+@pytest.mark.parametrize("n,m,nsample,radius,b", _EXACT_RUNS)
+def test_ball_query_exact_kernel_matches_plain(card, n, m, nsample, radius, b):
     """The planted cases: a point at exactly d2 == r2 (not in the ball), a
     centre on a point, duplicates, empty balls, centres past the first
-    block's 8."""
+    block's; each case at the batches that take each C the plan gives it.
+    The launch is the plan's."""
     rng = np.random.RandomState(n + nsample)
-    xyz = _cloud(rng, 3, n)
+    xyz = _cloud(rng, b, n)
+    xyz[0, : n // 3] = xyz[0, n // 3: 2 * (n // 3)]  # duplicates
     xyz[:, 1] = [0.25 + radius, 0.0, 0.0]  # d2 == r2 from centre 0 (radius 0.5: exactly)
     xyz[:, 2] = [0.25, 0.0, 0.0]  # centre 0 sits on it
-    xyz[0, : n // 3] = xyz[0, n // 3: 2 * (n // 3)]  # duplicates
     ctr = xyz[:, rng.randint(0, n, m)].copy()
     ctr[:, 0] = [0.25, 0.0, 0.0]
     ctr[:, 3:5] += 100.0  # empty balls
@@ -1195,12 +1275,32 @@ def test_ball_query_exact_kernel_matches_plain(card, n, m, nsample, radius):
     before = grouping.exact_launches
     idx = grouping.ball_query_exact(*args)
     assert grouping.exact_launches == before + 1
-    assert grouping.last_exact_launch["blocks"] == 3 * -(-m // 8)
+    plan = grouping.exact_plan(b, m, grouping._sms(card))
+    assert grouping.last_exact_launch == dict(
+        blocks=plan["blocks"], warps_per_block=plan["warps_per_block"],
+        centres_per_warp=plan["centres_per_warp"], tile_points=grouping.EXACT_TILE,
+        stages=grouping.EXACT_STAGES)
     want = grouping.ball_query_exact_plain(*args)
     torch.cuda.synchronize()
     assert idx.dtype == torch.int32 and torch.equal(idx, want)
     assert (idx[:, 3:5] == 0).all()
     assert (idx[:, 0] == 2).any()
+
+
+@pytest.mark.parametrize("b", _exact_batches(300))
+def test_ball_query_exact_dense_cloud_stops_early(card, b):
+    """A cloud in a 0.2 m cube with no empty ball: every centre finds its
+    nsample qualifiers in the first tile, so every warp and block stops
+    early; bitwise the plain version's, at the batches that take each C."""
+    rng = np.random.RandomState(b)
+    xyz = _cloud(rng, b, 5000, scale=0.2)
+    ctr = xyz[:, rng.permutation(5000)[:300]].copy()
+    args = (0.3, 32, torch.from_numpy(xyz).to(card), torch.from_numpy(ctr).to(card))
+    idx = grouping.ball_query_exact(*args)
+    want = grouping.ball_query_exact_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, want)
+    assert int(idx.max()) < 1024  # every slot from the first tile
 
 
 def test_exact_sa_module_gradients_match_the_cpu(card, monkeypatch):

@@ -157,6 +157,133 @@ def test_ball_query_refuses_bad_centres_per_warp(c):
         grouping.ball_query_stripes(0.2, 4, xyz, xyz[:, :8], centres_per_warp=c)
 
 
+def test_point_plans_match_the_kernels_constants():
+    """The plan helpers' block geometry is the kernels' own."""
+    exact = csrc_constants("ball_query_exact.cu")
+    assert (exact["kWarps"], exact["kTile"], exact["kStages"]) == (
+        grouping.EXACT_WARPS, grouping.EXACT_TILE, grouping.EXACT_STAGES)
+    assert csrc_constants("ball_query_backward.cu")["kThreads"] == grouping.BACKWARD_THREADS
+
+
+def _sms_for(b, m, c):
+    """The SM count at which ``exact_plan`` gives ``b`` clouds of ``m``
+    centres C = ``c`` where any count does: the most blocks C leaves (one
+    more than C = 2 leaves, for C = 1)."""
+    if c == 1:
+        return b * -(-m // 16) + 1
+    return b * -(-m // (8 * c))
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+@pytest.mark.parametrize("b", [1, 2, 3])
+def test_exact_plan_covers_every_centre_once(b, c):
+    """Each block's warps take C consecutive centres each, 8 C a block; over
+    the plan's blocks every centre of every cloud is taken exactly once, for
+    m of 1, 7, 8 C - 1, 8 C + 1 and 2048, on a card whose SM count makes the
+    plan pick C (or, where no count does, as few centres a block as the
+    plan gives m)."""
+    for m in sorted({1, 7, 8 * c - 1, 8 * c + 1, 2048}):
+        plan = grouping.exact_plan(b, m, _sms_for(b, m, c))
+        cw, groups = plan["centres_per_warp"], plan["groups"]
+        # C is unreachable only where a larger C takes as many blocks
+        assert cw == c or (cw > c and groups == -(-m // (8 * c)))
+        assert plan["blocks"] == b * groups and groups * 8 * cw - m < 8 * cw
+        taken = np.zeros((b, m), dtype=np.int64)
+        for k in range(plan["blocks"]):
+            for w in range(plan["warps_per_block"]):
+                for i in range(cw):
+                    centre = (k % groups) * 8 * cw + w * cw + i
+                    if centre < m:
+                        taken[k // groups, centre] += 1
+        assert (taken == 1).all(), (m, plan)
+    assert grouping.exact_plan(b, 2048, _sms_for(b, 2048, c))["centres_per_warp"] == c
+
+
+def test_exact_plan_gives_every_sm_a_block():
+    """C is the largest of 8, 4, 2 that still leaves a block for each of
+    the card's 132 SMs, else 1: at the main path's shapes (batch 8) 8, 4, 2,
+    1 and 1."""
+    import chip_smoke as cs
+
+    got = [grouping.exact_plan(cs.BATCH, m, 132)["centres_per_warp"]
+           for _, _, m, _, _, _ in cs.BQ_SHAPES]
+    assert got == [8, 4, 2, 1, 1]
+    for _, _, m, _, _, _ in cs.EXACT_SHAPES:
+        plan = grouping.exact_plan(cs.BATCH, m, 132)
+        assert plan["blocks"] >= 132 or plan["centres_per_warp"] == 1
+
+
+def _ranges(k, share, total):
+    """How often each of ``total`` items falls in the blocks' ranges
+    [r share, (r + 1) share) of r < k, cut at ``total``."""
+    taken = np.zeros(total, dtype=np.int64)
+    for r in range(k):
+        taken[r * share:min((r + 1) * share, total)] += 1
+    return taken
+
+
+# (points, centres, nsample, the blocks a cloud the plan gives): each count
+# twice, with clouds of one point to SA1's 40000 and fewer points than blocks
+_BACKWARD_PLANS = [(1, 1, 16, 1), (40, 7, 8, 1), (1024, 128, 16, 2), (1025, 65, 32, 2),
+                   (1024, 256, 16, 4), (17, 63, 64, 4), (40000, 2048, 64, 8),
+                   (3, 2048, 16, 8)]
+
+
+@pytest.mark.parametrize("n,m,nsample,k", _BACKWARD_PLANS)
+def test_backward_plan_covers_every_point_and_centre_once(n, m, nsample, k):
+    """The blocks of a cloud split its points and its centres: every point
+    and every centre in exactly one block's range, at shapes that take each
+    blocks a cloud the plan gives."""
+    plan = grouping.backward_plan(2, n, m, nsample)
+    kb = plan["blocks_per_cloud"]
+    assert kb == k and plan["blocks"] == 2 * kb
+    assert (_ranges(kb, plan["points_per_block"], n) == 1).all()
+    assert (_ranges(kb, plan["centres_per_block"], m) == 1).all()
+
+
+def test_point_plans_fit_the_card():
+    """At every shape the main path, chip_smoke.py and the card tests give
+    the two kernels: the exact kernel's two stages within the 48 KB of a
+    static shared-memory allocation (so within the 227 KB a block may take);
+    the backward's blocks a cloud (the cluster; it keeps no sums in shared
+    memory) at most 8, a portable cluster."""
+    import chip_smoke as cs
+    from tests import test_torch_cuda as card
+
+    exact = ([(cs.BATCH, m) for _, _, m, _, _, _ in cs.BQ_SHAPES + cs.EXACT_SHAPES]
+             + [(b, m) for _, m, _, _, b in card._EXACT_RUNS]
+             + [(b, 300) for b in card._exact_batches(300)])
+    for b, m in exact:
+        assert grouping.exact_plan(b, m, 132)["shared_bytes"] <= 48 * 1024 <= 227 * 1024
+    backward = ([(cs.TRAIN_BATCH, n, m, ns) for _, n, m, ns, _, _, _ in cs.BQ_BACKWARD_SHAPES]
+                + [(cs.BATCH, n, m, ns) for _, n, m, ns, _, _ in cs.BQ_SHAPES]
+                + [(3, n, m, ns) for n, m, ns, _, _ in card._BACKWARD_CASES]
+                + [(2, 3000, m, 16) for m in (64, 128, 256, 512)])
+    for b, n, m, ns in backward:
+        plan = grouping.backward_plan(b, n, m, ns)
+        assert plan["threads"] == grouping.BACKWARD_THREADS
+        assert plan["blocks_per_cloud"] in (1, 2, 4, 8)
+
+
+def test_backward_plan_regime():
+    """A lone block a cloud only where a cloud has fewer slots than a
+    block's 1024 threads twice over; else the largest cluster of 8, 4, 2
+    that leaves a block a slot a thread: the train step's vote aggregation
+    (256 centres of 16 slots) takes clusters of 4, SA1 (2048 of 64) of 8, at
+    any batch."""
+    import chip_smoke as cs
+
+    for _, n, m, ns, _, nf, _ in cs.BQ_BACKWARD_SHAPES + [("small", 40, 32, 8, 0, 2, 0)]:
+        for b in (1, cs.BATCH, cs.TRAIN_BATCH, 200):
+            kb = grouping.backward_plan(b, n, m, ns)["blocks_per_cloud"]
+            assert (kb == 1) == (m * ns < 2 * grouping.BACKWARD_THREADS), (n, m, ns, kb)
+            assert -(-m // kb) * ns >= grouping.BACKWARD_THREADS or kb == 1
+            assert kb == 8 or -(-m // (2 * kb)) * ns < grouping.BACKWARD_THREADS
+    assert grouping.backward_plan(16, 1024, 256, 16)["blocks_per_cloud"] == 4
+    assert grouping.backward_plan(16, 40000, 2048, 64)["blocks_per_cloud"] == 8
+    assert grouping.backward_plan(3, 40, 32, 8)["blocks_per_cloud"] == 1
+
+
 def test_three_nn_and_interpolate():
     rng = np.random.RandomState(3)
     unknown = _cloud(rng, 2, 200)
