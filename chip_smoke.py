@@ -13,7 +13,7 @@ result is printed):
    ptxas's register, spill and shared-memory lines for the redesigned
    kernels (the GEMM and the ViT attention in bf16 and f32, FPS's cluster
    kernel, the vocabulary pass and the scoring attentions in bf16 and f32,
-   the ball query and its backward);
+   the ball query and its backward, the exact query, the row gather);
    disassemble the library (``cuobjdump -sass``) and fail unless every
    instantiation of the bf16 GEMM and the vocabulary pass's bf16 kernel
    hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads), every instantiation
@@ -60,7 +60,11 @@ result is printed):
      kernels against plain versions in bf16, every bias and LayerNorm
      parameter perturbed: each image's relative L2 error within 1%.
    - The row gather (no path calls it), bitwise against ``torch.gather`` at
-     the SA1 and SA2 grouping shapes, f32 and bf16.
+     the SA1 and SA2 grouping shapes, f32 and bf16, with the launch of
+     ``gather.gather_plan``: the kernel alone (``gather.launch``, no index
+     check), its plain version and ``torch.gather`` alone on its int64
+     index, each by card time, and the wrapper, whose index check waits
+     for the card, by the loop's time.
    Kernel, plain version and, where one PyTorch call computes the same
    function, that call (``library_ms``; the port never calls it) are timed
    as loops of back-to-back calls between two CUDA events (ms per call,
@@ -70,18 +74,19 @@ result is printed):
    ball query take the card about as long as, or less time than, their
    wrappers take the host, so the LayerNorm, GEMM, scoring-attention and
    ball-query rows' times, the library calls beside them included, are the
-   card time of such a loop, read from ``torch.profiler`` (``device_ms``,
-   which takes a trace again if it lacks a card record of some launch and
-   counts such traces, and after five such traces in a row times the loop
-   by CUDA events behind a spin kernel instead, ``queued_ms``). The
+   card time of such a loop, read from ``torch.profiler`` (``device_ms``:
+   each trace follows a throwaway trace and opens with throwaway kernels,
+   since a process that has run full-width train steps loses records at the
+   start of its traces; it takes a trace again if it lacks a card record of
+   some launch of the loop, counts such traces, and fails after five in a
+   row). The
    scoring-attention and ball-query rows carry the launch their C entry
    reports having made (kernel, grid, and the ring's depth and shared
    memory, or the centres a warp); the main path's attentions must have run
    the tensor-core pipeline. The ball query's log
    lines also give its bound in unfused f32 instructions (its source builds
    with ``-fmad=false``).
-   The gather's wrapper waits for the card in its index check; its loop
-   time is printed beside its card time. Then each GEMM
+   Then each GEMM
    shape's time over ``F.linear``'s and the per-forward sums, the ViT
    attention's and the scoring attentions' over SDPA's, and the host time
    per call of the GEMM's and the ViT attention's wrappers.
@@ -101,7 +106,14 @@ result is printed):
    time to issue each stage) follow, then
    one forward under ``torch.profiler``: the card's busy share, the casts'
    launches and time (``aten::copy_``), and the table by kernel in
-   ``build/profile_main_path.txt``.
+   ``build/profile_main_path.txt``. Then the bf16 module path
+   (``fused_scoring="off"``, ``FUSED_MODE = "off"``, no fused kernel
+   launched) on the same weights and batch (``hold_bf16_module_path``):
+   each decoder's scored log-probability sums within 1% relative L2 over
+   the answers both paths scored, the top-1 answer of each decoder and of
+   the ensemble equal on every row whose module-path top-1 margin exceeds
+   twice the row's largest score difference (the rows excused printed),
+   the detector's outputs, which no fused kernel touches, bitwise equal.
    Then the drivers' default, the same forward in f32 (``predict``, ``eval``
    and validation without ``--bf16``; ``phase_main_path_f32``, about 10 s):
    the f32 instantiations of every fused kernel, launches as derived, the
@@ -111,7 +123,9 @@ result is printed):
    batch: the top-1 answer of each decoder and of their ensemble equal on
    every row, the largest score difference printed; it fails if a kernel
    launched in the forward shows no card time in its profile, or if an f32
-   attention took the CUDA-core kernel. Then each f32 kernel's card time at
+   attention took the CUDA-core kernel. 5b, a record with no gate: the
+   bf16 forward's fused scores against this f32 module path (top-1
+   agreement, the largest difference). Then each f32 kernel's card time at
    the forward's shapes beside its library call and its bounds (FFMA;
    3xTF32 for the four kernels on that route), the attentions' launch
    records, and ``scaled_dot_product_attention`` f32 at the attentions'
@@ -179,7 +193,8 @@ result is printed):
      changed; the step's wall and samples/s, forward, backward and optimizer
      by CUDA events, one profiled step (``build/profile_train_step.txt``),
      and peak memory with remat and without it.
-8. drivers (``phase_drivers``): the port's entry points as a user runs them,
+8. drivers (``phase_drivers``, in a process of its own,
+   ``phase_drivers_apart``): the port's entry points as a user runs them,
    each script's ``main(argv)`` on ``--synthetic`` data at the full width of
    the main path's config, ``--bf16 --remat``, batch 16, two feed workers:
    ``train --stage DET`` (2 steps), the VQA stage on the DET graft (2 epochs
@@ -205,14 +220,16 @@ result is printed):
    through DDP, ``--check_syncs``): DET, VQA and a resume, each run's files
    written once. Two ranks sharing one card check correctness, not
    scaling. Tolerances and cuts in ``phase_parallel``'s docstring.
-10. the non-main paths (``phase_nonmain``), each at full width in bf16:
+10. the non-main paths (``phase_nonmain``), each at full width in bf16
+   (the exact kernel's rows, and phase 11's ITM kernel rows, are read after
+   phase 6, before phase 7's training: a process that has trained loses
+   profiler records):
    - the exact scan-order ball query's kernel (``csrc/ball_query_exact.cu``)
      bitwise against its plain version at the five main-path shapes, SA1
      with an odd nsample (63) and SA1 on a dense cloud (every ball holds
      more than nsample: the early stop), batch 8, with the distance tests
-     the scan needs on this data, its bound and card time (and the timer
-     that read it), and its launch (blocks, warps a block, centres a warp,
-     tile points, stages);
+     the scan needs on this data, its bound and card time, and its launch
+     (blocks, warps a block, centres a warp, tile points, stages);
    - the main path's detector under ``grouping.FORCE_MODE = "exact"`` (the
      exact kernel 5 launches, the stripe kernel 0, FPS 5) and its time
      beside the stripe detector's;
@@ -376,47 +393,95 @@ def time_ms(fn, reps: int, loops: int = 3) -> float:
 
 # the host's calls that put work on the card, as the profiler names them
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")
-# traces of a device_ms that lacked some of their launches' work, since the
-# process began: (reps, launch calls, card records) of each
+# Once a process has run full-width train steps (phase 7's), torch.profiler
+# drops the first few card records of every trace it takes: 3 of 6, and 3
+# of 150, after phase 7's steps; none in a fresh process (profiler_probe.py,
+# PERF.md section 7; phase 8, whose drivers leave worse losses, runs in a
+# process of its own). So every device_ms trace opens with this many tiny
+# kernels, whose records it does not read. Later in a run (phases 10 and
+# 11, after phases 8 and 9 ran beside it) the first trace after unprofiled
+# work has come back with no record at all and the next one whole, so each
+# trace is taken after a throwaway one (throwaway_trace).
+TRACE_LEAD_KERNELS = 16
+# the traces device_ms has read since the process began (throwaway traces
+# aside), and those that lacked some of their launches' work: (reps, launch
+# calls, card records) of each
+traces_taken = 0
 dropped_traces = []
-# device_ms readings taken by queued_ms after five such traces in a row:
-# (reps, ms) of each
-queued_fallbacks = []
 
 
-def device_ms(fn, reps: int) -> float:
+def lead_kernels():
+    """A trace's lead: a function that launches ``TRACE_LEAD_KERNELS`` tiny
+    kernels on the current card and returns how many it launched."""
+    scratch = torch.zeros(1, device=torch.cuda.current_device())
+
+    def lead():
+        for _ in range(TRACE_LEAD_KERNELS):
+            scratch.add_(1.0)
+        return TRACE_LEAD_KERNELS
+
+    return lead
+
+
+def throwaway_trace(lead) -> None:
+    """A trace of ``lead()`` alone, whose records are not read."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]):
+        lead()
+        torch.cuda.synchronize()
+
+
+def traced_after_lead(prof, led: int) -> tuple[list, list]:
+    """A trace's launch calls after its first ``led`` (by start time) and
+    the card records of those launches (matched by correlation id), both by
+    start time."""
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    calls = sorted((e for e in events if e.device_type() == DeviceType.CPU
+                    and e.name().startswith(_LAUNCH_CALLS)), key=lambda e: e.start_ns())[led:]
+    ids = {e.correlation_id() for e in calls}
+    work = sorted((e for e in events if e.device_type() == DeviceType.CUDA
+                   and e.correlation_id() in ids), key=lambda e: e.start_ns())
+    return calls, work
+
+
+def device_ms(fn, reps: int, lead=None, throwaway: bool = True) -> float:
     """ms of card time per call of ``fn``: the durations of every kernel
     (and copy) that a loop of ``reps`` back-to-back calls runs, read from
     ``torch.profiler``'s records of the card, over ``reps``. For kernels that
     take the card less time than their wrapper takes the host, where
-    ``time_ms`` reads the host. One more call runs first inside the trace, and
-    only the loop's records count (the last ones by start time, as many as
-    the loop launched). A trace is used only if it holds a card record for
-    every launch of the loop; one that lost some (``dropped_traces``) is
-    taken again, up to five times, with the names of what it held and what
-    was launched printed. Late in a run (after phase 9's processes shared
-    the card) whole traces come back empty, up to five in a row; then the
-    loop is timed by ``queued_ms`` (CUDA events, the gaps between kernels
-    included; ``queued_fallbacks``)."""
+    ``time_ms`` reads the host. Each trace is taken right after a throwaway
+    one (``throwaway_trace``; ``throwaway=False`` skips it) and opens with
+    ``lead()`` (by default ``TRACE_LEAD_KERNELS`` tiny kernels; it returns
+    the launches it made), whose records are not read; then one more call
+    of ``fn`` runs, and only
+    the loop's records count (the last ones by start time, as many as the
+    loop launched, among the records of the launches after the lead). A
+    trace is used only if it holds a card record for every launch of the
+    loop; one that lost some (``dropped_traces``) is taken again, with the
+    names of what it held and what was launched printed, and after five
+    such traces in a row the reading fails."""
     from collections import Counter
 
-    from torch.autograd import DeviceType
-
+    global traces_taken
+    lead = lead or lead_kernels()
     fn()
     torch.cuda.synchronize()
     for _ in range(5):
+        traces_taken += 1
+        if throwaway:
+            throwaway_trace(lead)
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
+            led = lead()
             fn()
             torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = prof.profiler.kineto_results.events()
-        work = sorted((e for e in events if e.device_type() == DeviceType.CUDA),
-                      key=lambda e: e.start_ns())
-        launched = [e.name() for e in events if e.device_type() == DeviceType.CPU
-                    and e.name().startswith(_LAUNCH_CALLS)]
+        calls, work = traced_after_lead(prof, led)
+        launched = [e.name() for e in calls]
         # the loop's launches, when every call launches alike; else all of them
         loop = (len(launched) // (reps + 1) * reps if len(launched) % (reps + 1) == 0
                 else len(launched))
@@ -426,11 +491,8 @@ def device_ms(fn, reps: int) -> float:
         log(f"device_ms: a trace of {reps} calls held {len(work)} card records for {loop} "
             f"launches of the loop; taken again. Records "
             f"{dict(Counter(e.name()[:40] for e in work))}, launches {dict(Counter(launched))}")
-    ms = queued_ms(fn, reps)
-    queued_fallbacks.append((reps, ms))
-    log(f"device_ms: torch.profiler lost the card's records five times in a row; {reps} calls "
-        f"timed by queued_ms instead: {ms:.4f} ms a call")
-    return ms
+    raise RuntimeError(f"device_ms: torch.profiler lost the card's records of {reps} calls in "
+                       f"five traces in a row")
 
 
 def queued_ms(fn, reps: int, loops: int = 3) -> float:
@@ -526,7 +588,8 @@ def card_name_and_power() -> str:
 PTXAS_KERNELS = ("gemm_kernel", "vit_attention_bf16_kernel", "fps_cluster_kernel",
                  "vocab_wgmma_kernel", "attention_pipe_kernel", "ball_query_stripes_kernel",
                  "ball_query_backward_kernel", "ball_query_exact_kernel", "gemm_f32_kernel",
-                 "vit_attention_f32_kernel", "scoring_attention_f32_kernel", "vocab_f32_kernel")
+                 "vit_attention_f32_kernel", "scoring_attention_f32_kernel", "vocab_f32_kernel",
+                 "gather_rows_kernel", "gather_groups_kernel", "gather_long_rows_kernel")
 # kernels whose SASS must hold Hopper instructions (parts of their mangled
 # names: wg::gemm_kernel<...>, the vocabulary pass, the scoring attentions'
 # pipeline, the 3xTF32 products, ViT attention, scoring attentions and
@@ -601,7 +664,7 @@ def phase_build():
         if line.startswith("==") or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
     log("ptxas, the redesigned kernels (GEMM, ViT attention, scoring attentions and vocabulary "
-        "pass in bf16 and f32, FPS, ball query):")
+        "pass in bf16 and f32, FPS, the ball queries and the backward, the row gather):")
     for line in ptxas_lines(cuda_lib.build_log) or ["(library reused: no build log)"]:
         log(f"  {line}")
     for fn, c in sass_check(cuda_lib.library_path).items():
@@ -1062,11 +1125,10 @@ def f32_route_checks(device, gen, failures: list) -> dict:
 
 def phase_vit_kernels(device, kernels: dict, depth: int, reps: int = 10):
     """The ViT block's kernels against their plain versions at the main-path
-    shapes (8 images of 901 tokens), bf16 and f32, and the row gather.
-    The products and LayerNorms are the scoring kernels': their rows join
-    those records in ``kernels`` (``calls``: ``depth`` blocks, and the final
-    LayerNorm). Returns the records of the ViT attention and the gather."""
-    from bridgeqa_tpu_torch.ops import gather
+    shapes (8 images of 901 tokens), bf16 and f32. The products and
+    LayerNorms are the scoring kernels': their rows join those records in
+    ``kernels`` (``calls``: ``depth`` blocks, and the final LayerNorm).
+    Returns the record of the ViT attention."""
     from bridgeqa_tpu_torch.ops import scoring_layer as sl
     from bridgeqa_tpu_torch.ops import vit_block as vb
 
@@ -1177,46 +1239,75 @@ def phase_vit_kernels(device, kernels: dict, depth: int, reps: int = 10):
 
     # the gather: bitwise against torch.gather (also the library call); not
     # on the main path, so one call of each shape
-    gather_rows = []
-    rng = np.random.RandomState(9)
-    for name, n, c, r in GATHER_SHAPES:
-        idx = torch.from_numpy(rng.randint(0, n, (BATCH, r)).astype(np.int32)).to(device)
-        # rows the indices pick: each read once
-        picked = sum(int(torch.unique(idx[i]).numel()) for i in range(BATCH))
-        for dtype in (torch.float32, bf16):
-            table = randn(BATCH, n, c, dtype=dtype)
-            got, want = gather.gather_rows(table, idx), gather.gather_rows_plain(table, idx)
-            same = torch.equal(got, want)
-            if not same:
-                failures.append(f"gather_rows {name} {dtype}: not bitwise equal")
-            es = table.element_size()
-            # the wrapper, whose host-side index check waits for the card
-            # every call; and the card time of a call (the check's
-            # reduction and the copy)
-            ms = time_ms(lambda: gather.gather_rows(table, idx), reps)
-            card_ms = device_ms(lambda: gather.gather_rows(table, idx), reps)
-            plain_ms = time_ms(lambda: gather.gather_rows_plain(table, idx), reps)
-            bound_ms, bound_by = bound(0.0, BATCH * r * 4 + (picked + BATCH * r) * c * es,
-                                       PEAK_F32)
-            gather_rows.append(dict(shape=f"{name} {str(dtype)[6:]}: ({BATCH}, {n}, {c}) at "
-                                          f"({BATCH}, {r}), {picked} rows picked",
-                                    calls=1, bitwise=same, max_abs_err=max_err(got, want), ms=ms,
-                                    card_ms=card_ms, plain_ms=plain_ms, library_ms=plain_ms,
-                                    bound_ms=bound_ms, bound_by=bound_by,
-                                    note="library: torch.gather, the plain version itself"))
-            log(f"gather_rows {name} {dtype}: ({BATCH}, {n}, {c}) at ({BATCH}, {r}): bitwise "
-                f"{same}, wrapper {ms:.4f} ms (card time {card_ms:.4f} ms), "
-                f"torch.gather {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-            del table, got, want
     if failures:
         raise AssertionError(f"ViT kernels and plain versions disagree: {failures}")
     return [
         dict(name="vit_attention", route="cuda", source="bridgeqa_tpu_torch/csrc/vit_attention.cu",
              replaces=vit_kernel, rows=attn_rows),
-        dict(name="gather_rows", route="cuda", source="bridgeqa_tpu_torch/csrc/gather_rows.cu",
-             replaces="bridgeqa_tpu/ops/gather.py:29, bridgeqa_tpu/ops/gather.py:73",
-             rows=gather_rows, per="one call at each checked shape: no path calls the gather"),
     ]
+
+
+def phase_gather(device, reps: int = 10):
+    """The row gather (no path calls it) against ``torch.gather`` at
+    ``GATHER_SHAPES``, f32 and bf16: bitwise; the kernel alone
+    (``gather.launch``), its plain version and ``torch.gather`` alone by
+    card time, the wrapper with its index check by the loop's time, the
+    launch ``gather.gather_plan`` gave. Returns its record of the kernels
+    line."""
+    from bridgeqa_tpu_torch.ops import gather
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    bf16 = torch.bfloat16
+    failures = []
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+    gather_rows = []
+    rng = np.random.RandomState(9)
+    for name, n, c, r in GATHER_SHAPES:
+        idx = torch.from_numpy(rng.randint(0, n, (BATCH, r)).astype(np.int32)).to(device)
+        index = idx.long().unsqueeze(-1).expand(BATCH, r, c)  # torch.gather's
+        # rows the indices pick: each read once
+        picked = sum(int(torch.unique(idx[i]).numel()) for i in range(BATCH))
+        for dtype in (torch.float32, bf16):
+            table = randn(BATCH, n, c, dtype=dtype)
+            got, want = gather.gather_rows(table, idx), gather.gather_rows_plain(table, idx)
+            plan = dict(gather.last_plan)
+            same = torch.equal(got, want)
+            if not same:
+                failures.append(f"gather_rows {name} {dtype}: not bitwise equal")
+            es = table.element_size()
+            # card times: the kernel alone (its launch on indices already
+            # checked, into an output made once: no index check, no wait),
+            # the plain version, and torch.gather alone on its int64 index;
+            # and the wrapper's time, whose index check waits for the card
+            out = torch.empty_like(want)
+            ms = device_ms(lambda: gather.launch(table, idx, out), reps)
+            plain_ms = device_ms(lambda: gather.gather_rows_plain(table, idx), reps)
+            library_ms = device_ms(lambda: torch.gather(table, 1, index), reps)
+            wrapper_ms = time_ms(lambda: gather.gather_rows(table, idx), reps)
+            bound_ms, bound_by = bound(0.0, BATCH * r * 4 + (picked + BATCH * r) * c * es,
+                                       PEAK_F32)
+            gather_rows.append(dict(shape=f"{name} {str(dtype)[6:]}: ({BATCH}, {n}, {c}) at "
+                                          f"({BATCH}, {r}), {picked} rows picked",
+                                    calls=1, bitwise=same, max_abs_err=max_err(got, want), ms=ms,
+                                    wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                                    library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                    launch=plan, note="ms, plain_ms and library_ms card time "
+                                    "(device_ms); library: torch.gather alone"))
+            log(f"gather_rows {name} {dtype}: ({BATCH}, {n}, {c}) at ({BATCH}, {r}): bitwise "
+                f"{same}, kernel {ms:.4f} ms card time ({bound_ms / ms:.0%} of its bound), "
+                f"torch.gather {library_ms:.4f} ms (kernel / torch.gather "
+                f"{ms / library_ms:.2f}), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}); the wrapper with its index check {wrapper_ms:.4f} ms; launch "
+                f"{json.dumps(plan)}")
+            del table, got, want, out
+    if failures:
+        raise AssertionError(f"the gather and torch.gather disagree: {failures}")
+    return [dict(name="gather_rows", route="cuda", source="bridgeqa_tpu_torch/csrc/gather_rows.cu",
+                 replaces="bridgeqa_tpu/ops/gather.py:29, bridgeqa_tpu/ops/gather.py:73",
+                 rows=gather_rows, per="one call at each checked shape: no path calls the gather")]
 
 
 def head_rel_l2(got, want, heads: int) -> float:
@@ -1525,6 +1616,77 @@ def vit_depth(cfg) -> int:
     return {"base": 12, "large": 24}.get(cfg.blip.vit, cfg.blip.vit_custom_depth)
 
 
+# the rank path's score of an answer a decoder did not score
+UNSCORED = -1e4
+# the bf16 rank forward against its module path: the scored log-probability
+# sums per decoder within the decoder pass's 1% (relative L2), and the top-1
+# answer equal wherever the module path's top-1 margin exceeds twice the
+# row's largest score difference
+SCORE_REL_L2_TOL = 0.01
+TOP1_MARGIN_FACTOR = 2.0
+
+
+def module_path_copy(model):
+    """A deep copy of ``model`` whose decoders' configs say
+    ``fused_scoring="off"``: run with ``vit_block.FUSED_MODE = "off"`` it is
+    the module path on the same weights."""
+    from bridgeqa_tpu_torch.models.med import MedConfig
+
+    module = copy.deepcopy(model)
+    for m in module.modules():
+        if isinstance(getattr(m, "config", None), MedConfig):
+            m.config = dataclasses.replace(m.config, fused_scoring="off")
+    return module
+
+
+def ranked_scores(o: dict, weight: float) -> dict:
+    """The scores a rank forward ranks by: each decoder's log-probability
+    sums and the ensemble exp(s_2d) + exp(w s_3d), taken in log space (random
+    weights put every sum near -100, where the ensemble itself underflows to
+    0 in f32), in f64."""
+    s2d, s3d = o["answer_scores_2d"].double(), o["answer_scores_scene"].double()
+    return {"2d": s2d, "scene": s3d, "ensemble": torch.logaddexp(s2d, weight * s3d)}
+
+
+def hold_scores(got: dict, ref: dict, weight: float) -> dict:
+    """A rank forward's scores (``got``) against another's (``ref``), both
+    with answer_scores_2d and answer_scores_scene (B, A), ``UNSCORED`` where a
+    decoder did not score an answer. A decoder's scores are compared where
+    both runs scored the answer (a tie at the top-k boundary may pick
+    another); the ensemble's (``ranked_scores``) where both runs scored the
+    answer with the same decoders. For "2d", "scene" and "ensemble": each
+    row's largest difference (``row_diff``), ``ref``'s top-1 margin (top-1
+    minus top-2; ``margin``), the rows whose top-1 answers are equal
+    (``equal``), the rows excused (margin at most ``TOP1_MARGIN_FACTOR``
+    times the row's largest difference; ``excused``), the rows that fail
+    (top-1 unequal, not excused; ``failing``) and the largest difference;
+    for the two decoders also the relative L2 of the compared scores over
+    the batch (``rel_l2``)."""
+    g, r = ranked_scores(got, weight), ranked_scores(ref, weight)
+    scored = {k: (got[key] != UNSCORED, ref[key] != UNSCORED)
+              for k, key in (("2d", "answer_scores_2d"), ("scene", "answer_scores_scene"))}
+    masks = {k: a & b for k, (a, b) in scored.items()}
+    (g2, r2), (g3, r3) = scored["2d"], scored["scene"]
+    masks["ensemble"] = (g2 == r2) & (g3 == r3) & (r2 | r3)
+    out = {}
+    for k, mask in masks.items():
+        diff = torch.where(mask, g[k] - r[k], torch.zeros_like(g[k]))
+        row_diff = diff.abs().amax(dim=1)
+        top2 = r[k].topk(2, dim=1).values
+        margin = top2[:, 0] - top2[:, 1]
+        equal = g[k].argmax(dim=1) == r[k].argmax(dim=1)
+        excused = margin <= TOP1_MARGIN_FACTOR * row_diff
+        out[k] = dict(row_diff=row_diff.tolist(), margin=margin.tolist(),
+                      equal=equal.nonzero()[:, 0].tolist(),
+                      excused=excused.nonzero()[:, 0].tolist(),
+                      failing=(~equal & ~excused).nonzero()[:, 0].tolist(),
+                      largest_diff=float(row_diff.max()))
+        if k != "ensemble":
+            ref_norm = torch.where(mask, r[k], torch.zeros_like(r[k])).norm()
+            out[k]["rel_l2"] = float(diff.norm() / ref_norm)
+    return out
+
+
 def phase_main_path(device, reps: int = 5):
     from bridgeqa_tpu_torch.models.layers import set_compute_dtype
     from bridgeqa_tpu_torch.ops import vit_block as vb
@@ -1611,7 +1773,76 @@ def phase_main_path(device, reps: int = 5):
     log(f"main path stages on the host (ms to issue each stage's work, median of 3): "
         f"{json.dumps({k: round(v, 2) for k, v in host_stages.items()})}, "
         f"sum {sum(host_stages.values()):.1f}")
-    return launches
+    hold_bf16_module_path(model, batch, out)
+    scores = {k: out[k] for k in ("answer_scores_2d", "answer_scores_scene")}
+    del model, out
+    torch.cuda.empty_cache()
+    return launches, scores
+
+
+def hold_bf16_module_path(model, batch, out: dict) -> None:
+    """The full-width bf16 rank forward (``out``, fused kernels) against the
+    bf16 module path on the same weights and batch (``module_path_copy``,
+    ``vit_block.FUSED_MODE = "off"``), which must launch no fused kernel.
+    Tolerances (``hold_scores``): (a) each decoder's scored log-probability
+    sums, over the answers both runs scored, within 1% relative L2
+    (``SCORE_REL_L2_TOL``, the 12-layer decoder pass's: the kernels round
+    where the modules round, and sum in another order); (b) the top-1 answer
+    of each decoder and of the ensemble equal on every row where the module
+    path's top-1 margin exceeds twice the row's largest score difference
+    (``TOP1_MARGIN_FACTOR``; the excused rows and their margins printed);
+    (c) every output that no fused kernel touches bitwise equal: the
+    detector's, read from what ``model.detector`` returns (FPS, the ball
+    query and the detector's modules run alike in both paths; the ViT feeds
+    the twin encoder, and so lang_scores and cluster_ref)."""
+    from bridgeqa_tpu_torch.ops import vit_block as vb
+
+    module = module_path_copy(model)
+    untouched = set()
+    hook = module.detector.register_forward_hook(lambda _m, _a, o: untouched.update(o))
+    with torch.inference_mode():
+        try:
+            vb.FUSED_MODE = "off"
+            reset_launches()
+            t0 = time.perf_counter()
+            ref = module(batch, inference="rank", k_test=K_TEST)
+            torch.cuda.synchronize()
+            module_s = time.perf_counter() - t0
+            module_launches = read_launches()
+        finally:
+            vb.FUSED_MODE = "auto"
+            hook.remove()
+    del module
+    failed = []
+    fused = [k for k, n in module_launches.items()
+             if n and k not in ("fps", "ball_query_stripes")]
+    if fused:
+        failed.append(f"the module path launched {fused}")
+    held = hold_scores(out, ref, model.blip_model.cfg.scene_ensemble_weight)
+    failed += [f"{k}: scored sums {v['rel_l2']:.2e} relative L2 from the module path's"
+               for k, v in held.items() if v.get("rel_l2", 0.0) > SCORE_REL_L2_TOL]
+    failed += [f"{k}: top-1 differs on rows {v['failing']} not excused (margins "
+               f"{[round(v['margin'][i], 4) for i in v['failing']]}, largest differences "
+               f"{[round(v['row_diff'][i], 4) for i in v['failing']]})"
+               for k, v in held.items() if v["failing"]]
+    unequal = sorted(k for k in untouched if not torch.equal(out[k], ref[k]))
+    if not untouched or unequal:
+        failed.append(f"outputs no fused kernel touches differ: {unequal} of {sorted(untouched)}")
+    excused = {k: [(i, round(v["margin"][i], 4), round(v["row_diff"][i], 4), i in v["equal"])
+                   for i in v["excused"]] for k, v in held.items()}
+    rel_l2 = {k: float(f"{v['rel_l2']:.3g}") for k, v in held.items() if "rel_l2" in v}
+    largest = {k: float(f"{v['largest_diff']:.4g}") for k, v in held.items()}
+    log(f"bf16 rank forward against the bf16 module path (same weights and batch; module "
+        f"path {module_s * 1e3:.1f} ms, launches {json.dumps(module_launches)}): scored sums "
+        f"relative L2 {json.dumps(rel_l2)} (tolerance {SCORE_REL_L2_TOL:g}); top-1 equal on "
+        f"{json.dumps({k: len(v['equal']) for k, v in held.items()})} of {BATCH} rows; rows "
+        f"excused (row, module path's top-1 margin, largest difference, top-1 equal) "
+        f"{json.dumps(excused)}; largest score difference {json.dumps(largest)}; outputs no "
+        f"fused kernel touches bitwise equal: {len(untouched) - len(unequal)} of "
+        f"{len(untouched)}")
+    del ref
+    if failed:
+        raise AssertionError(f"bf16 rank forward against its module path: {failed}")
 
 
 # the f32 rank forward: the hand-written kernels by the parts of their names
@@ -1799,7 +2030,7 @@ def f32_kernel_rows(device, layers: int, depth: int, reps: int = 3) -> dict:
     return rows
 
 
-def phase_main_path_f32(device, reps: int = 3) -> dict:
+def phase_main_path_f32(device, bf16_scores: dict, reps: int = 3) -> dict:
     """The drivers' default: the main path's rank forward in f32 (``predict``,
     ``eval`` and validation compute in f32 unless ``--bf16``), batch 8,
     k_test 256, ``fused_scoring="auto"`` and ``vit_block.FUSED_MODE =
@@ -1809,9 +2040,11 @@ def phase_main_path_f32(device, reps: int = 3) -> dict:
     then the f32 module path (``fused_scoring="off"``, ``FUSED_MODE =
     "off"``) on the same weights and batch: the top-1 answer equal on every
     row, the largest difference of the scores both paths computed printed.
-    Then the kernels' rows at the forward's shapes (``f32_kernel_rows``).
-    Returns {kernel: rows}."""
-    from bridgeqa_tpu_torch.models.med import MedConfig
+    Phase 5b, a record and no gate: ``bf16_scores``, the bf16 rank forward's
+    fused scores on the same seed's weights and batch, against this f32
+    module path (``hold_scores``: top-1 agreement, largest difference): bf16
+    against f32 on random weights is not a contract. Then the kernels' rows
+    at the forward's shapes (``f32_kernel_rows``). Returns {kernel: rows}."""
     from bridgeqa_tpu_torch.ops import vit_block as vb
 
     t_phase = time.perf_counter()
@@ -1819,12 +2052,7 @@ def phase_main_path_f32(device, reps: int = 3) -> dict:
     model = build_model(cfg, device)  # f32 parameters and compute: no set_compute_dtype
     batch = make_batch(cfg, BATCH, NUM_POINTS, IMAGE_SIZE, QUESTION_LEN, ANSWER_LEN, device)
     expected = expected_launches(cfg)
-    # the module path on the same weights: a copy whose decoders' configs say
-    # "off"
-    module = copy.deepcopy(model)
-    for m in module.modules():
-        if isinstance(getattr(m, "config", None), MedConfig):
-            m.config = dataclasses.replace(m.config, fused_scoring="off")
+    module = module_path_copy(model)  # the module path on the same weights
 
     def forward(m):
         return m(batch, inference="rank", k_test=K_TEST)
@@ -1879,15 +2107,8 @@ def phase_main_path_f32(device, reps: int = 3) -> dict:
     log("f32 rank forward, the card's largest kernels (ms of one forward): "
         + "; ".join(f"{name[:70]} {ms:.2f}" for name, ms in top))
     # top-1 by each decoder's log-probability sums and by the ensemble
-    # exp(s_2d) + exp(w s_3d) taken in log space (random weights put every
-    # sum near -100, where the ensemble itself underflows to 0 in f32)
     weight = model.blip_model.cfg.scene_ensemble_weight
-
-    def ranked(o):
-        s2d, s3d = o["answer_scores_2d"].double(), o["answer_scores_scene"].double()
-        return {"2d": s2d, "scene": s3d, "ensemble": torch.logaddexp(s2d, weight * s3d)}
-
-    got_r, ref_r = ranked(out), ranked(ref)
+    got_r, ref_r = ranked_scores(out, weight), ranked_scores(ref, weight)
     same = {k: int((got_r[k].argmax(1) == ref_r[k].argmax(1)).sum()) for k in got_r}
     margin = [round(float(a - b), 4) for a, b in got_r["ensemble"].topk(2, dim=1).values.tolist()]
     diffs = {}
@@ -1906,6 +2127,14 @@ def phase_main_path_f32(device, reps: int = 3) -> dict:
         f"({', '.join(f'{t:.1f}' for t in module_times)}); top-1 equal on {json.dumps(same)} "
         f"of {BATCH} rows; the ensemble's top-1 minus top-2 per row {margin}; largest score "
         f"difference {json.dumps(diffs)}")
+    record = hold_scores(bf16_scores, ref, weight)
+    rel_l2 = {k: float(f"{v['rel_l2']:.3g}") for k, v in record.items() if "rel_l2" in v}
+    largest = {k: float(f"{v['largest_diff']:.4g}") for k, v in record.items()}
+    log(f"5b, a record: the bf16 rank forward's fused scores (phase 5, the same seed's weights "
+        f"and batch) against this f32 module path: top-1 equal on "
+        f"{json.dumps({k: len(v['equal']) for k, v in record.items()})} of {BATCH} rows; "
+        f"scored sums relative L2 {json.dumps(rel_l2)}; largest score difference "
+        f"{json.dumps(largest)}")
     del model, out, ref
     torch.cuda.empty_cache()
     if failed:
@@ -2408,23 +2637,26 @@ def backward_card_work(fn, calls: int = 10, tries: int = 5) -> dict:
     """What ``calls`` back-to-back calls of ``fn`` put on the card, from
     ``torch.profiler``: the host's launch calls of any kind (kernels,
     copies, memsets; ``_LAUNCH_CALLS``) and the card's records with their
-    names. A trace with fewer card records than launch calls (one traced
-    call alone has come back with none) is taken again, up to ``tries``
-    times; the last trace is returned as it is."""
-    from torch.autograd import DeviceType
-
+    names. As ``device_ms``'s, the trace follows a throwaway one and opens
+    with a lead of throwaway kernels (``lead_kernels``), whose launches and
+    records are left out. A trace
+    with fewer card records than launch calls (one traced call alone has
+    come back with none) is taken again, up to ``tries`` times; the last
+    trace is returned as it is."""
+    lead = lead_kernels()
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
+        throwaway_trace(lead)
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
+            led = lead()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        events = prof.profiler.kineto_results.events()
-        launched = [e.name() for e in events if e.device_type() == DeviceType.CPU
-                    and e.name().startswith(_LAUNCH_CALLS)]
-        work = [e.name() for e in events if e.device_type() == DeviceType.CUDA]
+        calls_made, records = traced_after_lead(prof, led)
+        launched = [e.name() for e in calls_made]
+        work = [e.name() for e in records]
         if len(work) >= len(launched):
             break
     return dict(calls=calls, launch_calls=len(launched), launched=sorted(set(launched)),
@@ -2980,6 +3212,47 @@ def phase_drivers(device, resident_samples_per_s: float, batch: int = DRIVER_BAT
 
 # phase 9: parallelism on the one card (two ranks share it over gloo; NCCL
 # refuses two ranks on one device) and the torchrun driver over NCCL
+DRIVERS_TIMEOUT_S = 1200
+
+
+def phase_drivers_apart(resident_samples_per_s: float) -> tuple[dict, dict]:
+    """Phase 8 (``phase_drivers``) in a process of its own, ``python3
+    chip_smoke.py --drivers RESIDENT``, its output relayed here: a process
+    that has run the drivers' full-width training loses card records of
+    the profiler's later traces, whole traces and runs of them
+    (``profiler_probe.py``'s ``phase8`` and ``phase8_steps``; with the
+    phase in a child, ``phase8_child``, none), and phases 10 and 11 read
+    card times from such traces. Returns what ``phase_drivers`` returns."""
+    result = OUT_DIR / "drivers_launches.json"
+    result.unlink(missing_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the child's memory
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--drivers",
+                           repr(resident_samples_per_s)], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True, timeout=DRIVERS_TIMEOUT_S)
+    for line in proc.stdout.splitlines():
+        log(line)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 8 (drivers) exited {proc.returncode}")
+    launches = json.loads(result.read_text())
+    return launches["loop"], launches["eval"]
+
+
+def drivers_worker(resident_samples_per_s: float) -> int:
+    """The process of ``phase_drivers_apart``: phase 8 on card 0; its
+    launch counts to ``build/drivers_launches.json``."""
+    from bridgeqa_tpu_torch.ops import cuda_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.zeros(1, device=device)  # the card's context, before phase 8 reads its memory
+    cuda_lib.lib()  # the parent's build
+    loop, evals = phase_drivers(device, resident_samples_per_s)
+    (OUT_DIR / "drivers_launches.json").write_text(json.dumps({"loop": loop, "eval": evals}))
+    return 0
+
+
 PARALLEL_WORLD = 2
 PARALLEL_BATCH = TRAIN_BATCH  # the global batch: 8 a rank
 PARALLEL_SEED = 5
@@ -3525,8 +3798,7 @@ def phase_exact_kernel(device, batch: int = BATCH, reps: int = 5):
     against its plain version, bitwise, at ``EXACT_SHAPES`` on
     ``make_cloud``'s clouds (padding, duplicates, 4 empty balls but on the
     dense cloud; SA1's 40000 points are no multiple of 128 nor of the
-    kernel's 1024-point tile). Card times (``device_ms``, or its
-    ``queued_ms`` fallback: each row's ``timer`` says which), the distance
+    kernel's 1024-point tile). Card times (``device_ms``), the distance
     tests the scan needs on this data and the bound from them, and the
     launch as ``grouping.last_exact_launch`` reports it; no single PyTorch
     call computes the query, so ``library_ms`` is None. Returns its record
@@ -3550,9 +3822,7 @@ def phase_exact_kernel(device, batch: int = BATCH, reps: int = 5):
         same = torch.equal(idx, want)
         tests, full = exact_scan_tests(radius, ns, xyz, ctr)
         ok = same and (full == batch * m if dense else bool((idx[:, :4] == 0).all()))
-        fallbacks = len(queued_fallbacks)
         ms = device_ms(lambda: grouping.ball_query_exact(radius, ns, xyz, ctr), reps)
-        timer = "device_ms" if len(queued_fallbacks) == fallbacks else "queued_ms"
         plain_ms = device_ms(lambda: grouping.ball_query_exact_plain(radius, ns, xyz, ctr),
                              max(1, reps // 2))
         # a distance test: 3 sub, 3 mul, 2 add, a compare
@@ -3560,12 +3830,12 @@ def phase_exact_kernel(device, batch: int = BATCH, reps: int = 5):
         rows.append(dict(shape=f"{name}: N={n}, M={m}, nsample={ns}, r={radius}, batch {batch}",
                          calls=calls, bitwise=ok, max_abs_err=max_err(idx, want), ms=ms,
                          plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                         bound_by=bound_by, timer=timer, distance_tests=tests, full_balls=full,
+                         bound_by=bound_by, timer="device_ms", distance_tests=tests,
+                         full_balls=full,
                          launch=launch))
         log(f"exact ball query {name}: N={n}, M={m}, ns={ns}, r={radius}: bitwise {same}, "
             f"balls of at least nsample {full} of {batch * m}, kernel {ms:.4f} ms card time "
-            f"({timer}), "
-            f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {tests} tests, "
+            f"(device_ms), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, {tests} tests, "
             f"{tests / (batch * m * n):.3f} of a full scan), library_ms null; launch "
             f"{json.dumps(launch)}")
     bad = [r for r in rows if not r["bitwise"]]
@@ -3574,7 +3844,7 @@ def phase_exact_kernel(device, batch: int = BATCH, reps: int = 5):
     return dict(name="ball_query_exact", route="cuda",
                 source="bridgeqa_tpu_torch/csrc/ball_query_exact.cu",
                 replaces="bridgeqa_tpu/ops/grouping.py:112", rows=rows,
-                timer="+".join(sorted({r["timer"] for r in rows})),
+                timer="device_ms",
                 per="one detector forward in exact mode: each main-path shape's median times "
                     "the calls it gets")
 
@@ -3755,9 +4025,10 @@ def phase_nonmain_reference(device):
         f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}")
 
 
-def phase_nonmain(device, reps: int = 5) -> dict:
+def phase_nonmain(device, exact_record: dict, reps: int = 5) -> dict:
     """Phase 10: the paths off the main one, at full width on the card.
-    (a) the exact query's kernel (``phase_exact_kernel``); (b) the main
+    (a) the exact query's kernel (``phase_exact_kernel``, its record
+    ``exact_record``, read before phase 7's training); (b) the main
     path's detector (40000 points, batch 8, bf16) under
     ``grouping.FORCE_MODE = "exact"``: the exact kernel 5 launches, the
     stripe kernel 0, FPS 5, outputs finite, and its time beside the stripe
@@ -3777,7 +4048,7 @@ def phase_nonmain(device, reps: int = 5) -> dict:
     from bridgeqa_tpu_torch.ops import grouping
 
     t_phase = time.perf_counter()
-    record = phase_exact_kernel(device)
+    record = exact_record
     failed, paths = [], {}
     base = main_config()
     batch = make_batch(base, BATCH, NUM_POINTS, IMAGE_SIZE, QUESTION_LEN, ANSWER_LEN, device)
@@ -4519,10 +4790,11 @@ def tools_reference(device) -> list:
     return failures
 
 
-def phase_tools(device) -> tuple[dict, dict]:
+def phase_tools(device, itm_rows: tuple) -> tuple[dict, dict]:
     """Phase 11: the offline tools on the card. (a) BLIP-ITM base at 384 px
     in f32: the fused ViT's kernels at its shape (64 frames of 577 tokens)
-    against their plain versions (``itm_kernel_rows``), and the tower three
+    against their plain versions (``itm_kernel_rows``: ``itm_rows``, read
+    before phase 7's training), and the tower three
     ways with the launches of one ``encode_images`` (``itm_tower``); (b)
     view selection at full width and its driver (``view_selection``); (c)
     ENet, the projection and their drivers (``enet_and_projection``); (d)
@@ -4532,7 +4804,7 @@ def phase_tools(device) -> tuple[dict, dict]:
     one ``encode_images``, the "view select" path)."""
     t_phase = time.perf_counter()
     TOOLS_DIR.mkdir(parents=True, exist_ok=True)
-    rows, failures = itm_kernel_rows(device)
+    rows, failures = itm_rows
     model = build_itm(itm_config(tiny=False), device, seed=10)
     gen = torch.Generator(device=device).manual_seed(10)
     images = torch.rand(ITM_FRAMES, ITM_IMAGE, ITM_IMAGE, 3, generator=gen, device=device)
@@ -4606,23 +4878,28 @@ def main() -> int:
     cfg = main_config()
     kernels = phase_kernels(device) + phase_scoring_kernels(device, decoder_layers(cfg))
     kernels += phase_vit_kernels(device, {k["name"]: k for k in kernels}, vit_depth(cfg))
+    kernels += phase_gather(device)
     report_ratios({k["name"]: k for k in kernels})
     wrapper_host_us(device)
     phase_decoder_pass(device)
     phase_vit_pass(device)
     phase_reference(device)
-    launches = phase_main_path(device)
-    f32_rows = phase_main_path_f32(device)
+    launches, bf16_scores = phase_main_path(device)
+    f32_rows = phase_main_path_f32(device, bf16_scores)
+    del bf16_scores
     phase_generate_reference(device)
     generate_launches = phase_generate(device)
+    # phases 10's and 11's card-time readings, before phase 7: a process
+    # that has trained loses profiler records (PERF.md section 7)
+    exact_record, itm_rows = phase_exact_kernel(device), itm_kernel_rows(device)
     kernels += phase_train_kernels(device)
     phase_train_reference(device)
     train_launches, resident_samples_per_s = phase_train(device)
-    loop_launches, eval_launches = phase_drivers(device, resident_samples_per_s)
+    loop_launches, eval_launches = phase_drivers_apart(resident_samples_per_s)
     parallel_launches = phase_parallel(device, resident_samples_per_s)
-    exact_record, nonmain_launches = phase_nonmain(device)
+    exact_record, nonmain_launches = phase_nonmain(device, exact_record)
     kernels.append(exact_record)
-    itm_rows, view_select_launches = phase_tools(device)
+    itm_rows, view_select_launches = phase_tools(device, itm_rows)
     records = []
     for k in kernels:
         name = k["name"]
@@ -4643,9 +4920,9 @@ def main() -> int:
         if name in itm_rows:  # phase 11: f32 at BLIP-ITM's 577 tokens, 64 frames
             record["itm_f32_shapes"] = itm_rows[name]
         records.append(record)
-    log(f"device_ms: {len(dropped_traces)} trace(s) lacked card records in the whole run; "
-        f"{len(queued_fallbacks)} reading(s) timed by queued_ms instead (reps, ms): "
-        f"{queued_fallbacks}")
+    log(f"device_ms: {len(dropped_traces)} trace(s) lacked card records in the whole run, of "
+        f"{traces_taken} taken; 0 reading(s) timed by queued_ms in place of device_ms "
+        f"(device_ms has no fallback: five lost traces in a row fail the run)")
     log(f"whole run: {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -4657,4 +4934,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:  # one of phase 9's ranks
         sys.exit(parallel_worker(*map(int, sys.argv[2:5])))
+    if sys.argv[1:2] == ["--drivers"]:  # phase 8, apart from the profiled process
+        sys.exit(drivers_worker(float(sys.argv[2])))
     sys.exit(main())

@@ -2,7 +2,7 @@
 """Time the f32 kernels' and the point kernels' design choices, and the
 kernels against an older tree's, in turns, in one process on one CUDA card.
 
-    python3 f32_variants.py [--parent DIR]
+    python3 f32_variants.py [--parent DIR [--gather]]
 
 - The vocabulary pass (``csrc/vocab_loss.cu``, f32) at the main path's
   shape (22528 rows, 30524 words, width 768) with its launch bound at one
@@ -31,7 +31,10 @@ kernels against an older tree's, in turns, in one process on one CUDA card.
   query at the five ``BQ_SHAPES``, the backward at both
   ``BQ_BACKWARD_SHAPES``; their outputs must agree (the exact indices
   bitwise, the backward within ``chip_smoke.BQ_BACKWARD_TOL`` of the
-  largest value).
+  largest value). The row gather's kernel alone, each tree's through its
+  own C entry, at ``chip_smoke.GATHER_SHAPES`` in f32 and bf16, with
+  ``torch.gather`` beside them; ``--gather`` runs that comparison alone
+  (into ``build/gather_variants.json``).
 
 Card time per call by ``torch.profiler`` (``chip_smoke.device_ms``; the
 vocabulary pass, which takes the card ~20 ms a call, by CUDA events around
@@ -267,12 +270,61 @@ def point_parent(root: Path, device, results: list) -> None:
                  lambda fn: cs.queued_ms(fn, 20), results)
 
 
+def gather_parent(root: Path, device, results: list) -> None:
+    """``root``'s row gather kernel alone (its C entry, as ``root`` built it)
+    against the tree's (``gather.launch``), in turns, at
+    ``chip_smoke.GATHER_SHAPES`` in f32 and bf16, by card time; their outputs
+    must be bitwise ``torch.gather``'s, which is read beside them."""
+    from bridgeqa_tpu_torch.ops import cuda_lib, gather
+
+    pgather = parent_module(root, "gather")
+    plib = parent_module(root, "cuda_lib").lib()
+    stream = cuda_lib.stream_handle(device)
+    rng = np.random.RandomState(9)
+    for name, n, c, r in cs.GATHER_SHAPES:
+        idx = torch.from_numpy(rng.randint(0, n, (cs.BATCH, r)).astype(np.int32)).to(device)
+        index = idx.long().unsqueeze(-1).expand(cs.BATCH, r, c)
+        for dtype in (torch.float32, torch.bfloat16):
+            table = torch.from_numpy(rng.randn(cs.BATCH, n, c).astype(np.float32)).to(device, dtype)
+            want = torch.gather(table, 1, index)
+            outs = {"parent": torch.empty_like(want), "change": torch.empty_like(want)}
+
+            def parent_call(o=outs["parent"], table=table):
+                if hasattr(pgather, "launch"):  # a tree with a launch of the kernel alone
+                    return pgather.launch(table, idx, o)
+                # an older tree: the C entry that takes no launch plan
+                cuda_lib.check(plib.bq_gather_rows(table.data_ptr(), idx.data_ptr(), o.data_ptr(),
+                                                   cs.BATCH, n, r, c, table.element_size(),
+                                                   stream), "parent bq_gather_rows")
+
+            calls = {"parent": parent_call,
+                     "change": lambda o=outs["change"], table=table: gather.launch(table, idx, o)}
+            for call in calls.values():
+                call()
+            if not all(torch.equal(o, want) for o in outs.values()):
+                raise AssertionError(f"gather at {name} {dtype}: not torch.gather's rows")
+            in_turns(f"gather kernel alone at {name} {str(dtype)[6:]} ({cs.BATCH}, {n}, {c}) at "
+                     f"({cs.BATCH}, {r}): parent against change", calls,
+                     lambda fn: cs.device_ms(fn, 10), results)
+            results[-1]["torch_gather_ms"] = cs.device_ms(lambda: torch.gather(table, 1, index),
+                                                          10)
+            print(json.dumps({"torch.gather": results[-1]["torch_gather_ms"]}), flush=True)
+            del table, want, outs
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--parent", type=Path, help="an older tree to compare with")
+    parser.add_argument("--gather", action="store_true",
+                        help="only the row gather against --parent's")
     args = parser.parse_args()
     device = cs.phase_device()
     cs.phase_build()
+    if args.gather:
+        results = []
+        gather_parent(args.parent, device, results)
+        (cs.OUT_DIR / "gather_variants.json").write_text(json.dumps(results, indent=1))
+        return 0
     from bridgeqa_tpu_torch.ops import cuda_lib
     from bridgeqa_tpu_torch.ops import vocab_loss as vl
 
@@ -363,6 +415,7 @@ def main() -> int:
                  {"parent": lambda: vocab_call(parent, inputs, psplit, device),
                   "change": lambda: vocab_call(tree, inputs, split, device)}, events, results)
         point_parent(args.parent, device, results)
+        gather_parent(args.parent, device, results)
     point_choices(device, results)
     (cs.OUT_DIR / "f32_variants.json").write_text(json.dumps(results, indent=1))
     return 0

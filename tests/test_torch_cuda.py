@@ -40,7 +40,9 @@ machine does not have; this file imports none.) On the edge cases
 - the bf16 GEMM and ViT attention launched from several host threads at
   once (ctypes releases the GIL), bit for bit as from one;
 - the row gather must copy bit for bit, with rows that fill no block and
-  1, 3, 4 and 131 channels, and refuse indices out of range;
+  1, 3, 4, 129, 131 and 256 channels in f32 and bf16 (random bit patterns),
+  both layouts, a table and an output one element off an aligned address,
+  repeated indices and no rows, and refuse indices out of range;
 - the vocabulary pass's runs past the vocabulary, labels at its first and
   last word, logits scaled x30;
 - every wrapper but the ball query's refuses an input that wants a
@@ -973,6 +975,67 @@ def test_gather_rows_matches_torch_gather(card, dtype, n, c, r):
     assert torch.equal(got, gather.gather_rows_plain(table, idx))
     one = gather.gather_rows(table[1], idx[1].long())
     assert torch.equal(one, table[1][idx[1].long()])
+
+
+def _bits(t):
+    """The tensor's bits as integers: NaN payloads and signed zeros compare."""
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def _random_bits(rng, shape, dtype, device):
+    """Every bit pattern of ``dtype``, NaNs included, at random."""
+    bits = rng.randint(-2**31, 2**31, size=int(np.prod(shape)), dtype=np.int64).astype(np.int32)
+    t = torch.from_numpy(bits).to(device).view(torch.float32)
+    if dtype == torch.bfloat16:
+        t = t.view(torch.bfloat16)[:int(np.prod(shape))]
+    return t.reshape(shape)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [1, 3, 4, 129, 131, 256])
+def test_gather_rows_bitwise_at_every_width_and_offset(card, dtype, c):
+    """The gather copies bit for bit (random bit patterns, NaNs included)
+    at rows of 2 to 1024 bytes: the group kernel's rows of at most 64 bytes
+    in each unit, the row kernels' longer ones whose table and output rows
+    disagree in alignment (131 channels: 524 bytes a warp a row or 262
+    bytes two rows a warp, 4 rows a group at once; 256 f32 channels, 1024
+    bytes, a row at a time). In both layouts,
+    on a table and on an output that start one element past an aligned
+    address (views; the elements either side of the output untouched), with
+    repeated indices, 1037 rows (no multiple of 32) and none."""
+    rng = np.random.RandomState(c)
+    b, n, r = 3, 300, 1037
+    es = torch.empty(0, dtype=dtype).element_size()
+    table = _random_bits(rng, (b, n, c), dtype, card)
+    shifted = torch.empty(b * n * c + 1, dtype=dtype, device=card)[1:].view(b, n, c)
+    shifted.copy_(table)
+    idx = torch.from_numpy(rng.randint(0, n, (b, r)).astype(np.int32)).to(card)
+    idx[:, 100:400] = idx[:, :1].clone()  # repeats
+    want = gather.gather_rows_plain(table, idx)
+    kernel = "groups" if c * es <= 64 else "rows" if c * es < 528 else "long rows"
+    lanes = 16 if 64 < c * es < 272 else 32 if c * es > 64 else None
+    for t in (table, shifted):
+        before = gather.launches
+        got = gather.gather_rows(t, idx)
+        assert gather.launches == before + 1 and gather.last_plan["kernel"] == kernel
+        assert lanes is None or gather.last_plan["lanes_per_row"] == lanes
+        assert torch.equal(_bits(got), _bits(want))
+        one = gather.gather_rows(t[2], idx[2].long())
+        assert torch.equal(_bits(one), _bits(want[2]))
+    sentinel = torch.full((b * r * c + 2,), -7, dtype=torch.int32 if es == 4 else torch.int16,
+                          device=card)
+    out = sentinel.view(dtype)[1:-1].view(b, r, c)
+    for t in (table, shifted):
+        gather.launch(t, idx, out)
+        assert torch.equal(_bits(out), _bits(want))
+        one = sentinel.view(dtype)[1:1 + r * c].view(1, r, c)
+        gather.launch(t[2:], idx[2:], one)
+        assert torch.equal(_bits(one[0]), _bits(want[2]))
+        assert int(sentinel[0]) == -7 and int(sentinel[-1]) == -7
+    if c * es <= 64:
+        assert gather.last_plan["unit_bytes"] == es  # the output one element off
+    empty = gather.gather_rows(shifted, idx[:, :0])
+    assert empty.shape == (b, 0, c) and empty.dtype == dtype
 
 
 def test_gather_rows_refuses_bad_inputs(card):

@@ -25,7 +25,7 @@ import torch
 from bridgeqa_tpu.ops import grouping as jgrouping
 from bridgeqa_tpu.ops import interpolate as jinterp
 from bridgeqa_tpu.ops import sampling as jsampling
-from bridgeqa_tpu_torch.ops import grouping, interpolate, sampling
+from bridgeqa_tpu_torch.ops import gather, grouping, interpolate, sampling
 
 
 def csrc_constants(name: str) -> dict:
@@ -282,6 +282,96 @@ def test_backward_plan_regime():
     assert grouping.backward_plan(16, 1024, 256, 16)["blocks_per_cloud"] == 4
     assert grouping.backward_plan(16, 40000, 2048, 64)["blocks_per_cloud"] == 8
     assert grouping.backward_plan(3, 40, 32, 8)["blocks_per_cloud"] == 1
+
+
+def test_gather_plan_matches_the_kernels_constants():
+    """The gather plan's geometry is the kernel's own."""
+    consts = csrc_constants("gather_rows.cu")
+    assert (consts["kWarps"], consts["kRowsPerUnit"], consts["kGroupMaxBytes"],
+            consts["kOnePassBytes"], consts["kHalfWarpBytes"]) == (
+        gather.GATHER_WARPS, gather.GATHER_ROWS_PER_UNIT, gather.GATHER_GROUP_MAX_BYTES,
+        gather.GATHER_ONE_PASS_BYTES, gather.GATHER_HALF_WARP_BYTES)
+
+
+@pytest.mark.parametrize("es", [2, 4])
+@pytest.mark.parametrize("c", [1, 3, 4, 129, 131, 256])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_gather_plan_rule(es, c, offset):
+    """A row of at most 64 bytes goes to the least power of two of lanes
+    that holds its units, in the widest unit of 16, 8, 4, 2 bytes that
+    divides the row and both addresses (a table and an output one element
+    past a 256-byte boundary, as a view, in turn); a longer row in 16-byte
+    stores to 16 lanes under 272 bytes, else to a warp, 4 rows a group at
+    once under 528 bytes (one block a lane)."""
+    row_bytes = c * es
+    for table_addr, out_addr in ((256 + offset * es, 512), (256, 512 + offset * es)):
+        plan = gather.gather_plan(3, 1037, row_bytes, table_addr, out_addr, 132)
+        if row_bytes > 64:
+            kernel = "rows" if row_bytes < 528 else "long rows"
+            lanes = 16 if row_bytes < 272 else 32
+            assert (plan["kernel"], plan["unit_bytes"], plan["lanes_per_row"]) == (
+                kernel, 16, lanes)
+            continue
+        unit = plan["unit_bytes"]
+        assert plan["kernel"] == "groups" and unit >= es
+        assert (table_addr | out_addr | row_bytes) % unit == 0
+        assert unit == 16 or (table_addr | out_addr | row_bytes) % (2 * unit) != 0
+        lanes, units = plan["lanes_per_row"], row_bytes // unit
+        assert lanes >= units and (lanes == 1 or lanes // 2 < units) and lanes & (lanes - 1) == 0
+    assert gather.gather_plan(8, 131072, 16, 0, 0, 132)["unit_bytes"] == 16  # sa1-like f32
+    assert gather.gather_plan(8, 131072, 8, 0, 0, 132)["unit_bytes"] == 8  # bf16
+
+
+@pytest.mark.parametrize("b,r,row_bytes", [(1, 1, 4), (2, 31, 12), (3, 33, 64), (2, 100, 2),
+                                           (1, 0, 16), (5, 97, 524)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_gather_plan_covers_every_row_once(b, r, row_bytes, sms):
+    """The grid's warps walk the work units (a table's 32 rows) from their
+    own number by the grid's warps: every unit once, on a card
+    of one SM (units in waves) and of 132; inside a unit of the group
+    kernel, step s's lane l copies row s (32 / lanes) + l / lanes, unit l %
+    lanes (and every lanes-th after): every row's every unit once."""
+    plan = gather.gather_plan(b, r, row_bytes, 0, 0, sms)
+    warps = plan["blocks"] * plan["warps_per_block"]
+    assert plan["units"] == b * -(-r // 32) and plan["blocks"] <= sms * gather.GATHER_BLOCKS_PER_SM
+    walked = [w for first in range(warps) for w in range(first, plan["units"], warps)]
+    assert sorted(walked) == list(range(plan["units"]))
+    if plan["kernel"] == "groups":
+        lanes, units = plan["lanes_per_row"], row_bytes // plan["unit_bytes"]
+        taken = np.zeros((32, units), dtype=np.int64)
+        for s in range(lanes):
+            for lane in range(32):
+                for u in range(lane % lanes, units, lanes):
+                    taken[s * (32 // lanes) + lane // lanes, u] += 1
+        assert (taken == 1).all()
+
+
+def test_hold_scores_excuses_ties_and_fails_a_boundary_pick():
+    """``chip_smoke.hold_scores`` on synthetic scores of 3 rows of 6 answers
+    (-1e4 where a decoder did not score): row 0 a clear top-1 that both runs
+    keep; row 1 a tie at the top that the other run breaks the other way by
+    a rounding (excused: the margin is 0); row 2 a top-1 that only the other
+    run scored (not compared, so not excused, and its top-1 differs)."""
+    import chip_smoke as cs
+
+    u = cs.UNSCORED
+    ref = torch.tensor([[-1.0, -3.0, -4.0, u, -5.0, -6.0],
+                        [-2.0, -2.0, -7.0, -8.0, u, -9.0],
+                        [-3.0, -4.0, u, -6.0, -7.0, -8.0]], dtype=torch.float64)
+    got = ref.clone()
+    got[0, 0] += 1e-3
+    got[1, 1] += 1e-3
+    got[2, 2] = -1.0  # scored by this run alone, above the other's top-1
+    held = cs.hold_scores({"answer_scores_2d": got, "answer_scores_scene": got},
+                          {"answer_scores_2d": ref, "answer_scores_scene": ref}, weight=1.0)
+    for key in ("2d", "scene", "ensemble"):
+        h = held[key]
+        assert h["equal"] == [0] and h["excused"] == [1] and h["failing"] == [2], (key, h)
+        assert h["margin"][0] == pytest.approx(2.0)
+        assert h["row_diff"][2] == 0.0  # the pick only one run scored is not compared
+    assert held["2d"]["rel_l2"] == pytest.approx(
+        np.sqrt(2) * 1e-3 / np.linalg.norm([v for v in ref.flatten().tolist() if v != u]))
+    assert held["2d"]["largest_diff"] == pytest.approx(1e-3)
 
 
 def test_three_nn_and_interpolate():
