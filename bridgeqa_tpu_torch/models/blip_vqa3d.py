@@ -24,6 +24,7 @@ from bridgeqa_tpu_torch.models.layers import Dense, LayerNorm, dropout, gelu
 from bridgeqa_tpu_torch.models.med import IGNORE_INDEX, BertLMHeadModel, BertModelTwin, MedConfig
 from bridgeqa_tpu_torch.models.vit import create_vit
 from bridgeqa_tpu_torch.parallel.global_batch import global_ratio
+from bridgeqa_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,7 +162,8 @@ class BLIPVQA3D(nn.Module):
 
     def encode_image(self, image):
         """image (B, H, W, 3) -> (B, 1 + N, width)."""
-        return self.visual_encoder(image)
+        with span("vit"):
+            return self.visual_encoder(image)
 
     def encode_question(self, image_embeds, question_ids, question_mask, scene_object_embeds,
                         scene_object_mask, output_attentions: bool = False):
@@ -169,11 +171,13 @@ class BLIPVQA3D(nn.Module):
         returns (hidden_2d, hidden_3d), each (B, Lq, H), and with
         ``output_attentions`` the last layer's probabilities
         (``BertEncoderTwin``) as a third element."""
-        image_atts = torch.ones(image_embeds.shape[:2], dtype=torch.int32, device=image_embeds.device)
-        scene_embeds = self.linear_scene_object(scene_object_embeds)
-        return self.text_encoder(question_ids, question_mask, image_embeds, image_atts,
-                                 scene_embeds, scene_object_mask,
-                                 output_attentions=output_attentions)
+        with span("twin"):
+            image_atts = torch.ones(image_embeds.shape[:2], dtype=torch.int32,
+                                    device=image_embeds.device)
+            scene_embeds = self.linear_scene_object(scene_object_embeds)
+            return self.text_encoder(question_ids, question_mask, image_embeds, image_atts,
+                                     scene_embeds, scene_object_mask,
+                                     output_attentions=output_attentions)
 
     def fuse_2d3d(self, h2d, h3d):
         """Low-rank bilinear fusion plus the stream mean."""
@@ -227,23 +231,25 @@ class BLIPVQA3D(nn.Module):
         then each is scored in full. ``answer_ids`` (A, La) is the answer
         table, bos first. Returns (topk_ids (B, k), log-prob sums (B, k))."""
         num_ques = question_states.shape[0]
-        bos = torch.full((num_ques, 1), self.cfg.bos_token_id, dtype=answer_ids.dtype,
-                         device=answer_ids.device)
-        start_logits, _ = decoder(bos, None, question_states, question_mask,
-                                  layernorm_idx=layernorm_idx)
-        prob_first = torch.softmax(start_logits[:, 0].float(), dim=1)[:, answer_ids[:, 1]]
-        topk_ids = top_k_stable(prob_first, k)
-
-        la = answer_ids.shape[1]
-        input_ids = answer_ids[topk_ids].reshape(num_ques * k, la)
-        input_atts = answer_mask[topk_ids].reshape(num_ques * k, la)
-        targets = torch.where(input_ids == self.cfg.pad_token_id, IGNORE_INDEX, input_ids)
-        # the question states stay at batch B: grouped cross-attention
-        # shares each question's K/V across its k answers
-        _, loss = decoder(input_ids, input_atts, question_states, question_mask, labels=targets,
-                          loss_chunk_size=self.cfg.rank_loss_chunk_size,
-                          layernorm_idx=layernorm_idx)
-        return topk_ids, (-loss).reshape(num_ques, k)
+        with span("scoring/first_token"):
+            bos = torch.full((num_ques, 1), self.cfg.bos_token_id, dtype=answer_ids.dtype,
+                             device=answer_ids.device)
+            start_logits, _ = decoder(bos, None, question_states, question_mask,
+                                      layernorm_idx=layernorm_idx)
+            prob_first = torch.softmax(start_logits[:, 0].float(), dim=1)[:, answer_ids[:, 1]]
+        with span("scoring/topk"):
+            topk_ids = top_k_stable(prob_first, k)
+            la = answer_ids.shape[1]
+            input_ids = answer_ids[topk_ids].reshape(num_ques * k, la)
+            input_atts = answer_mask[topk_ids].reshape(num_ques * k, la)
+            targets = torch.where(input_ids == self.cfg.pad_token_id, IGNORE_INDEX, input_ids)
+        with span("scoring/answers"):
+            # the question states stay at batch B: grouped cross-attention
+            # shares each question's K/V across its k answers
+            _, loss = decoder(input_ids, input_atts, question_states, question_mask,
+                              labels=targets, loss_chunk_size=self.cfg.rank_loss_chunk_size,
+                              layernorm_idx=layernorm_idx)
+            return topk_ids, (-loss).reshape(num_ques, k)
 
     def rank(self, image, question_ids, question_mask, answer_ids, answer_mask,
              scene_object_embeds, scene_object_mask, k_test: int = 128,
@@ -268,15 +274,19 @@ class BLIPVQA3D(nn.Module):
             full = torch.full((batch, num_answers), -1e4, dtype=torch.float32, device=scores.device)
             return full.scatter(1, topk_ids, scores.float())
 
-        ids_2d, scores_2d = self._rank_with_decoder(self.text_decoder, h2d, question_mask,
-                                                    answer_ids, answer_mask, k)
-        all_2d = scatter_scores(ids_2d, scores_2d)
-        ids_3d, scores_3d = self._rank_with_decoder(self._decoder_scene(), h3d, question_mask,
-                                                    answer_ids, answer_mask, k,
-                                                    self._scene_layernorm_idx())
-        all_3d = scatter_scores(ids_3d, scores_3d)
-        # likelihood-space ensemble: exp(s_2d) + exp(1.05 * s_3d)
-        ensemble = torch.exp(all_2d) + torch.exp(self.cfg.scene_ensemble_weight * all_3d)
+        with span("scoring"):
+            ids_2d, scores_2d = self._rank_with_decoder(self.text_decoder, h2d, question_mask,
+                                                        answer_ids, answer_mask, k)
+            all_2d = scatter_scores(ids_2d, scores_2d)
+        with span("scoring"):
+            ids_3d, scores_3d = self._rank_with_decoder(self._decoder_scene(), h3d,
+                                                        question_mask, answer_ids, answer_mask,
+                                                        k, self._scene_layernorm_idx())
+            all_3d = scatter_scores(ids_3d, scores_3d)
+        with span("heads"):
+            # likelihood-space ensemble: exp(s_2d) + exp(1.05 * s_3d)
+            ensemble = torch.exp(all_2d) + torch.exp(self.cfg.scene_ensemble_weight * all_3d)
+            fused = self.fuse_2d3d(h2d, h3d)
         scores = {"answer_scores": ensemble, "answer_scores_scene": all_3d,
                   "answer_scores_2d": all_2d}
         if output_attentions:
@@ -285,7 +295,7 @@ class BLIPVQA3D(nn.Module):
                            "3d_self_attention": last["self_3d"],
                            "2d_cross_attention": last["cross_2d"],
                            "3d_cross_attention": last["cross_3d"]})
-        return self.fuse_2d3d(h2d, h3d), scores, question_mask
+        return fused, scores, question_mask
 
     def generate(self, image, question_ids, question_mask, scene_object_embeds,
                  scene_object_mask, *, num_beams: int | None = None,

@@ -41,6 +41,7 @@ from bridgeqa_tpu_torch.models.layers import (
 )
 from bridgeqa_tpu_torch.models.lang import BertLangEncoder, LangModule
 from bridgeqa_tpu_torch.models.mcan import MCAN_ED, SGA, AttFlat, McanLayerNorm
+from bridgeqa_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,18 +196,21 @@ class BridgeQA(nn.Module):
         if inference not in ("rank", "generate", "loss"):
             raise ValueError(f"inference must be 'rank', 'generate' or 'loss', got {inference!r}")
         args = (batch, inference, k_test, num_beams, max_length, bn_momentum, output_attentions)
-        if generator is None:
-            return self._forward(*args)
-        with dropout_rng(generator):
-            return self._forward(*args)
+        with span("forward"):
+            if generator is None:
+                return self._forward(*args)
+            with dropout_rng(generator):
+                return self._forward(*args)
 
     def _forward(self, batch, inference, k_test, num_beams, max_length, bn_momentum,
                  output_attentions):
         c = self.cfg
-        out = self.detector(batch["point_clouds"], bn_momentum)
+        with span("detector"):
+            out = self.detector(batch["point_clouds"], bn_momentum)
         if c.stage == "DET":
             return out
-        object_feat = gelu(self.object_feat_linear(out["aggregated_vote_features"]))
+        with span("heads"):
+            object_feat = gelu(self.object_feat_linear(out["aggregated_vote_features"]))
         bbox_mask = out["bbox_mask"].bool()  # True where the proposal is an object
         # MCAN convention (True = masked): mask the non-objects
         object_mask = (~bbox_mask)[:, None, None, :] if c.use_object_mask else None
@@ -245,18 +249,19 @@ class BridgeQA(nn.Module):
                     val = F.pad(val, (0, c.num_answers - val.shape[1]), value=-1e4)
                 out[key] = val
 
-        if c.use_lang_cls:
-            out["lang_scores"] = self.lang_cls(fused_feat[:, 0])
-        if c.use_reference:
-            fused_for_crossatt = self.linear_blip_to_object(fused_feat)
-            fused_mask_b = fused_mask.bool()[:, None, None, :]
-            # the reference's mask polarity: x_mask = ~object_mask (True AT
-            # objects), y_mask = ~fused_mask (True at question padding)
-            x_mask = None if object_mask is None else ~object_mask
-            for dec in self.dec_list_qo:
-                object_feat = dec(object_feat, fused_for_crossatt, x_mask, ~fused_mask_b)
-            object_conf_feat = object_feat * bbox_mask.to(object_feat.dtype)[..., None]
-            out["cluster_ref"] = self.object_cls(object_conf_feat)[..., 0]
+        with span("heads"):
+            if c.use_lang_cls:
+                out["lang_scores"] = self.lang_cls(fused_feat[:, 0])
+            if c.use_reference:
+                fused_for_crossatt = self.linear_blip_to_object(fused_feat)
+                fused_mask_b = fused_mask.bool()[:, None, None, :]
+                # the reference's mask polarity: x_mask = ~object_mask (True AT
+                # objects), y_mask = ~fused_mask (True at question padding)
+                x_mask = None if object_mask is None else ~object_mask
+                for dec in self.dec_list_qo:
+                    object_feat = dec(object_feat, fused_for_crossatt, x_mask, ~fused_mask_b)
+                object_conf_feat = object_feat * bbox_mask.to(object_feat.dtype)[..., None]
+                out["cluster_ref"] = self.object_cls(object_conf_feat)[..., 0]
         return out
 
     def _forward_mcan(self, batch, object_feat, object_mask, bbox_mask) -> dict:

@@ -11,17 +11,16 @@ kernels today: the point ops gather inside their own kernels or with
 
 On a CUDA tensor ``gather_rows`` checks the indices on the host side
 (0 <= idx < N, else ``IndexError``; the check waits for the card),
-launches the kernel with ``gather_plan``'s launch and counts the launch in
-``launches``; on a CPU tensor it runs ``gather_rows_plain``
+launches the kernel with ``gather_plan``'s launch and counts the launch
+(``kernel/gather_rows``); on a CPU tensor it runs ``gather_rows_plain``
 (``torch.gather``, which checks the indices itself).
 """
 
 import torch
 
 from bridgeqa_tpu_torch.ops import cuda_lib
+from bridgeqa_tpu_torch.utils.profiling import count
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
-launches = 0
 # the last launch's plan (chip_smoke.py prints it)
 last_plan = None
 
@@ -98,7 +97,7 @@ def launch(table: torch.Tensor, idx: torch.Tensor, out: torch.Tensor) -> None:
     """The kernel alone, into ``out``: table (B, N, C), idx (B, R) int32
     already checked, out (B, R, C), all contiguous on one card. The timing
     harness calls it to read the kernel's own card time."""
-    global launches, last_plan
+    global last_plan
     b, n, c = table.shape
     r = idx.shape[1]
     es = table.element_size()
@@ -108,7 +107,7 @@ def launch(table: torch.Tensor, idx: torch.Tensor, out: torch.Tensor) -> None:
                                        c, es, plan["unit_bytes"], plan["lanes_per_row"],
                                        plan["blocks"], cuda_lib.stream_handle(table.device))
     cuda_lib.check(rc, "bq_gather_rows")
-    launches += 1
+    count("kernel/gather_rows")
     last_plan = plan
 
 

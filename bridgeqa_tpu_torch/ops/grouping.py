@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from bridgeqa_tpu_torch.ops import cuda_lib
+from bridgeqa_tpu_torch.utils.profiling import count
 
 BIG = 2**30
 # feature channels the kernel extracts in its own sweep (as the JAX kernel)
@@ -56,10 +57,6 @@ MAX_KERNEL_FEATS = 4
 # centres per distance tile of the plain version
 _PLAIN_BLOCK = 256
 
-# kernel launches since the last reset, forward and backward (chip_smoke.py
-# reads and resets them)
-launches = 0
-backward_launches = 0
 # what the last kernel launch was, as its C entry reports it: {"kernel":
 # "staged" (stripes staged in shared memory) or "warp" (a warp per centre),
 # "blocks", "centres_per_warp", "staged_whole" (the cloud staged once)}
@@ -67,10 +64,8 @@ last_launch = None
 # what the last backward launch was, as its C entry reports it: {"blocks",
 # "cluster" (blocks a cloud, a thread-block cluster above 1), "threads"}
 last_backward_launch = None
-# launches of the exact query's kernel since the last reset, and what the
-# last one was: {"blocks", "warps_per_block", "centres_per_warp",
+# what the exact query's last launch was: {"blocks", "warps_per_block", "centres_per_warp",
 # "tile_points" (points a stage holds), "stages" (tiles in flight)}
-exact_launches = 0
 last_exact_launch = None
 # test and ablation hook, as the JAX package's: None or "stripes" keep the
 # stripe rule, "exact" forces the exact query everywhere
@@ -158,7 +153,7 @@ def ball_query_exact(radius: float, nsample: int, xyz: torch.Tensor,
     returns (B, M, nsample) int32. On a CUDA tensor one launch of
     ``csrc/ball_query_exact.cu`` as ``exact_plan`` lays it out; on a CPU
     tensor ``ball_query_exact_plain``."""
-    global exact_launches, last_exact_launch
+    global last_exact_launch
     _check_clouds(xyz, new_xyz)
     if nsample < 1:
         raise ValueError(f"nsample must be positive, got {nsample}")
@@ -177,7 +172,7 @@ def ball_query_exact(radius: float, nsample: int, xyz: torch.Tensor,
         plan["centres_per_warp"], plan["groups"], record, cuda_lib.stream_handle(xyz.device))
     cuda_lib.check(rc, "bq_ball_query_exact")
     if record[0]:
-        exact_launches += 1
+        count("kernel/ball_query_exact")
         last_exact_launch = dict(blocks=record[0], warps_per_block=record[1],
                                  centres_per_warp=record[2], tile_points=record[3],
                                  stages=record[4])
@@ -272,7 +267,7 @@ class _BallQueryStripes(torch.autograd.Function):
 
 
 def _launch(radius, nsample, xyz, new_xyz, feats, centres_per_warp):
-    global launches, last_launch
+    global last_launch
     b, n, _ = xyz.shape
     m = new_xyz.shape[1]
     nf = 0 if feats is None else feats.shape[-1]
@@ -289,7 +284,7 @@ def _launch(radius, nsample, xyz, new_xyz, feats, centres_per_warp):
         b, n, m, nsample, stripes, np_padded // stripes, picks, nf, _r2(radius),
         centres_per_warp or 0, record, cuda_lib.stream_handle(dev))
     cuda_lib.check(rc, "bq_ball_query_stripes")
-    launches += 1
+    count("kernel/ball_query_stripes")
     last_launch = dict(kernel="staged" if record[0] else "warp", blocks=record[1],
                        centres_per_warp=record[2], staged_whole=bool(record[3]))
     return idx, rel, fout
@@ -307,7 +302,7 @@ def ball_query_stripes_backward(idx: torch.Tensor, g_rel: torch.Tensor,
     which zeroes the outputs itself and adds onto them (f32 reductions in
     an order that varies, so not bitwise repeatable); on a CPU tensor
     ``ball_query_stripes_backward_plain``."""
-    global backward_launches, last_backward_launch
+    global last_backward_launch
     b, m, s = idx.shape
     if tuple(g_rel.shape) != (b, m, s, 3) or (g_grouped is not None and (
             g_grouped.dim() != 4 or tuple(g_grouped.shape[:3]) != (b, m, s)
@@ -336,7 +331,7 @@ def ball_query_stripes_backward(idx: torch.Tensor, g_rel: torch.Tensor,
         plan["centres_per_block"], record, cuda_lib.stream_handle(idx.device))
     cuda_lib.check(rc, "bq_ball_query_backward")
     if record[0]:
-        backward_launches += 1
+        count("kernel/ball_query_backward")
         last_backward_launch = dict(blocks=record[0], cluster=record[1], threads=record[2])
     return g_xyz, g_center, g_feats
 

@@ -24,12 +24,11 @@ import ctypes
 import torch
 
 from bridgeqa_tpu_torch.ops import cuda_lib
+from bridgeqa_tpu_torch.utils.profiling import count
 
 PADDING_NORM_SQ = 1e-3
 INIT_DIST = 1e10
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
-launches = 0
 # (cluster size, clusters of that size the card holds at once) of the last
 # kernel launch
 last_cluster = None
@@ -43,7 +42,7 @@ def furthest_point_sample_with_xyz(xyz: torch.Tensor, npoint: int, *,
     coordinates are the NaN-scrubbed coordinates of each pick.
     ``cluster_size`` (2, 4, 8 or 16) sets the kernel's cluster size instead
     of its own choice, for the card tests and chip_smoke's sweep."""
-    global launches, last_cluster
+    global last_cluster
     if xyz.dim() != 3 or xyz.shape[-1] != 3:
         raise ValueError(f"xyz must be (B, N, 3), got {tuple(xyz.shape)}")
     b, n, _ = xyz.shape
@@ -63,7 +62,7 @@ def furthest_point_sample_with_xyz(xyz: torch.Tensor, npoint: int, *,
                                ctypes.byref(size), ctypes.byref(coresident),
                                cuda_lib.stream_handle(xyz.device))
     cuda_lib.check(rc, "bq_fps")
-    launches += 1
+    count("kernel/fps")
     last_cluster = (size.value, coresident.value)
     if torch.is_grad_enabled() and xyz.requires_grad:
         # the same values, in the graph

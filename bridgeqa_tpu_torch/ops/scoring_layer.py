@@ -17,11 +17,11 @@ so here the layer is eleven launches of three hand-written kernels:
   and LayerNorms (and the ViT block's LayerNorms: without a residual, or
   keeping the sum).
 
-On a CUDA tensor each wrapper launches its kernel and counts the launch in
-``launches``; on a CPU tensor it runs its ``*_plain`` version. There is no
-fallback: a CUDA tensor the kernel does not take raises, and so does one
-that wants a gradient (the kernels have no backward; the model takes the
-fused path only without grad).
+On a CUDA tensor each wrapper launches its kernel and counts the launch
+(the counter ``kernel/<kernel>``); on a CPU tensor it runs its ``*_plain``
+version. There is no fallback: a CUDA tensor the kernel does not take
+raises, and so does one that wants a gradient (the kernels have no
+backward; the model takes the fused path only without grad).
 
 Numerics, the Pallas kernel's: every product takes working-type inputs,
 accumulates in f32, adds an f32 bias and rounds once; the residual sum is
@@ -45,6 +45,7 @@ import torch
 
 from bridgeqa_tpu_torch.models.layers import param_as
 from bridgeqa_tpu_torch.ops import cuda_lib
+from bridgeqa_tpu_torch.utils.profiling import count
 
 NEG = -1e9
 # longest answer a self-attention block holds whole (kTileRows in the kernel)
@@ -54,8 +55,6 @@ _MAX_SMEM = 232448
 # question keys the f32 tensor-core attention holds whole (kF32CrossKeys)
 _F32_MAX_KEYS = 128
 
-# kernel launches since the last reset (chip_smoke.py reads and resets them)
-launches = {"scoring_gemm": 0, "scoring_attention": 0, "scoring_layernorm": 0}
 # launches of each kernel that one ``scoring_layer`` call makes
 LAUNCHES_PER_LAYER = {"scoring_gemm": 6, "scoring_attention": 2, "scoring_layernorm": 3}
 # the fields of an attention launch as the C entry reports them (kLaunchFields
@@ -79,7 +78,7 @@ def _attention(device: torch.device, *args) -> None:
     record = (ctypes.c_int * len(ATTENTION_LAUNCH_FIELDS))()
     rc = cuda_lib.lib().bq_scoring_attention(*args, record, cuda_lib.stream_handle(device))
     cuda_lib.check(rc, "bq_scoring_attention")
-    launches["scoring_attention"] += 1
+    count("kernel/scoring_attention")
     last_attention_launch = dict(zip(ATTENTION_LAUNCH_FIELDS, record))
 
 
@@ -128,7 +127,7 @@ def scoring_gemm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gelu: bool =
         y.data_ptr(), m, n, k, int(gelu), cuda_lib.DTYPE_CODES[x.dtype],
         cuda_lib.stream_handle(x.device))
     cuda_lib.check(rc, "bq_scoring_gemm")
-    launches["scoring_gemm"] += 1
+    count("kernel/scoring_gemm")
     return y
 
 
@@ -266,7 +265,7 @@ def add_layernorm(a: torch.Tensor, r: torch.Tensor | None, scale: torch.Tensor,
         out.data_ptr(), None if total is None else total.data_ptr(), a.shape[0], a.shape[1], eps,
         cuda_lib.DTYPE_CODES[a.dtype], cuda_lib.stream_handle(a.device))
     cuda_lib.check(rc, "bq_scoring_layernorm")
-    launches["scoring_layernorm"] += 1
+    count("kernel/scoring_layernorm")
     return (total, out) if keep_sum else out
 
 

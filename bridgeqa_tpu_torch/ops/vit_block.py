@@ -54,6 +54,7 @@ import torch
 
 from bridgeqa_tpu_torch.models.layers import param_as
 from bridgeqa_tpu_torch.ops import cuda_lib
+from bridgeqa_tpu_torch.utils.profiling import count
 from bridgeqa_tpu_torch.ops.scoring_layer import (
     _attend_plain,
     add_layernorm,
@@ -68,9 +69,6 @@ FUSED_MODE = "auto"
 # the head width the attention kernel takes
 HEAD_DIM = 64
 
-# launches of the attention kernel since the last reset (chip_smoke.py reads
-# and resets it)
-launches = 0
 # launches of each kernel that one ``vit_block`` call makes (the model's
 # final LayerNorm adds one ``scoring_layernorm`` launch per forward)
 LAUNCHES_PER_BLOCK = {"scoring_gemm": 4, "vit_attention": 1, "scoring_layernorm": 2}
@@ -106,7 +104,6 @@ def use_fused(embed_dim: int, heads: int, mlp_dim: int, device: torch.device) ->
 def vit_attention(qkv: torch.Tensor, *, heads: int) -> torch.Tensor:
     """Softmax attention over all N tokens of each image: qkv (B, N, 3H),
     [queries | keys | values] along each row; returns the context (B, N, H)."""
-    global launches
     if qkv.dim() != 3 or qkv.shape[2] % (3 * heads):
         raise ValueError(f"vit_attention: qkv {tuple(qkv.shape)}, heads {heads}")
     if qkv.device.type == "cpu":
@@ -122,7 +119,7 @@ def vit_attention(qkv: torch.Tensor, *, heads: int) -> torch.Tensor:
                                          1.0 / math.sqrt(HEAD_DIM), cuda_lib.DTYPE_CODES[qkv.dtype],
                                          cuda_lib.stream_handle(qkv.device))
     cuda_lib.check(rc, "bq_vit_attention")
-    launches += 1
+    count("kernel/vit_attention")
     return out
 
 

@@ -20,6 +20,7 @@ Loss combine (``label_smoothed_loss_streaming``, O(rows), plain torch):
 import torch
 
 from bridgeqa_tpu_torch.ops import cuda_lib
+from bridgeqa_tpu_torch.utils.profiling import count
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # vocabulary words (and rows) per tile of the kernel, in either type
@@ -30,9 +31,6 @@ _TILE = 128
 _F32_LEVEL = 1.01
 # rows per block of the plain version
 _PLAIN_ROWS = 2048
-
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
-launches = 0
 
 
 def _splits(rows: int, vocab: int, dtype: torch.dtype, device: torch.device) -> tuple[int, int]:
@@ -68,7 +66,6 @@ def lm_vocab_reductions(h: torch.Tensor, table: torch.Tensor, bias: torch.Tensor
     (R,) f32 tensors. ``split`` = (runs, tiles per run, even for bf16) sets
     how the kernel cuts the vocabulary instead of ``_splits``, for the card
     tests (a run may lie wholly past the vocabulary)."""
-    global launches
     r, hdim = h.shape
     v = table.shape[0]
     if table.shape != (v, hdim) or bias.shape != (v,) or labels.shape != (r,):
@@ -104,7 +101,7 @@ def lm_vocab_reductions(h: torch.Tensor, table: torch.Tensor, bias: torch.Tensor
         lse.data_ptr(), sumlog.data_ptr(), tgt.data_ptr(), r, v, hdim, splits, per,
         _DTYPE_CODES[h.dtype], cuda_lib.stream_handle(h.device))
     cuda_lib.check(rc, "bq_vocab_reductions")
-    launches += 1
+    count("kernel/vocab_loss")
     return lse, sumlog, tgt
 
 

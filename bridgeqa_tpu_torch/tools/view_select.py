@@ -14,6 +14,13 @@ host with numpy's ``argsort(-sims, axis=1)``, as in JAX
 (``tools/view_select.py:87``), so ties resolve alike. The JAX
 ``make_encoders`` (two jitted closures) has no counterpart: the model's
 methods are called directly.
+
+Spans (``utils/profiling.py``): ``scene`` (one scene), ``images`` and
+``texts`` (each tower's batches), and under them ``prepare`` (the host's
+copies and padding), ``upload``, ``encode`` and ``readback``; ``tokenize``;
+``rank`` (the similarities, the sort and the two dicts). Counters:
+``views/frames`` (a scene's frames) and ``views/frames_encoded`` (the rows
+the image tower ran, padding included, counted as they are encoded).
 """
 
 import json
@@ -21,6 +28,8 @@ import os
 
 import numpy as np
 import torch
+
+from bridgeqa_tpu_torch.utils.profiling import count, span
 
 
 def _pad_batch(arr, batch: int):
@@ -33,19 +42,27 @@ def _pad_batch(arr, batch: int):
     return arr, n
 
 
-def encode_in_batches(encode_fn, arrays, batch: int, device):
+def encode_in_batches(encode_fn, arrays, batch: int, device, *, counter=None):
     """Apply ``encode_fn`` over padded fixed-size batches of the numpy
     ``arrays``, each batch moved to ``device``, without grad; returns the
-    (N, D) numpy result."""
-    padded, n = _pad_batch(arrays[0], batch)
-    rest = [_pad_batch(a, batch)[0] for a in arrays[1:]]
+    (N, D) numpy result. ``counter``, if given, counts the rows encoded."""
+    with span("prepare"):
+        padded, n = _pad_batch(arrays[0], batch)
+        rest = [_pad_batch(a, batch)[0] for a in arrays[1:]]
     outs = []
     with torch.no_grad():
         for i in range(0, padded.shape[0], batch):
-            chunk = [padded[i:i + batch]] + [r[i:i + batch] for r in rest]
-            out = encode_fn(*[torch.from_numpy(np.ascontiguousarray(c)).to(device)
-                              for c in chunk])
-            outs.append(out.cpu().numpy())
+            with span("prepare"):
+                chunk = [np.ascontiguousarray(c)
+                         for c in [padded[i:i + batch]] + [r[i:i + batch] for r in rest]]
+            with span("upload"):
+                inputs = [torch.from_numpy(c).to(device) for c in chunk]
+            with span("encode"):
+                out = encode_fn(*inputs)
+            if counter is not None:
+                count(counter, inputs[0].shape[0])
+            with span("readback"):
+                outs.append(out.cpu().numpy())
     return np.concatenate(outs)[:n]
 
 
@@ -65,23 +82,31 @@ def select_best_views(model, records, tokenizer, load_scene_frames, *, decl_map=
 
     view_map, score_map = {}, {}
     for scene_id, recs in by_scene.items():
-        names, images = load_scene_frames(scene_id)
-        img_feat = encode_in_batches(model.encode_images, [images.astype(np.float32)],
-                                     image_batch, device)
+        with span("scene"):
+            names, images = load_scene_frames(scene_id)
+            with span("images"):
+                with span("prepare"):
+                    images = images.astype(np.float32)
+                img_feat = encode_in_batches(model.encode_images, [images], image_batch, device,
+                                             counter="views/frames_encoded")
+            count("views/frames", images.shape[0])
 
-        texts = []
-        for rec in recs:
-            qid = str(rec["question_id"])
-            texts.append((decl_map or {}).get(qid, rec["question"]))
-        ids, mask = tokenizer.encode_batch(texts, text_len)
-        txt_feat = encode_in_batches(model.encode_texts, [ids, mask], text_batch, device)
+            texts = []
+            for rec in recs:
+                qid = str(rec["question_id"])
+                texts.append((decl_map or {}).get(qid, rec["question"]))
+            with span("tokenize"):
+                ids, mask = tokenizer.encode_batch(texts, text_len)
+            with span("texts"):
+                txt_feat = encode_in_batches(model.encode_texts, [ids, mask], text_batch, device)
 
-        sims = txt_feat @ img_feat.T  # (num_questions, num_frames)
-        order = np.argsort(-sims, axis=1)
-        for r, rec in enumerate(recs):
-            qid = str(rec["question_id"])
-            view_map[qid] = [names[j] for j in order[r]]
-            score_map[qid] = sims[r, order[r]].tolist()
+            with span("rank"):
+                sims = txt_feat @ img_feat.T  # (num_questions, num_frames)
+                order = np.argsort(-sims, axis=1)
+                for r, rec in enumerate(recs):
+                    qid = str(rec["question_id"])
+                    view_map[qid] = [names[j] for j in order[r]]
+                    score_map[qid] = sims[r, order[r]].tolist()
     return {"view": view_map, "itm_scores": score_map}
 
 

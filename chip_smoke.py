@@ -1456,26 +1456,22 @@ def tiny_config():
                           mcan_num_layers=1, input_feature_dim=1)
 
 
-def reset_launches() -> None:
-    from bridgeqa_tpu_torch.ops import gather, grouping, sampling, scoring_layer, vit_block
-    from bridgeqa_tpu_torch.ops import vocab_loss
+# the hand-written kernels, each counted by the program as ``kernel/<name>``
+KERNELS = ("fps", "ball_query_stripes", "scoring_gemm", "scoring_attention", "scoring_layernorm",
+           "vocab_loss", "vit_attention", "gather_rows", "ball_query_backward", "ball_query_exact")
 
-    sampling.launches = grouping.launches = vocab_loss.launches = 0
-    vit_block.launches = gather.launches = grouping.backward_launches = 0
-    grouping.exact_launches = 0
-    for name in scoring_layer.launches:
-        scoring_layer.launches[name] = 0
+
+def reset_launches() -> None:
+    from bridgeqa_tpu_torch.utils import profiling
+
+    profiling.reset_counts()
 
 
 def read_launches() -> dict:
-    from bridgeqa_tpu_torch.ops import gather, grouping, sampling, scoring_layer, vit_block
-    from bridgeqa_tpu_torch.ops import vocab_loss
+    from bridgeqa_tpu_torch.utils import profiling
 
-    return {"fps": sampling.launches, "ball_query_stripes": grouping.launches,
-            **scoring_layer.launches, "vocab_loss": vocab_loss.launches,
-            "vit_attention": vit_block.launches, "gather_rows": gather.launches,
-            "ball_query_backward": grouping.backward_launches,
-            "ball_query_exact": grouping.exact_launches}
+    counted = profiling.counts()
+    return {name: counted[f"kernel/{name}"] for name in KERNELS}
 
 
 # kernels no path runs: checked in phase 3 only
@@ -2573,9 +2569,9 @@ def phase_train_kernels(device, batch: int = TRAIN_BATCH, reps: int = 20):
         stripes = ns // picks
         g_rel = torch.randn(batch, m, ns, 3, device=device)
         g_grouped = torch.randn(batch, m, ns, nf, device=device) if nf else None
-        before = grouping.backward_launches
+        before = read_launches()["ball_query_backward"]
         got = grouping.ball_query_stripes_backward(idx, g_rel, g_grouped, n)
-        launched = grouping.backward_launches - before
+        launched = read_launches()["ball_query_backward"] - before
         launch = dict(grouping.last_backward_launch)
         want = grouping.ball_query_stripes_backward_plain(idx, g_rel, g_grouped, n)
         torch.cuda.synchronize()

@@ -82,6 +82,7 @@ import pytest
 import torch
 
 from bridgeqa_tpu_torch.ops import gather, grouping, sampling, scoring_layer, vit_block, vocab_loss
+from bridgeqa_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -91,6 +92,15 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
     return torch.device("cuda", 0)
+
+
+SCORING_KERNELS = ("scoring_gemm", "scoring_attention", "scoring_layernorm")
+
+
+def _launches(kernel: str) -> int:
+    """Launches of a hand-written kernel so far, from the program's counter
+    ``kernel/<kernel>``."""
+    return profiling.counts()[f"kernel/{kernel}"]
 
 
 def _cloud(rng, b, n, scale=2.0):
@@ -109,9 +119,9 @@ def test_fps_kernel_matches_plain(card, n, npoint):
     xyz[2, 0] = [0.2, np.nan, 0.0]  # NaN in the first pick
     xyz[3] = 0.0  # all padding
     t = torch.from_numpy(xyz).to(card)
-    before = sampling.launches
+    before = _launches("fps")
     idx, coords = sampling.furthest_point_sample_with_xyz(t, npoint)
-    assert sampling.launches == before + 1
+    assert _launches("fps") == before + 1
     pidx, pcoords = sampling.fps_plain(t, npoint)
     torch.cuda.synchronize()
     assert torch.equal(idx, pidx)
@@ -140,9 +150,9 @@ def _fps_cloud(rng, b, n):
 
 
 def _fps_matches_plain(xyz, npoint, **kw):
-    before = sampling.launches
+    before = _launches("fps")
     idx, coords = sampling.furthest_point_sample_with_xyz(xyz, npoint, **kw)
-    assert sampling.launches == before + 1
+    assert _launches("fps") == before + 1
     pidx, pcoords = sampling.fps_plain(xyz, npoint)
     torch.cuda.synchronize()
     assert torch.equal(idx, pidx)
@@ -219,9 +229,9 @@ def test_ball_query_kernel_matches_plain(card, n, nsample, nf):
     ctr[:, :4] += 10.0  # empty balls
     feats = torch.from_numpy(rng.randn(3, n, nf).astype(np.float32)).to(card) if nf else None
     args = (0.35, nsample, torch.from_numpy(xyz).to(card), torch.from_numpy(ctr).to(card), feats)
-    before = grouping.launches
+    before = _launches("ball_query_stripes")
     out = grouping.ball_query_stripes(*args)
-    assert grouping.launches == before + 1
+    assert _launches("ball_query_stripes") == before + 1
     ref = grouping.ball_query_stripes_plain(*args)
     torch.cuda.synchronize()
     for got, want in zip(out, ref):
@@ -232,9 +242,9 @@ def test_ball_query_kernel_matches_plain(card, n, nsample, nf):
 def _ball_query_matches_plain(card, radius, nsample, xyz, ctr, feats, centres_per_warp=None):
     args = (radius, nsample, torch.from_numpy(xyz).to(card), torch.from_numpy(ctr).to(card),
             None if feats is None else torch.from_numpy(feats).to(card))
-    before = grouping.launches
+    before = _launches("ball_query_stripes")
     out = grouping.ball_query_stripes(*args, centres_per_warp=centres_per_warp)
-    assert grouping.launches == before + 1
+    assert _launches("ball_query_stripes") == before + 1
     ref = grouping.ball_query_stripes_plain(*args)
     torch.cuda.synchronize()
     for got, want in zip(out, ref):
@@ -349,9 +359,9 @@ def _assert_close(got, want, what):
 
 
 def _counted(name, fn):
-    before = dict(scoring_layer.launches)
+    before = _launches(name)
     out = fn()
-    assert scoring_layer.launches[name] == before[name] + 1
+    assert _launches(name) == before + 1
     return out
 
 
@@ -485,9 +495,9 @@ def test_vocab_reductions_match_plain(card, dtype, rows, vocab, hdim):
     table = _randn(rng, vocab, hdim, scale=0.05, dtype=dtype, device=card)
     bias = _randn(rng, vocab, scale=0.1, device=card)
     labels = torch.from_numpy(rng.randint(0, vocab, rows).astype(np.int32)).to(card)
-    before = vocab_loss.launches
+    before = _launches("vocab_loss")
     got = vocab_loss.lm_vocab_reductions(h, table, bias, labels)
-    assert vocab_loss.launches == before + 1
+    assert _launches("vocab_loss") == before + 1
     want = vocab_loss.lm_vocab_reductions_plain(h, table, bias, labels)
     for name, a, b in zip(("lse", "sum_logits", "target_logit"), got, want):
         err = float((a - b).abs().max())
@@ -495,9 +505,9 @@ def test_vocab_reductions_match_plain(card, dtype, rows, vocab, hdim):
 
 
 def _vocab_check(h, table, bias, labels, **kw):
-    before = vocab_loss.launches
+    before = _launches("vocab_loss")
     got = vocab_loss.lm_vocab_reductions(h, table, bias, labels, **kw)
-    assert vocab_loss.launches == before + 1
+    assert _launches("vocab_loss") == before + 1
     want = vocab_loss.lm_vocab_reductions_plain(h, table, bias, labels)
     for name, a, b in zip(("lse", "sum_logits", "target_logit"), got, want):
         err = float((a - b).abs().max())
@@ -594,12 +604,12 @@ def test_backward_through_the_rank_slice(card, monkeypatch):
                  question_mask=np.ones((2, 12), np.int32), answer_list_ids=answers,
                  answer_list_mask=np.ones((30, 5), np.int32))
     batch = {k: torch.from_numpy(v).to(card) for k, v in batch.items()}
-    before = (dict(scoring_layer.launches), vit_block.launches, vocab_loss.launches)
+    before = [_launches(k) for k in SCORING_KERNELS + ("vit_attention", "vocab_loss")]
     with torch.enable_grad():
         out = model(batch, inference="rank", k_test=8)
         scored = out["answer_scores_2d"] != -1e4
         (out["answer_scores_2d"][scored].sum() + out["answer_scores_scene"][scored].sum()).backward()
-    assert (dict(scoring_layer.launches), vit_block.launches, vocab_loss.launches) == before
+    assert [_launches(k) for k in SCORING_KERNELS + ("vit_attention", "vocab_loss")] == before
     params = dict(model.named_parameters())
     for name in ("blip_model.visual_encoder.blocks_0.attn.qkv.weight",
                  "blip_model.text_decoder.bert.encoder.layer_0.crossattention.self.query.weight",
@@ -747,9 +757,9 @@ def test_vit_attention_matches_plain(card, dtype, n):
     rng = np.random.RandomState(n)
     b, heads = 2, 3
     qkv = _randn(rng, b, n, 3 * heads * vit_block.HEAD_DIM, dtype=dtype, device=card)
-    before = vit_block.launches
+    before = _launches("vit_attention")
     got = vit_block.vit_attention(qkv, heads=heads)
-    assert vit_block.launches == before + 1
+    assert _launches("vit_attention") == before + 1
     _assert_close(got, vit_block.vit_attention_plain(qkv, heads=heads), f"vit attention, n {n}")
     if n == 1:  # one key: the context is its value
         assert torch.equal(got, qkv[..., 2 * heads * vit_block.HEAD_DIM:])
@@ -969,9 +979,9 @@ def test_gather_rows_matches_torch_gather(card, dtype, n, c, r):
     rng = np.random.RandomState(n + c)
     table = _randn(rng, 3, n, c, dtype=dtype, device=card)
     idx = torch.from_numpy(rng.randint(0, n, (3, r)).astype(np.int32)).to(card)
-    before = gather.launches
+    before = _launches("gather_rows")
     got = gather.gather_rows(table, idx)
-    assert gather.launches == before + 1
+    assert _launches("gather_rows") == before + 1
     assert torch.equal(got, gather.gather_rows_plain(table, idx))
     one = gather.gather_rows(table[1], idx[1].long())
     assert torch.equal(one, table[1][idx[1].long()])
@@ -1015,9 +1025,9 @@ def test_gather_rows_bitwise_at_every_width_and_offset(card, dtype, c):
     kernel = "groups" if c * es <= 64 else "rows" if c * es < 528 else "long rows"
     lanes = 16 if 64 < c * es < 272 else 32 if c * es > 64 else None
     for t in (table, shifted):
-        before = gather.launches
+        before = _launches("gather_rows")
         got = gather.gather_rows(t, idx)
-        assert gather.launches == before + 1 and gather.last_plan["kernel"] == kernel
+        assert _launches("gather_rows") == before + 1 and gather.last_plan["kernel"] == kernel
         assert lanes is None or gather.last_plan["lanes_per_row"] == lanes
         assert torch.equal(_bits(got), _bits(want))
         one = gather.gather_rows(t[2], idx[2].long())
@@ -1098,17 +1108,19 @@ def test_generate_on_the_card_matches_the_cpu(card, monkeypatch):
         monkeypatch.setattr(vit_block, "FUSED_MODE", "force")
         want = cpu_model(batch, **kw)
         monkeypatch.setattr(vit_block, "FUSED_MODE", "auto")
-        before = (dict(scoring_layer.launches), vit_block.launches, vocab_loss.launches,
-                  sampling.launches, grouping.launches)
+        before = profiling.counts()
         got = card_model({k: v.to(card) for k, v in batch.items()}, **kw)
         torch.cuda.synchronize()
     assert torch.equal(got["generated_ids"].cpu(), want["generated_ids"])
     for key in ("lang_scores", "cluster_ref"):
         _assert_close(got[key].cpu(), want[key], key)
-    assert scoring_layer.launches["scoring_attention"] == before[0]["scoring_attention"]
-    assert scoring_layer.launches["scoring_gemm"] > before[0]["scoring_gemm"]
-    assert vit_block.launches > before[1] and vocab_loss.launches == before[2]
-    assert sampling.launches > before[3] and grouping.launches > before[4]
+    after = profiling.counts()
+    assert after["kernel/scoring_attention"] == before["kernel/scoring_attention"]
+    assert after["kernel/scoring_gemm"] > before["kernel/scoring_gemm"]
+    assert after["kernel/vit_attention"] > before["kernel/vit_attention"]
+    assert after["kernel/vocab_loss"] == before["kernel/vocab_loss"]
+    assert after["kernel/fps"] > before["kernel/fps"]
+    assert after["kernel/ball_query_stripes"] > before["kernel/ball_query_stripes"]
 
 
 def test_bf16_decode_step_matches_f32(card):
@@ -1207,9 +1219,9 @@ def test_ball_query_backward_kernel_matches_plain(card, n, m, nsample, nf, k):
     assert bool((idx[:, :4] == 0).all())
     g_rel = torch.randn(3, m, nsample, 3, device=card)
     g_grouped = torch.randn(3, m, nsample, nf, device=card) if nf else None
-    before = grouping.backward_launches
+    before = _launches("ball_query_backward")
     got = grouping.ball_query_stripes_backward(idx, g_rel, g_grouped, n)
-    assert grouping.backward_launches == before + 1
+    assert _launches("ball_query_backward") == before + 1
     plan = grouping.backward_plan(3, n, m, nsample)
     assert plan["blocks_per_cloud"] == k
     assert grouping.last_backward_launch == dict(blocks=3 * k, cluster=k,
@@ -1335,9 +1347,9 @@ def test_ball_query_exact_kernel_matches_plain(card, n, m, nsample, radius, b):
     ctr[:, 0] = [0.25, 0.0, 0.0]
     ctr[:, 3:5] += 100.0  # empty balls
     args = (radius, nsample, torch.from_numpy(xyz).to(card), torch.from_numpy(ctr).to(card))
-    before = grouping.exact_launches
+    before = _launches("ball_query_exact")
     idx = grouping.ball_query_exact(*args)
-    assert grouping.exact_launches == before + 1
+    assert _launches("ball_query_exact") == before + 1
     plan = grouping.exact_plan(b, m, grouping._sms(card))
     assert grouping.last_exact_launch == dict(
         blocks=plan["blocks"], warps_per_block=plan["warps_per_block"],
@@ -1388,10 +1400,11 @@ def test_exact_sa_module_gradients_match_the_cpu(card, monkeypatch):
         module.train()
         x = xyz.to(dev).detach().requires_grad_()
         f = feats.to(dev).detach().requires_grad_()
-        before = grouping.exact_launches, grouping.launches
+        before = _launches("ball_query_exact"), _launches("ball_query_stripes")
         _, out, _ = module(x, f)
         out.square().sum().backward()
-        launched = (grouping.exact_launches - before[0], grouping.launches - before[1])
+        launched = (_launches("ball_query_exact") - before[0],
+                    _launches("ball_query_stripes") - before[1])
         assert launched == ((1, 0) if dev == card else (0, 0)), launched
         grads = [x.grad, f.grad] + [p.grad for p in module.parameters()]
         results.append([out.detach().cpu()] + [g.detach().cpu() for g in grads])
@@ -1455,10 +1468,10 @@ def test_train_step_on_the_card_matches_the_cpu(card):
         ref_obj_mask=np.ones((b,), np.float32), object_cat=rng.randint(0, 18, (b,)))
     batch = {k: torch.from_numpy(v).double() if v.dtype.kind == "f" else torch.from_numpy(v)
              for k, v in batch.items()}
-    before = (sampling.launches, grouping.launches, grouping.backward_launches)
+    before = [_launches(k) for k in ("fps", "ball_query_stripes", "ball_query_backward")]
     want = train_step(cpu, build_optimizer(cpu), batch)
     got = train_step(gpu, build_optimizer(gpu), {k: v.to(card) for k, v in batch.items()})
-    after = (sampling.launches, grouping.launches, grouping.backward_launches)
+    after = [_launches(k) for k in ("fps", "ball_query_stripes", "ball_query_backward")]
     assert [a - b0 for a, b0 in zip(after, before)] == [5, 5, 1]
     for key in ("loss", "vote_loss", "objectness_loss", "box_loss", "answer_loss"):
         assert abs(float(got[key]) - float(want[key])) <= 1e-4 * abs(float(want[key])), key

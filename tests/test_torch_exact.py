@@ -29,6 +29,7 @@ from bridgeqa_tpu_torch.convert import load_jax_variables
 from bridgeqa_tpu_torch.models import pointnet2
 from bridgeqa_tpu_torch.models.detector import VoteNetDetector
 from bridgeqa_tpu_torch.ops import grouping
+from bridgeqa_tpu_torch.utils import profiling
 from tests.test_torch_detector import KW, _with_height
 from tests.synthetic import make_batch
 
@@ -61,11 +62,12 @@ def test_exact_plain_matches_jax_bitwise(case):
     b, n, m, ns, r = case
     xyz, ctr = _clouds(np.random.RandomState(n + ns), b, n, m)
     want = np.asarray(jgrouping._ball_query_exact(r, ns, jnp.asarray(xyz), jnp.asarray(ctr)))
-    before = grouping.exact_launches
+    before = profiling.counts()["kernel/ball_query_exact"]
     got = grouping.ball_query_exact(r, ns, _t(xyz), _t(ctr))
     assert got.dtype == torch.int32 and got.shape == (b, m, ns)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert grouping.exact_launches == before  # the CPU runs the plain version
+    # the CPU runs the plain version
+    assert profiling.counts()["kernel/ball_query_exact"] == before
     assert (want[:, :2] == 0).all()  # the empty balls
 
 
@@ -163,10 +165,11 @@ def test_sa_module_with_odd_nsample_matches_jax(monkeypatch):
     jxyz, jfeat, jinds = jmodule.apply(variables, *args, train=False)
     module = load_jax_variables(pointnet2.PointnetSAModuleVotes(5, [16, 24], 64, 0.3, 7),
                                 variables).eval()
-    before = grouping.exact_launches, grouping.launches
+    kernels = ("kernel/ball_query_exact", "kernel/ball_query_stripes")
+    before = [profiling.counts()[k] for k in kernels]
     with torch.no_grad():
         new_xyz, new_feat, inds = module(_t(xyz), _t(feats))
-    assert (grouping.exact_launches, grouping.launches) == before
+    assert [profiling.counts()[k] for k in kernels] == before
     np.testing.assert_array_equal(inds.numpy(), np.asarray(jinds))
     np.testing.assert_array_equal(new_xyz.numpy(), np.asarray(jxyz))
     np.testing.assert_allclose(new_feat.numpy(), np.asarray(jfeat), atol=1e-4, rtol=0)
