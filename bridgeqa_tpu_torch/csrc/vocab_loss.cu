@@ -29,18 +29,22 @@
 // The number of runs is chosen so the units fill the card's blocks in whole
 // waves. A second, O(rows) kernel merges the partials and takes the log.
 //
-// The f32 instantiation (the drivers' default f32 predict and eval run it):
+// The f32 kernels (the drivers' default f32 predict and eval run them):
 // 2.11e12 FLOP a forward (two passes), 31.5 ms at the CUDA cores' 67 TFLOP/s
-// and 12.8 ms for three TF32 passes at 495. The product runs on the 3xTF32
-// main loop of tile_gemm.cuh (the f32 products' own: 128 x 128 tiles, 8
-// warps of 64 x 32, a 4-stage cp.async ring, float2 fragment reads, numerics
-// there), one block an SM. The epilogue folds each tile's logits, still in
-// the accumulators, into (max, sum of exp, sum of logits, target logit) per
-// row as the bf16 kernel's does: a thread holds 8 rows and 8 columns of each
-// tile. A unit is (128-row panel, run of tiles), one block each, numbered
-// run-major as the bf16 units; at the run's end the quad's four threads
-// merge by shuffles and the four column warps through shared memory, and
-// one float4 partial per row goes out.
+// and 12.8 ms for three TF32 passes at 495. Where the width is a multiple of
+// 4 and h and the table are 16-byte aligned (the main path's 768),
+// vocab_f32_kernel_wgmma: the product on tile_gemm.cuh's tf32_mainloop (the
+// f32 products' own: TMA, W split once a stage in shared memory, two
+// consumer warpgroups on wgmma .tf32 sharing each 128 x 128 tile; numerics
+// there), a persistent grid of one block per SM walking the units run-major
+// as the bf16 kernel does, each block all tiles of a unit. The epilogue folds
+// each tile's logits, still in the step sums, into (max, sum of exp, sum of
+// logits, target logit) per row with the bf16 kernel's fold_row: a thread
+// holds 2 rows and 32 columns of each tile, and at the run's end the quad's
+// four threads merge by shuffles and one float4 partial per row goes out.
+// Elsewhere vocab_f32_kernel, one block a unit on tile_gemm.cuh's mma.sync
+// loop (a thread holds 8 rows and 8 columns of a tile; the four column warps
+// merge through shared memory at the run's end).
 
 #include "smem_attribute.cuh"
 #include "tile_gemm.cuh"
@@ -215,19 +219,95 @@ vocab_wgmma_kernel(const __grid_constant__ CUtensorMap map_h,
   }
 }
 
-// Blocks of vocab_f32_kernel an SM holds (its launch bound). The
-// accumulator's 64 floats and eight row stats' 32 live across the main loop:
-// at two blocks an SM (128 registers) ~1 KB a thread spills, at one (254
-// registers) nothing, and one block measured 2% faster on the H100
-// (f32_variants.py; PERF.md).
-constexpr int kF32Blocks = 1;
+// h (rows, hdim) and the table (vocab, hdim), f32, through their TMA maps;
+// the vocabulary cut into runs of per_run 128-word tiles; unit u is run
+// u / panels, panel u % panels; partial (runs, rows) float4.
+__global__ void __launch_bounds__(tile::TF32Config::THREADS, 1)
+vocab_f32_kernel_wgmma(const __grid_constant__ CUtensorMap map_h,
+                       const __grid_constant__ CUtensorMap map_t, const float* __restrict__ bias,
+                       const int* __restrict__ labels, float4* __restrict__ partial, int rows,
+                       int vocab, int hdim, int runs, int per_run) {
+  using C = tile::TF32Config;
+  extern __shared__ unsigned char smem_raw[];
+  const tile::TF32Ring ring = wg::setup<C>(smem_raw);
+  const int panels = (rows + C::BM - 1) / C::BM;
+  const int grid = gridDim.x;
+  const int count = (panels * runs - blockIdx.x + grid - 1) / grid * per_run;  // the block's tiles
+  const int ktiles = (hdim + C::BK - 1) / C::BK;
+  // the block's j-th tile: tile j % per_run of its unit blockIdx.x + (j /
+  // per_run) grid
+  auto unit_of = [&](int j) { return blockIdx.x + j / per_run * grid; };
+  auto tile_at = [&](int j) {
+    const int u = unit_of(j);
+    return make_int2(u % panels * C::BM, (u / panels * per_run + j % per_run) * C::BN);
+  };
 
-// h (rows, hdim) and the table (vocab, hdim), f32; the vocabulary cut into
-// runs of per_run 128-word tiles; block u is unit u: run u / panels, panel
-// u % panels (run-major, so the blocks in flight share one run of the
-// table in L2); partial (runs, rows) float4.
-template <bool kVec>
-__global__ void __launch_bounds__(tile::kF32Threads, kF32Blocks)
+  if (threadIdx.x / 128 == 0) {
+    wg::produce(ring, &map_h, &map_t, count, ktiles, tile_at);
+    if (threadIdx.x >= 32) tile::tf32_split(ring, count * ktiles);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int me = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int r = me * 64 + warp * 16 + lane / 4;  // this thread's rows: r, r + 8
+  float sum[64];
+  Stat st[2];
+  int lab[2];
+  for (int j = 0; j < count; ++j) {
+    const int2 tile = tile_at(j);
+    const int row0 = tile.x, col0 = tile.y, t = j % per_run;
+    if (t == 0) {  // the unit's first tile
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = row0 + r + 8 * i;
+        lab[i] = row < rows ? labels[row] : -1;
+        st[i] = stat_init();
+      }
+    }
+    tile::tf32_mainloop(ring, j, ktiles, me, sum);
+    if (col0 < vocab) {  // else the tile lies wholly past the vocabulary
+      const int cb = col0 + (lane % 4) * 2;  // this thread's columns: cb + 8 c + q
+#pragma unroll
+      for (int c = 0; c < C::BN / 8; ++c) {
+        const int col = cb + 8 * c;
+        const float b0 = col < vocab ? __ldg(bias + col) : 0.0f;
+        const float b1 = col + 1 < vocab ? __ldg(bias + col + 1) : 0.0f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) sum[4 * c + q] += q % 2 ? b1 : b0;
+      }
+      if (col0 + C::BN <= vocab) {
+        fold_row<0, false>(st[0], sum, cb, vocab, lab[0]);
+        fold_row<2, false>(st[1], sum, cb, vocab, lab[1]);
+      } else {
+        fold_row<0, true>(st[0], sum, cb, vocab, lab[0]);
+        fold_row<2, true>(st[1], sum, cb, vocab, lab[1]);
+      }
+    }
+    if (t + 1 == per_run) {  // the unit's last tile
+      const int run = unit_of(j) / panels;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {  // the quad shares the row
+          const Stat o{__shfl_xor_sync(0xffffffffu, st[i].m, off),
+                       __shfl_xor_sync(0xffffffffu, st[i].s, off),
+                       __shfl_xor_sync(0xffffffffu, st[i].sum, off),
+                       __shfl_xor_sync(0xffffffffu, st[i].tgt, off)};
+          merge(st[i], o);
+        }
+        const int row = row0 + r + 8 * i;
+        if (lane % 4 == 0 && row < rows)
+          partial[static_cast<size_t>(run) * rows + row] =
+              make_float4(st[i].m, st[i].s, st[i].sum, st[i].tgt);
+      }
+    }
+  }
+}
+
+// The mma.sync route, any width and alignment: block u is unit u (run
+// u / panels, panel u % panels); partial (runs, rows) float4.
+__global__ void __launch_bounds__(tile::kF32Threads, 1)
 vocab_f32_kernel(const float* __restrict__ h, const float* __restrict__ table,
                  const float* __restrict__ bias, const int* __restrict__ labels,
                  float4* __restrict__ partial, int rows, int vocab, int hdim, int per_run) {
@@ -249,7 +329,7 @@ vocab_f32_kernel(const float* __restrict__ h, const float* __restrict__ table,
   for (int vt = vt0; vt < vt1; ++vt) {  // none where the run lies wholly past the vocabulary
     const int col0 = vt * tile::kF32BN;
     float acc[4][4][4];
-    tile::f32_mainloop<kVec>(h, table, rows, vocab, hdim, row0, col0, smem, acc);
+    tile::f32_mainloop(h, table, rows, vocab, hdim, row0, col0, smem, acc);
     // this thread's 8 columns, acc[.][j][2 hh + e] at column 8 j + e, and
     // their bias
     int col[8];
@@ -326,8 +406,10 @@ __global__ void vocab_merge_kernel(const float4* __restrict__ partial, float* __
 // i32; lse, sumlog, tgt (rows,) f32. The vocabulary tiles of 128 words are
 // cut into `splits` runs of `tiles_per_split` (even for bf16); partial is f32
 // scratch of (parts, rows, 4), parts = 2 splits for bf16 (one per run and
-// consumer) and splits for f32 (one per run). Returns
-// cudaGetLastError() after the two launches.
+// consumer) and splits for f32 (one per run). f32 takes the TMA route where
+// hdim % 4 == 0 and h and the table are 16-byte aligned
+// (ops/cuda_lib.py::f32_tma_route mirrors this), the mma.sync route
+// elsewhere. Returns cudaGetLastError() after the two launches.
 extern "C" int bq_vocab_reductions(const void* h, const void* table, const float* bias,
                                    const int* labels, float* partial, float* lse, float* sumlog,
                                    float* tgt, int rows, int vocab, int hdim, int splits,
@@ -353,15 +435,27 @@ extern "C" int bq_vocab_reductions(const void* h, const void* table, const float
     vocab_wgmma_kernel<<<units < sms ? units : sms, C::THREADS, C::SMEM_BYTES, s>>>(
         map_h, map_t, bias, labels, part, rows, vocab, hdim, splits, tiles_per_split);
     parts = 2 * splits;
+  } else if (hdim > 0 && hdim % 4 == 0 &&
+             (reinterpret_cast<size_t>(h) | reinterpret_cast<size_t>(table)) % 16 == 0) {
+    using C = tile::TF32Config;
+    cudaError_t err = set_smem_once(reinterpret_cast<const void*>(vocab_f32_kernel_wgmma),
+                                    C::SMEM_BYTES);
+    int dev = 0, sms = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    CUtensorMap map_h, map_t;
+    if (err == cudaSuccess) err = wg::make_map(&map_h, h, rows, hdim, C::BM, true);
+    if (err == cudaSuccess) err = wg::make_map(&map_t, table, vocab, hdim, C::BN, true);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int units = (rows + C::BM - 1) / C::BM * splits;
+    vocab_f32_kernel_wgmma<<<units < sms ? units : sms, C::THREADS, C::SMEM_BYTES, s>>>(
+        map_h, map_t, bias, labels, part, rows, vocab, hdim, splits, tiles_per_split);
   } else {
     const int units = (rows + tile::kF32BM - 1) / tile::kF32BM * splits;
-    const bool vec = hdim % 4 == 0 &&
-                     (reinterpret_cast<size_t>(h) | reinterpret_cast<size_t>(table)) % 16 == 0;
-    const auto kernel = vec ? vocab_f32_kernel<true> : vocab_f32_kernel<false>;
     const cudaError_t err =
-        set_smem_once(reinterpret_cast<const void*>(kernel), tile::kF32SmemBytes);
+        set_smem_once(reinterpret_cast<const void*>(vocab_f32_kernel), tile::kF32SmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<units, tile::kF32Threads, tile::kF32SmemBytes, s>>>(
+    vocab_f32_kernel<<<units, tile::kF32Threads, tile::kF32SmemBytes, s>>>(
         static_cast<const float*>(h), static_cast<const float*>(table), bias, labels, part, rows,
         vocab, hdim, tiles_per_split);
   }

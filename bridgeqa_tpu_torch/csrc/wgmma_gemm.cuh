@@ -2,7 +2,10 @@
 // bf16, row-major, K contiguous in both (W is an nn.Linear weight), f32
 // accumulators in registers. The scoring GEMM (scoring_gemm.cu, the kernel
 // below) runs on it, and so does the vocabulary pass (vocab_loss.cu), which
-// shares setup(), produce() and mainloop() and has its own epilogue.
+// shares setup(), produce() and mainloop() and has its own epilogue. The f32
+// products and vocabulary pass (tile_gemm.cuh's 3xTF32 loop on wgmma) share
+// the ring, setup(), produce() and the tensor maps, under a config of their
+// own.
 //
 // Shape of the kernel (sm_90a only: wgmma and setmaxnreg need the "a"):
 // - TMA loads. One CUtensorMap each for X and W (cuTensorMapEncodeTiled,
@@ -62,6 +65,11 @@ namespace wg {
 
 using bf16 = __nv_bfloat16;
 
+// The ring's shape (a config of the f32 loop, tile_gemm.cuh's TF32Config,
+// has the same members): BK elements of K a stage (128 bytes), LOAD_BYTES of
+// TMA loads into each STAGE_BYTES stage (X's tile, then W's at A_BYTES),
+// CONSUMER_WARPS arrivals to free a stage, and EXTRA_BARS more barriers of
+// EXTRA_COUNT arrivals each after the full and empty ones.
 struct Config {
   static constexpr int BM = 128, BN = 128, BK = 64;
   static constexpr int THREADS = 384;        // producer warpgroup + two consumers
@@ -69,10 +77,13 @@ struct Config {
   static constexpr int A_BYTES = BM * BK * 2;
   static constexpr int B_BYTES = BN * BK * 2;
   static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int LOAD_BYTES = STAGE_BYTES;
   static constexpr int STAGES = 5;
   static constexpr int OUT_BYTES = BM * BN * 2;  // a consumer's staged output tile
+  static constexpr int EXTRA_BARS = 2, EXTRA_COUNT = 1;  // each consumer's residual tile
   // the tiles start 1024-aligned (the swizzle's period); 1024 bytes of slack
-  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * OUT_BYTES + 1024 + (2 * STAGES + 2) * 8;
+  static constexpr int SMEM_BYTES =
+      STAGES * STAGE_BYTES + 2 * OUT_BYTES + 1024 + (2 * STAGES + EXTRA_BARS) * 8;
   static_assert(SMEM_BYTES <= 232448, "shared memory of a block");
 };
 
@@ -254,22 +265,24 @@ __device__ __forceinline__ float round_bf16(float v) {
 
 // The dynamic shared memory: the ring's stages (1024-aligned, the swizzle's
 // period), each consumer's output tile, then the barriers: full[s],
-// empty[s] and one per consumer for a residual tile.
-struct Ring {
+// empty[s] and the config's extra ones (bf16: one per consumer for a
+// residual tile; f32: split[s]).
+template <class C>
+struct RingOf {
   uint32_t tiles, out, bars;
-  __device__ __forceinline__ uint32_t stage(int s) const { return tiles + s * Config::STAGE_BYTES; }
+  __device__ __forceinline__ uint32_t stage(int s) const { return tiles + s * C::STAGE_BYTES; }
   __device__ __forceinline__ uint32_t full(int s) const { return bars + 8u * s; }
-  __device__ __forceinline__ uint32_t empty(int s) const { return bars + 8u * (Config::STAGES + s); }
-  __device__ __forceinline__ uint32_t residual(int c) const {
-    return bars + 8u * (2 * Config::STAGES + c);
-  }
+  __device__ __forceinline__ uint32_t empty(int s) const { return bars + 8u * (C::STAGES + s); }
+  __device__ __forceinline__ uint32_t extra(int i) const { return bars + 8u * (2 * C::STAGES + i); }
+  __device__ __forceinline__ uint32_t residual(int c) const { return extra(c); }
 };
+using Ring = RingOf<Config>;
 
 // Lay out the ring in `smem_raw` and initialise its barriers; every thread
 // of the block calls it (it ends on a block barrier).
-__device__ __forceinline__ Ring setup(unsigned char* smem_raw) {
-  using C = Config;
-  Ring ring;
+template <class C = Config>
+__device__ __forceinline__ RingOf<C> setup(unsigned char* smem_raw) {
+  RingOf<C> ring;
   ring.tiles = (smem_u32(smem_raw) + 1023u) & ~1023u;
   ring.out = ring.tiles + C::STAGES * C::STAGE_BYTES;
   ring.bars = ring.out + 2 * C::OUT_BYTES;
@@ -278,8 +291,7 @@ __device__ __forceinline__ Ring setup(unsigned char* smem_raw) {
       mbar_init(ring.full(s), 1);
       mbar_init(ring.empty(s), C::CONSUMER_WARPS);
     }
-    mbar_init(ring.residual(0), 1);
-    mbar_init(ring.residual(1), 1);
+    for (int i = 0; i < C::EXTRA_BARS; ++i) mbar_init(ring.extra(i), C::EXTRA_COUNT);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -290,10 +302,9 @@ __device__ __forceinline__ Ring setup(unsigned char* smem_raw) {
 // every load, for the block's `count` tiles in the order the consumers take
 // them, the j-th tile's X rows and W rows starting at at(j) = (row0, col0),
 // `ktiles` steps of BK each.
-template <class At>
-__device__ __forceinline__ void produce(const Ring& ring, const CUtensorMap* map_x,
+template <class C, class At>
+__device__ __forceinline__ void produce(const RingOf<C>& ring, const CUtensorMap* map_x,
                                         const CUtensorMap* map_w, int count, int ktiles, At at) {
-  using C = Config;
   asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
   if (threadIdx.x != 0) return;
   tma_prefetch(map_x);
@@ -303,7 +314,7 @@ __device__ __forceinline__ void produce(const Ring& ring, const CUtensorMap* map
     const int2 tile = at(j);
     for (int kt = 0; kt < ktiles; ++kt) {
       mbar_wait(ring.empty(stage), phase ^ 1);
-      mbar_expect_tx(ring.full(stage), C::STAGE_BYTES);
+      mbar_expect_tx(ring.full(stage), C::LOAD_BYTES);
       const uint32_t a = ring.stage(stage);
       tma_load_2d(a, map_x, ring.full(stage), kt * C::BK, tile.x);
       tma_load_2d(a + C::A_BYTES, map_w, ring.full(stage), kt * C::BK, tile.y);
@@ -493,16 +504,19 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// the map of a row-major (rows, k) bf16 matrix, in boxes of box_rows x 64
-// under the 128-byte swizzle. A map depends on nothing but these arguments,
+// the map of a row-major (rows, k) bf16 matrix, or f32 where `f32`, in
+// boxes of box_rows x 128 bytes (64 bf16 or 32 f32) under the 128-byte
+// swizzle. A map depends on nothing but these arguments,
 // so the last ones encoded are kept, direct-mapped by their hash: weights,
 // and activations that PyTorch's allocator hands out at the same address
 // again, cost a lookup instead of a driver call. The C entry is called
 // through ctypes, which releases the GIL, so a mutex guards the cache.
-inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int k, int box_rows) {
+inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int k, int box_rows,
+                            bool f32 = false) {
   struct Entry {
     const void* ptr;
     int rows, k, box_rows;
+    bool f32;
     CUtensorMap map;
   };
   constexpr int kEntries = 256;
@@ -513,7 +527,7 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int k, 
   Entry& e = cache[(h >> 32) % kEntries];
   {
     const std::lock_guard<std::mutex> lock(mu);
-    if (e.ptr == ptr && e.rows == rows && e.k == k && e.box_rows == box_rows) {
+    if (e.ptr == ptr && e.rows == rows && e.k == k && e.box_rows == box_rows && e.f32 == f32) {
       *map = e.map;
       return cudaSuccess;
     }
@@ -528,16 +542,18 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int k, 
   if (err == cudaSuccess) err = cudaSetDevice(dev);
   if (err != cudaSuccess) return err;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const int bytes = f32 ? 4 : 2;  // an element's
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k) * bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / bytes), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t step[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+  const CUresult r = encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            2, const_cast<void*>(ptr), dims,
                             strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
   const std::lock_guard<std::mutex> lock(mu);
-  e = Entry{ptr, rows, k, box_rows, *map};
+  e = Entry{ptr, rows, k, box_rows, f32, *map};
   return cudaSuccess;
 }
 

@@ -194,6 +194,15 @@ def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: the kernel needs contiguous tensors")
 
 
+def f32_tma_route(k: int, *operands: torch.Tensor) -> bool:
+    """Whether an f32 product of depth ``k`` over ``operands`` takes the
+    kernels' TMA-fed wgmma loop (``csrc/tile_gemm.cuh::tf32_mainloop``),
+    as ``csrc/scoring_gemm.cu`` and ``csrc/vocab_loss.cu`` decide: K a
+    positive multiple of 4 and every operand 16-byte aligned. Otherwise the
+    mma.sync loop (``f32_mainloop``) runs."""
+    return k > 0 and k % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in operands)
+
+
 def stream_handle(device: torch.device) -> ctypes.c_void_p:
     """PyTorch's current stream on ``device``, for a kernel launch."""
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

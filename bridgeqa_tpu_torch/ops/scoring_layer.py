@@ -128,6 +128,8 @@ def scoring_gemm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gelu: bool =
         cuda_lib.stream_handle(x.device))
     cuda_lib.check(rc, "bq_scoring_gemm")
     count("kernel/scoring_gemm")
+    if x.dtype == torch.float32:
+        count("kernel/f32_gemm_wgmma" if cuda_lib.f32_tma_route(k, x, w) else "kernel/f32_gemm_mma")
     return y
 
 

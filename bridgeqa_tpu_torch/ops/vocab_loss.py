@@ -5,7 +5,7 @@ projects every answer token onto the 30524-word tied table and reduces the
 logits straight into a label-smoothed cross entropy. On a CUDA tensor
 ``lm_vocab_reductions`` launches the hand-written kernel in
 ``csrc/vocab_loss.cu``, which streams vocabulary tiles past panels of rows
-(bf16 on the wgmma main loop of ``csrc/wgmma_gemm.cuh``, f32 on the 3xTF32
+(bf16 on the wgmma main loop of ``csrc/wgmma_gemm.cuh``, f32 on a 3xTF32
 main loop of ``csrc/tile_gemm.cuh``) and never writes a logit; on a CPU
 tensor it runs
 ``lm_vocab_reductions_plain``. Logits are ``h @ table.T`` accumulated in f32
@@ -39,9 +39,10 @@ def _splits(rows: int, vocab: int, dtype: torch.dtype, device: torch.device) -> 
     A unit of the kernel is (128-row panel, run), and the card holds one
     block an SM in either type. bf16: a persistent grid walks the units,
     and a run is an even number of tiles (the two consumers alternate over
-    them); f32 (``kF32Blocks`` 1): one block a unit. The run is the longest
-    that makes the busiest SM's tiles fewest (fewer partials), in f32 within
-    ``_F32_LEVEL`` of the fewest."""
+    them); f32: a persistent grid too on the TMA route (both consumers share
+    each tile), one block a unit on the mma.sync route. The run is the
+    longest that makes the busiest SM's tiles fewest (fewer partials), in
+    f32 within ``_F32_LEVEL`` of the fewest."""
     vtiles = -(-vocab // _TILE)
     panels = -(-rows // _TILE)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -102,6 +103,9 @@ def lm_vocab_reductions(h: torch.Tensor, table: torch.Tensor, bias: torch.Tensor
         _DTYPE_CODES[h.dtype], cuda_lib.stream_handle(h.device))
     cuda_lib.check(rc, "bq_vocab_reductions")
     count("kernel/vocab_loss")
+    if h.dtype == torch.float32:
+        count("kernel/f32_vocab_wgmma" if cuda_lib.f32_tma_route(hdim, h, table)
+              else "kernel/f32_vocab_mma")
     return lse, sumlog, tgt
 
 

@@ -15,11 +15,12 @@ result is printed):
    kernel, the vocabulary pass and the scoring attentions in bf16 and f32,
    the ball query and its backward, the exact query, the row gather);
    disassemble the library (``cuobjdump -sass``) and fail unless every
-   instantiation of the bf16 GEMM and the vocabulary pass's bf16 kernel
-   hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads), every instantiation
-   of the scoring attentions' pipeline ``UTMALDG``, and the f32 GEMM's, ViT
-   attention's, scoring attentions' and vocabulary pass's (3xTF32) ``HMMA``
-   (mma.sync).
+   instantiation of the bf16 GEMM and the vocabulary pass's bf16 kernel,
+   and the f32 GEMM's and vocabulary pass's TMA routes (3xTF32), hold
+   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA loads), every instantiation of the
+   scoring attentions' pipeline ``UTMALDG``, and the f32 GEMM's and
+   vocabulary pass's other routes and the ViT and scoring attentions'
+   (3xTF32) ``HMMA`` (mma.sync).
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at every shape the main path gives it, batch 8.
    - FPS and the stripe ball query, with padding points, duplicate points,
@@ -591,22 +592,27 @@ PTXAS_KERNELS = ("gemm_kernel", "vit_attention_bf16_kernel", "fps_cluster_kernel
                  "vit_attention_f32_kernel", "scoring_attention_f32_kernel", "vocab_f32_kernel",
                  "gather_rows_kernel", "gather_groups_kernel", "gather_long_rows_kernel")
 # kernels whose SASS must hold Hopper instructions (parts of their mangled
-# names: wg::gemm_kernel<...>, the vocabulary pass, the scoring attentions'
-# pipeline, the 3xTF32 products, ViT attention, scoring attentions and
-# vocabulary pass), and which: the wgmma product (HGMMA), the TMA tile load
+# names, the first that matches deciding: wg::gemm_kernel<...>, the
+# vocabulary pass, the scoring attentions' pipeline, the 3xTF32 products and
+# vocabulary pass on wgmma, then on mma.sync, the ViT and scoring
+# attentions), and which: the wgmma product (HGMMA), the TMA tile load
 # (UTMALDG), the mma.sync product (HMMA)
 SASS_KERNELS = {"wg11gemm_kernel": ("HGMMA", "UTMALDG"), "vocab_wgmma_kernel": ("HGMMA", "UTMALDG"),
-                "attention_pipe_kernel": ("UTMALDG",), "gemm_f32_kernel": ("HMMA",),
+                "attention_pipe_kernel": ("UTMALDG",),
+                "gemm_f32_kernel_wgmma": ("HGMMA", "UTMALDG"),
+                "vocab_f32_kernel_wgmma": ("HGMMA", "UTMALDG"), "gemm_f32_kernel": ("HMMA",),
                 "vit_attention_f32_kernel": ("HMMA",), "scoring_attention_f32_kernel": ("HMMA",),
                 "vocab_f32_kernel": ("HMMA",)}
 # the route of each kernel's f32 instantiation, for the kernels line
 F32_ROUTES = {
-    "scoring_gemm": "3xTF32 on mma.sync m16n8k8: gemm_f32_kernel on tile_gemm.cuh's main loop",
+    "scoring_gemm": "3xTF32 on TMA-fed wgmma m64n128k8: gemm_f32_kernel_wgmma on tile_gemm.cuh's "
+                    "tf32_mainloop (K % 4 != 0 or unaligned: gemm_f32_kernel on mma.sync)",
     "vit_attention": "3xTF32 on mma.sync m16n8k8: vit_attention_f32_kernel on attention_f32.cuh",
     "scoring_attention": "3xTF32 on mma.sync m16n8k8: scoring_attention_f32_kernel on "
                          "attention_f32.cuh (head width 64, at most 128 question keys; else "
                          "the CUDA-core attention_kernel<float>)",
-    "vocab_loss": "3xTF32 on mma.sync m16n8k8: vocab_f32_kernel on tile_gemm.cuh's main loop",
+    "vocab_loss": "3xTF32 on TMA-fed wgmma m64n128k8: vocab_f32_kernel_wgmma on tile_gemm.cuh's "
+                  "tf32_mainloop (width % 4 != 0 or unaligned: vocab_f32_kernel on mma.sync)",
     "scoring_layernorm": "CUDA cores: add_layernorm_kernel<float>"}
 
 
@@ -1039,8 +1045,8 @@ def phase_scoring_kernels(device, layers: int, reps: int = 10):
 
 
 def f32_route_checks(device, gen, failures: list) -> dict:
-    """The f32 scoring attentions and vocabulary pass (3xTF32 on mma.sync)
-    at the main path's shapes, on f32 inputs, against f64 references: each
+    """The f32 scoring attentions (3xTF32 on mma.sync) and vocabulary pass
+    (3xTF32 on wgmma) at the main path's shapes, on f32 inputs, against f64 references: each
     output within ``F32_ROUTE_TOL`` of its largest value (the vocabulary's
     sum of logits within it of each row's sum of |logit|). Both attentions
     must have run the f32 tensor-core kernel (launch record "pipeline" 2);

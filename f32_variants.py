@@ -5,11 +5,9 @@ kernels against an older tree's, in turns, in one process on one CUDA card.
     python3 f32_variants.py [--parent DIR [--gather]]
 
 - The vocabulary pass (``csrc/vocab_loss.cu``, f32) at the main path's
-  shape (22528 rows, 30524 words, width 768) with its launch bound at one
-  block an SM (the tree's) and at two (a copy of the source with
-  ``kF32Blocks`` changed, built into ``build/variants/``), both at the
-  split ``_splits`` picks; then under several splits (runs, tiles a run):
-  ``_splits``' own, 40 tiles, one tile, the whole vocabulary in one run.
+  shape (22528 rows, 30524 words, width 768) under several splits (runs,
+  tiles a run): ``_splits``' own against 40 tiles, one tile, the whole
+  vocabulary in one run.
 - The plan helpers' choices, each against every other choice, through the
   kernels' C entries: the exact scan-order ball query
   (``csrc/ball_query_exact.cu``) at ``grouping.exact_plan``'s centres a
@@ -23,10 +21,13 @@ kernels against an older tree's, in turns, in one process on one CUDA card.
   the tree's, parent, change, change, parent. DIR's library is built by
   DIR's own ``ops/cuda_lib.py`` (its sources and flags, into
   ``DIR/build/kernels``; its C entries typed by its ``_SIGNATURES``). The
-  f32 kernels: the products and the ViT attention at BLIP-ITM's shape (64
-  frames of 577 tokens), the scoring attentions at the rank forward's
-  (24576 rows against 8 questions of 80 keys), and the vocabulary pass,
-  each tree at its own ``_splits``. The point kernels through each tree's
+  f32 kernels: the products at BLIP-ITM's shape (64 frames of 577 tokens)
+  and at the rank forward's (the ViT's 8 images of 901 tokens, the
+  decoders' 24576 rows), the ViT attention at BLIP-ITM's shape, the scoring
+  attentions at the rank forward's (24576 rows against 8 questions of 80
+  keys), and the vocabulary pass, each tree at its own ``_splits``; the
+  products and the vocabulary pass with their 3xTF32 bounds
+  (``chip_smoke.tf32_bound``). The point kernels through each tree's
   own wrappers (DIR's ``ops/grouping.py`` on DIR's library): the exact
   query at the five ``BQ_SHAPES``, the backward at both
   ``BQ_BACKWARD_SHAPES``; their outputs must agree (the exact indices
@@ -49,7 +50,6 @@ import argparse
 import ctypes
 import importlib.util
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -59,30 +59,6 @@ import torch
 import chip_smoke as cs
 
 ROWS, VOCAB, H = cs.VOCAB_ROWS, cs.VOCAB, cs.HIDDEN
-OUT = cs.OUT_DIR / "variants"
-
-
-def build(srcs: list[Path], name: str):
-    """nvcc ``srcs`` (each beside the headers it includes) into
-    ``OUT/name`` with the tree's flags; the library, its C entries typed."""
-    from bridgeqa_tpu_torch.ops import cuda_lib
-
-    OUT.mkdir(parents=True, exist_ok=True)
-    objs = [OUT / f"{name}.{s.stem}.o" for s in srcs]
-    procs = [subprocess.Popen([cuda_lib._nvcc(), *cuda_lib.source_flags(s), "-c", str(s), "-o",
-                               str(o)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for s, o in zip(srcs, objs)]
-    for p in procs:
-        log = p.communicate()[0]
-        if p.returncode:
-            raise RuntimeError(f"nvcc failed:\n{log[-4000:]}")
-    subprocess.run([cuda_lib._nvcc(), "-shared", *map(str, objs), "-o", str(OUT / name)],
-                   check=True)
-    lib = ctypes.CDLL(str(OUT / name))
-    for entry, argtypes in cuda_lib._SIGNATURES.items():
-        if hasattr(lib, entry):
-            getattr(lib, entry).argtypes = argtypes
-    return lib
 
 
 def _load(name: str, path: Path):
@@ -140,13 +116,14 @@ def vocab_call(lib, inputs, split, device):
     return out
 
 
-def in_turns(label: str, calls: dict, timer, results: list) -> None:
-    """Time each of two ``calls`` as a, b, b, a and record the readings."""
+def in_turns(label: str, calls: dict, timer, results: list, **extra) -> None:
+    """Time each of two ``calls`` as a, b, b, a and record the readings,
+    with ``extra``'s fields."""
     a, b = calls
     ms = {a: [], b: []}
     for k in (a, b, b, a):
         ms[k].append(timer(calls[k]))
-    results.append({"what": label, "ms_a_call": ms})
+    results.append({"what": label, "ms_a_call": ms, **extra})
     print(json.dumps(results[-1]), flush=True)
 
 
@@ -328,7 +305,6 @@ def main() -> int:
     from bridgeqa_tpu_torch.ops import cuda_lib
     from bridgeqa_tpu_torch.ops import vocab_loss as vl
 
-    csrc = Path(cuda_lib.CSRC)
     tree = cuda_lib.lib()
     results = []
     inputs = vocab_inputs(device)
@@ -337,23 +313,9 @@ def main() -> int:
     def events(fn):
         return cs.time_ms(fn, 3)
 
-    # the launch bound: a copy of the sources with two blocks an SM
-    two = OUT / "two_blocks"
-    two.mkdir(parents=True, exist_ok=True)
-    for f in csrc.glob("*.cuh"):
-        (two / f.name).write_text(f.read_text())
-    src = (csrc / "vocab_loss.cu").read_text()
-    if "constexpr int kF32Blocks = 1;" not in src:
-        raise RuntimeError("vocab_loss.cu: kF32Blocks is not 1")
-    (two / "vocab_loss.cu").write_text(src.replace("constexpr int kF32Blocks = 1;",
-                                                   "constexpr int kF32Blocks = 2;"))
-    lib2 = build([two / "vocab_loss.cu"], "libvocab_two_blocks.so")
-    in_turns(f"vocabulary pass f32 at split {split}: one block an SM against two",
-             {"one": lambda: vocab_call(tree, inputs, split, device),
-              "two": lambda: vocab_call(lib2, inputs, split, device)}, events, results)
     vtiles = -(-VOCAB // 128)
     for other in ((-(-vtiles // 40), 40), (vtiles, 1), (1, vtiles)):
-        in_turns(f"vocabulary pass f32, one block an SM: split {split} against {other}",
+        in_turns(f"vocabulary pass f32: split {split} against {other}",
                  {str(split): lambda: vocab_call(tree, inputs, split, device),
                   str(other): lambda o=other: vocab_call(tree, inputs, o, device)},
                  events, results)
@@ -372,18 +334,24 @@ def main() -> int:
         def device_ms(fn):
             return cs.device_ms(fn, 3)
 
-        m = cs.ITM_ROWS
-        for name, k, n, gelu, with_res in cs.VIT_GEMM_SHAPES:
-            x, w, b = randn(m, k), randn(n, k, scale=0.02), randn(n)
-            res = randn(m, n) if with_res else None
-            y = torch.empty(m, n, device=device)
-            in_turns(f"ITM {name} f32: parent against change", {
-                key: (lambda lib=lib, x=x, w=w, b=b, res=res, y=y, n=n, k=k, gelu=gelu:
-                      lib.bq_scoring_gemm(x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                                          None if res is None else res.data_ptr(), y.data_ptr(),
-                                          m, n, k, int(gelu), 0, stream))
-                for key, lib in libs.items()}, device_ms, results)
-            del x, w, b, res, y
+        products = [("ITM", cs.ITM_ROWS, cs.VIT_GEMM_SHAPES),
+                    ("rank ViT", cs.VIT_ROWS, cs.VIT_GEMM_SHAPES),
+                    ("rank decoder", cs.DECODER_ROWS,
+                     [shape + (False,) for shape in cs.GEMM_SHAPES])]
+        for where, m, shapes in products:
+            for name, k, n, gelu, with_res in shapes:
+                x, w, b = randn(m, k), randn(n, k, scale=0.02), randn(n)
+                res = randn(m, n) if with_res else None
+                y = torch.empty(m, n, device=device)
+                nbytes = 4 * (m * k + n * k + m * n * (2 if with_res else 1))
+                in_turns(f"{where} {name} f32 ({m}, {n}, {k}): parent against change", {
+                    key: (lambda lib=lib, x=x, w=w, b=b, res=res, y=y, m=m, n=n, k=k, gelu=gelu:
+                          lib.bq_scoring_gemm(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                              None if res is None else res.data_ptr(),
+                                              y.data_ptr(), m, n, k, int(gelu), 0, stream))
+                    for key, lib in libs.items()}, device_ms, results,
+                    tf32_bound_ms=cs.tf32_bound(2.0 * m * n * k, nbytes))
+                del x, w, b, res, y
         qkv, ctx = randn(cs.ITM_FRAMES, cs.ITM_TOKENS, 3 * H), torch.empty(
             cs.ITM_FRAMES, cs.ITM_TOKENS, H, device=device)
         in_turns("ITM vit attention f32: parent against change", {
@@ -413,7 +381,8 @@ def main() -> int:
         del qc, ck, cv, out
         in_turns(f"vocabulary pass f32: parent at {psplit} against change at {split}",
                  {"parent": lambda: vocab_call(parent, inputs, psplit, device),
-                  "change": lambda: vocab_call(tree, inputs, split, device)}, events, results)
+                  "change": lambda: vocab_call(tree, inputs, split, device)}, events, results,
+                 tf32_bound_ms=cs.tf32_bound(2.0 * ROWS * VOCAB * H, 4 * (ROWS + VOCAB) * H))
         point_parent(args.parent, device, results)
         gather_parent(args.parent, device, results)
     point_choices(device, results)

@@ -27,13 +27,16 @@ machine does not have; this file imports none.) On the edge cases
   tile), and a whole block;
 - the f32 kernels on the tensor cores (3xTF32) against an f64 reference
   within 1e-5 of the largest output, where one TF32 pass would miss by an
-  order of magnitude: the GEMM at BLIP-ITM's 36928 rows and at K 3072, the
+  order of magnitude: the GEMM at BLIP-ITM's 36928 rows, the decoders'
+  24576 and the rank ViT's 7208 (a ragged last tile) at K 768 and 3072, the
   ViT attention at 1, 65, 577 and 901 tokens, the scoring attentions at the
   main path's shapes and at answers of 1, 5 and 128 and 7, 80 and 130
   question keys (a single visible key's context is its value bit for bit),
-  and the vocabulary pass at the main path's 22528 x 30524 x 768; the f32
-  GEMM and vocabulary pass at any K, at odd N and at 4-byte alignment (their
-  4-byte copies);
+  and the vocabulary pass at the main path's 22528 x 30524 x 768 and at
+  7208 rows; the GEMM and the vocabulary pass there on their TMA-fed wgmma
+  route (the counters ``kernel/f32_gemm_wgmma``, ``kernel/f32_vocab_wgmma``);
+  the f32 GEMM and vocabulary pass at any K, at odd N and at 4-byte
+  alignment on their mma.sync route (``kernel/f32_*_mma``);
 - the bf16 GEMM's TMA edges: M, N and K that are no multiple of the tile or
   of the 64-wide box, with GELU and with the residual; its GELU against the
   erf GELU at every |x| up to 6, within two f32 ulp or one bf16 rounding;
@@ -358,10 +361,13 @@ def _assert_close(got, want, what):
     assert err <= tol, f"{what}: max abs err {err} > {tol}"
 
 
-def _counted(name, fn):
-    before = _launches(name)
+def _counted(name, fn, route=None):
+    """fn(), which must launch the kernel ``name`` once, and where ``route``
+    is given, count one launch on that route (``kernel/<route>``)."""
+    names = (name,) if route is None else (name, route)
+    before = [_launches(n) for n in names]
     out = fn()
-    assert _launches(name) == before + 1
+    assert [_launches(n) for n in names] == [b + 1 for b in before]
     return out
 
 
@@ -504,10 +510,9 @@ def test_vocab_reductions_match_plain(card, dtype, rows, vocab, hdim):
         assert err <= 1e-3 * max(1.0, float(b.abs().max())), f"{name}: {err}"
 
 
-def _vocab_check(h, table, bias, labels, **kw):
-    before = _launches("vocab_loss")
-    got = vocab_loss.lm_vocab_reductions(h, table, bias, labels, **kw)
-    assert _launches("vocab_loss") == before + 1
+def _vocab_check(h, table, bias, labels, route=None, **kw):
+    got = _counted("vocab_loss", lambda: vocab_loss.lm_vocab_reductions(h, table, bias, labels, **kw),
+                   route)
     want = vocab_loss.lm_vocab_reductions_plain(h, table, bias, labels)
     for name, a, b in zip(("lse", "sum_logits", "target_logit"), got, want):
         err = float((a - b).abs().max())
@@ -774,14 +779,22 @@ def _route_err(got, exact):
 
 @pytest.mark.parametrize("m,n,k,gelu,residual", [(36928, 2304, 768, False, False),
                                                  (36928, 768, 3072, False, True),
-                                                 (1000, 3072, 768, True, False)])
+                                                 (1000, 3072, 768, True, False),
+                                                 (24576, 2304, 768, False, False),
+                                                 (24576, 768, 3072, False, False),
+                                                 (7208, 3072, 768, True, False),
+                                                 (7208, 768, 3072, False, True)])
 def test_scoring_gemm_f32_keeps_f32_accuracy(card, m, n, k, gelu, residual):
+    """BLIP-ITM's 36928 rows, the decoders' 24576 and the rank ViT's 7208
+    (56 tiles and 40 rows) at their products' N and K, on the TMA-fed wgmma
+    route."""
     rng = np.random.RandomState(m + n + k)
     x = _randn(rng, m, k, device=card)
     w = _randn(rng, n, k, scale=0.02, device=card)
     b = _randn(rng, n, scale=0.5, device=card)
     res = _randn(rng, m, n, scale=2.0, device=card) if residual else None
-    got = _counted("scoring_gemm", lambda: scoring_layer.scoring_gemm(x, w, b, gelu, res))
+    got = _counted("scoring_gemm", lambda: scoring_layer.scoring_gemm(x, w, b, gelu, res),
+                   "f32_gemm_wgmma")
     _assert_close(got, scoring_layer.scoring_gemm_plain(x, w, b, gelu, res), "f32 gemm")
     y = x.double() @ w.double().T + b.double()
     y = 0.5 * y * (1.0 + torch.erf(y * 0.5**0.5)) if gelu else y
@@ -814,8 +827,27 @@ def test_scoring_gemm_f32_any_k(card, k, n):
     b = _randn(rng, n, scale=0.5, device=card)
     res = _randn(rng, m * n + 1, scale=2.0, device=card)[1:].view(m, n)
     for gelu, r in ((True, None), (False, res)):
-        got = _counted("scoring_gemm", lambda: scoring_layer.scoring_gemm(x, w, b, gelu, r))
+        got = _counted("scoring_gemm", lambda: scoring_layer.scoring_gemm(x, w, b, gelu, r),
+                       "f32_gemm_mma")
         _assert_close(got, scoring_layer.scoring_gemm_plain(x, w, b, gelu, r), f"f32 gemm, k {k}")
+
+
+@pytest.mark.parametrize("n,offset", [(131, 0), (130, 1), (130, 0)])
+def test_scoring_gemm_f32_tma_edges(card, n, offset):
+    """The TMA-fed wgmma route past its edges: 1000 rows (a ragged tile),
+    K 776 (a ragged last stage), N 131 or 130 (a ragged tile); its epilogue
+    stores single floats where N is odd or the residual and output lie at a
+    4-byte offset, pairs of floats otherwise."""
+    rng = np.random.RandomState(n + 7 * offset)
+    m, k = 1000, 776
+    x = _randn(rng, m, k, device=card)
+    w = _randn(rng, n, k, scale=0.05, device=card)
+    b = _randn(rng, n, scale=0.5, device=card)
+    res = _randn(rng, m * n + offset, scale=2.0, device=card)[offset:].view(m, n)
+    for gelu, r in ((True, None), (False, res)):
+        got = _counted("scoring_gemm", lambda: scoring_layer.scoring_gemm(x, w, b, gelu, r),
+                       "f32_gemm_wgmma")
+        _assert_close(got, scoring_layer.scoring_gemm_plain(x, w, b, gelu, r), f"f32 gemm, n {n}")
 
 
 def _assert_f32_attention_launch(rows_heads: int):
@@ -899,18 +931,21 @@ def test_cross_attention_f32_keeps_f32_accuracy(card, lk, nq, rows_per_q):
     assert torch.equal(got[rows_per_q:2 * rows_per_q], cv[1, :1].expand(rows_per_q, h))
 
 
-def test_vocab_reductions_f32_keeps_f32_accuracy(card):
-    """The f32 vocabulary pass at the main path's (22528, 30524, 768)
-    against logits taken in f64 (in row chunks): lse and the target logit
-    within 1e-5 of their largest value, each row's sum of logits within 1e-5
-    of its sum of |logit|."""
-    rows, vocab, hdim = 22528, 30524, 768
-    rng = np.random.RandomState(22)
+@pytest.mark.parametrize("rows", [22528, 7208])
+def test_vocab_reductions_f32_keeps_f32_accuracy(card, rows):
+    """The f32 vocabulary pass at the main path's (22528, 30524, 768), and
+    at 7208 rows (a ragged last panel), on the TMA-fed wgmma route, against
+    logits taken in f64 (in row chunks): lse and the target logit within
+    1e-5 of their largest value, each row's sum of logits within 1e-5 of
+    its sum of |logit|."""
+    vocab, hdim = 30524, 768
+    rng = np.random.RandomState(22 if rows == 22528 else rows)
     h = _randn(rng, rows, hdim, device=card)
     table = _randn(rng, vocab, hdim, scale=0.05, device=card)
     bias = _randn(rng, vocab, scale=0.5, device=card)
     labels = torch.from_numpy(rng.randint(0, vocab, rows).astype(np.int32)).to(card)
-    lse, sumlog, tgt = vocab_loss.lm_vocab_reductions(h, table, bias, labels)
+    lse, sumlog, tgt = _counted("vocab_loss", lambda: vocab_loss.lm_vocab_reductions(
+        h, table, bias, labels), "f32_vocab_wgmma")
     want = {k: [] for k in ("lse", "sum", "tgt", "abs")}
     t64, b64 = table.double(), bias.double()
     for s in range(0, rows, 2048):
@@ -936,7 +971,7 @@ def test_vocab_reductions_f32_any_k(card, hdim):
     table = _randn(rng, vocab * hdim + 1, scale=0.1, device=card)[1:].view(vocab, hdim)
     bias = _randn(rng, vocab, scale=0.5, device=card)
     labels = torch.from_numpy(rng.randint(0, vocab, rows).astype(np.int32)).to(card)
-    _vocab_check(h, table, bias, labels)
+    _vocab_check(h, table, bias, labels, route="f32_vocab_mma")
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -1,14 +1,16 @@
 """The 3xTF32 route of the port's f32 kernels (the products, the ViT and
 scoring attentions, the vocabulary pass), emulated on the CPU
-(``csrc/tile_gemm.cuh``: ``to_tf32``, ``split_tf32``, ``split3_tf32``;
-``csrc/attention_f32.cuh``).
+(``csrc/tile_gemm.cuh``: ``to_tf32``, ``split_tf32``, ``split3_tf32``, the
+order of ``tf32_mainloop``; ``csrc/attention_f32.cuh``).
 
 An f32 operand x is split into hi = tf32(x) and lo = tf32(x - hi), TF32 being
 10 mantissa bits rounded to nearest with ties away from zero
 (``cvt.rna.tf32.f32``'s rounding, which the kernels compute with the same
 integer add and mask as ``to_tf32`` here); a product is lo_a * hi_b +
 hi_a * lo_b + hi_a * hi_b, each partial product exact in an f32
-accumulator. These tests hold that sum
+accumulator. The products' and vocabulary pass's wgmma loop splits each
+32-deep stage once and adds each 8-deep step's three passes, taken into a
+fresh accumulator, to the f32 sum. These tests hold that sum
 at the ViT's two depths (K = 768 and 3072) to the f64 product within 1e-5 of
 the largest output, where the card's gate for the f32 kernels allows 1e-3,
 and show that one TF32 pass (hi_a * hi_b alone) misses that 1e-5: the reason
@@ -42,6 +44,29 @@ def three_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a (M, K) times b (N, K)^T, 3xTF32, accumulated in f32."""
     (ah, al), (bh, bl) = split(a), split(b)
     return al @ bh.T + ah @ bl.T + ah @ bh.T
+
+
+def wgmma_loop_products(a: torch.Tensor, b: torch.Tensor, bk: int = 32) -> torch.Tensor:
+    """a (M, K) times b (N, K)^T in ``tf32_mainloop``'s order: K in stages
+    of ``bk`` (zero-filled past K, as TMA fills them), each stage's tiles
+    split once; each 8-deep step's passes lo_a hi_b, hi_a lo_b, hi_a hi_b
+    into a fresh accumulator; two step accumulators that alternate, each
+    added to the f32 sum while the next step runs (the first step adds the
+    second accumulator's zeros), the last one after the loop."""
+    k = a.shape[1]
+    pad = -k % bk
+    a, b = torch.nn.functional.pad(a, (0, pad)), torch.nn.functional.pad(b, (0, pad))
+    total = torch.zeros(a.shape[0], b.shape[0])
+    acc = [None, torch.zeros_like(total)]
+    for s0 in range(0, k + pad, bk):
+        (ah, al), (bh, bl) = split(a[:, s0:s0 + bk]), split(b[:, s0:s0 + bk])
+        for ks in range(bk // 8):
+            cur, sl = ks % 2, slice(8 * ks, 8 * ks + 8)
+            step = al[:, sl] @ bh[:, sl].T
+            step = step + ah[:, sl] @ bl[:, sl].T
+            acc[cur] = step + ah[:, sl] @ bh[:, sl].T
+            total = total + acc[1 - cur]
+    return total + acc[1]
 
 
 def _low_bits_clear(x: torch.Tensor) -> bool:
@@ -95,6 +120,24 @@ def test_three_products_keep_f32_accuracy(k):
     # one TF32 pass keeps ~3 decimal digits a product
     assert err1 > SPLIT_TOL, err1
     assert err1 > 10 * err3
+
+
+@pytest.mark.parametrize("k", [768, 3072, 776])
+def test_wgmma_loop_order_keeps_f32_accuracy(k):
+    """The products' and vocabulary pass's wgmma loop order at the ViT's and
+    decoders' two depths, and at a depth whose last stage TMA zero-fills:
+    within 1e-5 of the largest output against f64, and its stage split
+    matches splitting the whole operands (the split is elementwise)."""
+    rng = np.random.RandomState(k + 7)
+    a = torch.from_numpy(rng.randn(48, k).astype(np.float32))
+    b = torch.from_numpy((rng.randn(80, k) * 0.02).astype(np.float32))
+    exact = a.double() @ b.double().T
+    got = wgmma_loop_products(a, b)
+    assert float((got.double() - exact).abs().max()) <= SPLIT_TOL * float(exact.abs().max())
+    (ah, al), (bh, bl) = split(a), split(b)
+    whole = sum((al[:, s:s + 8] @ bh[:, s:s + 8].T + ah[:, s:s + 8] @ bl[:, s:s + 8].T)
+                + ah[:, s:s + 8] @ bh[:, s:s + 8].T for s in range(0, k, 8))
+    assert float((got - whole).abs().max()) <= 1e-6 * float(exact.abs().max())
 
 
 def test_one_key_context_is_its_value():
