@@ -67,6 +67,7 @@ _SIGNATURES = {
     "bq_vocab_reductions": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bq_vit_attention": [_P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
     "bq_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bq_moe_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

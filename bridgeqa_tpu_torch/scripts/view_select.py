@@ -7,8 +7,12 @@ encode every frame of a scene and each declaration with BLIP-ITM (itc
 mode), rank the frames per question by cosine similarity, and save the
 mapping the data pipeline reads (``--i2tfile`` of the ``train`` driver).
 
-The JAX driver's flags, plus ``--device`` (the card by default; without one
-it raises, nothing falls back to the CPU) and ``--seed`` (the random weights
+The JAX driver's flags, plus ``--composer`` (``rules``, the default: the
+rule-based rewrite; ``deepseek-v2-lite``: ``tools/compose_llm.py``'s
+``LocalLMComposer`` on the card, which needs the published weights and
+tokenizer, not in the repository, so it refuses unless ``--synthetic``
+runs a tiny configuration of it on random weights), ``--device`` (the card
+by default; without one it raises, nothing falls back to the CPU) and ``--seed`` (the random weights
 where no ``--itm_ckpt`` is given). ``--itm_ckpt`` goes through the port's
 copies of the converters (``utils/blip_checkpoint.py``) over the seeded
 model's own tree. The synthetic frames of a scene are seeded from
@@ -34,6 +38,7 @@ from bridgeqa_tpu_torch.models.layers import init_weights
 from bridgeqa_tpu_torch.models.med import MedConfig
 from bridgeqa_tpu_torch.scripts import common
 from bridgeqa_tpu_torch.tools.compose_decl import RuleBasedComposer, compose_declarations
+from bridgeqa_tpu_torch.tools.compose_llm import compose_declarations_batched
 from bridgeqa_tpu_torch.tools.view_select import save_i2tfile, select_best_views
 
 
@@ -48,6 +53,8 @@ def parse_args(argv=None):
     p.add_argument("--decl_file", type=str, default=None,
                    help="question_id->declaration json (LLM rewrites); "
                         "defaults to the rule-based composer")
+    p.add_argument("--composer", choices=("rules", "deepseek-v2-lite"), default="rules",
+                   help="who rewrites the questions where no --decl_file is given")
     p.add_argument("--itm_ckpt", type=str, default=None,
                    help="torch BLIP-ITM .pth to convert and load")
     p.add_argument("--out", type=str, required=True)
@@ -102,6 +109,35 @@ def build_model(args, device):
     return model
 
 
+# the tiny configuration ``--composer deepseek-v2-lite --synthetic`` runs
+TINY_LM = dict(vocab_size=512, hidden_size=64, intermediate_size=128, moe_intermediate_size=64,
+               num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=4,
+               n_shared_experts=1, n_routed_experts=8, num_experts_per_tok=2, kv_lora_rank=32,
+               qk_rope_head_dim=16, qk_nope_head_dim=16, v_head_dim=16, bos_token_id=510,
+               eos_token_id=511)
+
+
+def build_lm_composer(args, device, tokenizer):
+    """``LocalLMComposer`` over DeepSeek-V2-Lite: with ``--synthetic`` a tiny
+    configuration on random weights and the run's word-piece tokenizer;
+    otherwise a refusal, since the published weights and tokenizer are not
+    in the repository."""
+    from bridgeqa_tpu_torch.models.deepseek_v2 import DeepseekV2Config, DeepseekV2ForCausalLM
+    from bridgeqa_tpu_torch.tools.compose_llm import LocalLMComposer, WordPieceIds
+
+    if not args.synthetic:
+        raise SystemExit("--composer deepseek-v2-lite: the published DeepSeek-V2-Lite weights "
+                         "(safetensors) and tokenizer.json are not in the repository; "
+                         "--synthetic runs a tiny configuration on random weights")
+    model = DeepseekV2ForCausalLM(DeepseekV2Config(**TINY_LM), device=device,
+                                  dtype=torch.float32 if device.type == "cpu" else torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(1.0 if p.dim() == 1 else 0.0, 0.1 if p.dim() == 1 else 0.02, generator=gen)
+    return LocalLMComposer(model, WordPieceIds(tokenizer), max_new_tokens=8)
+
+
 class SyntheticFrames:
     """``num_frames`` random frames a scene (six, as the JAX driver's),
     seeded from ``zlib.crc32`` of its id."""
@@ -153,9 +189,12 @@ def main(argv=None):
     if args.decl_file and os.path.exists(args.decl_file):
         with open(args.decl_file) as f:
             decl_map = json.load(f)
-    else:
+    elif args.composer == "rules":
         decl_map = compose_declarations(records, args.out + ".decl.json",
                                         composer=RuleBasedComposer())
+    else:
+        decl_map = compose_declarations_batched(records, args.out + ".decl.json",
+                                                build_lm_composer(args, device, tokenizer))
 
     model = build_model(args, device)
     i2t = select_best_views(model, records, tokenizer, loader, decl_map=decl_map,

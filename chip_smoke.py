@@ -66,6 +66,20 @@ result is printed):
      check), its plain version and ``torch.gather`` alone on its int64
      index, each by card time, and the wrapper, whose index check waits
      for the card, by the loop's time.
+   - The grouped expert GEMM (``moe_gemm``, the declaration composer's) at
+     DeepSeek-V2-Lite's MoE widths (hidden 2048, expert width 1408, 64
+     routed experts top-6 and 2 shared ones every token visits), for a
+     decode step's 256 tokens and a prefill's 15360, each routing leaving
+     one expert without rows: the swiglu (gate/up) product, then the down
+     product with its row weights on the kernel's own swiglu output, each
+     within 2^-6 of the largest output of its plain version; the kernel,
+     its plain version and ``torch.matmul`` for each expert with rows (the
+     library's figure: the products alone, no epilogue) by card time; the
+     bound from these inputs (the weights of the experts that got rows).
+     Then one composer batch of the whole model on random weights (256
+     prompts of 42-77 tokens, 24 new tokens a row, the decode steps on
+     CUDA graphs after the first), its launches counted from a reset: two
+     ``moe_gemm`` launches a MoE layer a pass.
    Kernel, plain version and, where one PyTorch call computes the same
    function, that call (``library_ms``; the port never calls it) are timed
    as loops of back-to-back calls between two CUDA events (ms per call,
@@ -293,10 +307,12 @@ Matrix products run in full f32 where f32 is used: TF32 is switched off
 for both cuBLAS and cuDNN, and the patch embedding is a matrix product.
 The last two lines are a ``{"kernels": [...]}`` JSON object (each
 kernel's ``launches`` from the path it serves, named by ``launches_path``:
-the rank forward, the train step for the backward kernel, or the exact
-detector for the exact query; ``f32_shapes``, the f32 rows at the rank
+the rank forward, the train step for the backward kernel, the exact
+detector for the exact query, or a composer batch for the grouped expert
+GEMM; ``f32_shapes``, the f32 rows at the rank
 forward's shapes, and ``f32_route``, the f32 instantiation's route;
-``launches_by_path`` from the rank forward, the generate forward, a train
+``launches_by_path`` from the rank forward, phase 3's composer batch
+("compose"), the generate forward, a train
 step, a step of the ``train`` script's loop, an eval batch of the ``eval``
 script, on each rank of phase 9 a DDP step, a ``tp=2`` step and a sharded
 eval batch, and phase 10's exact detector, MCAN forward, MCAN train step
@@ -357,6 +373,17 @@ VIT_GEMM_SHAPES = [("vit qkv", HIDDEN, 3 * HIDDEN, False, False),
 # (name, table rows, channels, gathered rows) of the gather's checks: the
 # shapes of the SA1 and SA2 groupings, batch 8
 GATHER_SHAPES = [("sa1-like", NUM_POINTS, 4, 2048 * 64), ("sa2-like", 2048, 131, 1024 * 32)]
+
+# DeepSeek-V2-Lite's MoE layers (the declaration composer's): hidden 2048,
+# expert width 1408, 64 routed experts top-6 and 2 shared ones every token
+# visits, in 26 of its 27 layers
+MOE_HIDDEN, MOE_WIDTH, MOE_EXPERTS, MOE_SHARED, MOE_TOP_K, MOE_LAYERS = 2048, 1408, 64, 2, 6, 26
+# (name, tokens) of the grouped products' checks: a decode step of 256
+# rows, a prefill of 256 prompts of 60 tokens on average
+MOE_SHAPES = [("decode", 256), ("prefill", 15360)]
+# the composer batch whose launches are counted: 256 prompts of 42-77
+# tokens, 24 new tokens a row (the longest row of compose-bf16-b256's)
+COMPOSE_BATCH, COMPOSE_PROMPT, COMPOSE_NEW = 256, (42, 77), 24
 
 # H100 SXM peaks (NVIDIA's data sheet, dense) for the bounds
 PEAK_BF16 = 989e12
@@ -595,14 +622,14 @@ PTXAS_KERNELS = ("gemm_kernel", "vit_attention_bf16_kernel", "fps_cluster_kernel
 # names, the first that matches deciding: wg::gemm_kernel<...>, the
 # vocabulary pass, the scoring attentions' pipeline, the 3xTF32 products and
 # vocabulary pass on wgmma, then on mma.sync, the ViT and scoring
-# attentions), and which: the wgmma product (HGMMA), the TMA tile load
+# attentions, the grouped expert GEMM), and which: the wgmma product (HGMMA), the TMA tile load
 # (UTMALDG), the mma.sync product (HMMA)
 SASS_KERNELS = {"wg11gemm_kernel": ("HGMMA", "UTMALDG"), "vocab_wgmma_kernel": ("HGMMA", "UTMALDG"),
                 "attention_pipe_kernel": ("UTMALDG",),
                 "gemm_f32_kernel_wgmma": ("HGMMA", "UTMALDG"),
                 "vocab_f32_kernel_wgmma": ("HGMMA", "UTMALDG"), "gemm_f32_kernel": ("HMMA",),
                 "vit_attention_f32_kernel": ("HMMA",), "scoring_attention_f32_kernel": ("HMMA",),
-                "vocab_f32_kernel": ("HMMA",)}
+                "vocab_f32_kernel": ("HMMA",), "moe_gemm_kernel": ("HGMMA", "UTMALDG")}
 # the route of each kernel's f32 instantiation, for the kernels line
 F32_ROUTES = {
     "scoring_gemm": "3xTF32 on TMA-fed wgmma m64n128k8: gemm_f32_kernel_wgmma on tile_gemm.cuh's "
@@ -1316,6 +1343,136 @@ def phase_gather(device, reps: int = 10):
                  rows=gather_rows, per="one call at each checked shape: no path calls the gather")]
 
 
+def phase_moe(device, reps: int = 10):
+    """The grouped expert GEMM (``moe.moe_gemm``; only the declaration
+    composer runs it) against its plain version at the composer's MoE
+    widths, for each routing of ``MOE_SHAPES`` (top-6 of the routed experts
+    drawn per token, expert 1 never chosen, then the shared experts): the
+    swiglu product, then the down product with f32 row weights on the
+    kernel's own swiglu output, each within 2^-6 of its plain version's
+    largest output (both sum in f32 and round alike; a sum in another order
+    can flip a rounding) and finite. Card times (``device_ms``) of the
+    kernel, its plain version and the library's figure, ``torch.matmul``
+    for each expert with rows (the products alone, no epilogue; the
+    offsets read beforehand). The bound: each expert with rows reads its
+    weights once, the rows are read and written once (the down product's
+    f32 row weights read too), the operations at the bf16 peak. ``calls``:
+    one composer batch of the cell's traffic, 26 MoE layers of one prefill
+    and 23 decode steps. Then ``compose_launches``. Returns (the record of
+    the kernels line, the launches of the composer batch)."""
+    from bridgeqa_tpu_torch.ops import moe
+
+    t_phase = time.perf_counter()
+    bf16, e = torch.bfloat16, MOE_EXPERTS + MOE_SHARED
+    h, w, k = MOE_HIDDEN, MOE_WIDTH, MOE_TOP_K + MOE_SHARED
+    gen = torch.Generator(device=device).manual_seed(22)
+    gate_up = (0.02 * torch.randn(e, 2 * w, h, generator=gen, device=device)).to(bf16)
+    down = (0.02 * torch.randn(e, h, w, generator=gen, device=device)).to(bf16)
+    rows, failures = [], []
+    for name, tokens in MOE_SHAPES:
+        scores = torch.rand(tokens, MOE_EXPERTS, generator=gen, device=device)
+        scores[:, 1] = -1.0  # expert 1 gets no rows
+        shared = torch.arange(MOE_EXPERTS, e, device=device).expand(tokens, MOE_SHARED)
+        ids = torch.cat([scores.topk(MOE_TOP_K, dim=1).indices, shared], dim=1)
+        order, offsets, counts = moe.dispatch(ids, e)
+        if int(counts[1]) != 0 or int(counts.sum()) != tokens * k:
+            raise AssertionError(f"moe_gemm {name}: routing counts {counts.tolist()}")
+        x = torch.randn(tokens, h, generator=gen, device=device).to(bf16).index_select(
+            0, order // k)
+        rw = torch.rand(tokens * k, generator=gen, device=device)
+        m, used, bounds = x.shape[0], int((counts > 0).sum()), offsets.tolist()
+        hidden = moe.moe_gemm(x, gate_up, offsets, swiglu=True)
+        for product, a, wt, kw in (("swiglu", x, gate_up, dict(swiglu=True)),
+                                   ("down", hidden, down, dict(row_weight=rw))):
+            got = moe.moe_gemm(a, wt, offsets, **kw)
+            want = moe.moe_gemm_plain(a, wt, offsets, **kw)
+            err, tol = max_err(got, want), _bf16_tol(want)
+            finite = bool(torch.isfinite(got.float()).all())
+            if not (err <= tol and finite):
+                failures.append(f"moe_gemm {name} {product}: err {err:.3g} (tol {tol:.3g}), "
+                                f"finite {finite}")
+            pairs = [(a[p:q], wt[j]) for j, (p, q) in enumerate(zip(bounds, bounds[1:])) if q > p]
+            ms = device_ms(lambda: moe.moe_gemm(a, wt, offsets, **kw), reps)
+            plain_ms = device_ms(lambda: moe.moe_gemm_plain(a, wt, offsets, **kw), reps)
+            library_ms = device_ms(lambda: [torch.matmul(xa, we.T) for xa, we in pairs], reps)
+            n, kk = wt.shape[1], wt.shape[2]
+            out_n = got.shape[1]
+            bound_ms, bound_by = bound(2.0 * m * kk * n,
+                                       (used * n * kk + m * kk + m * out_n) * 2
+                                       + (m * 4 if product == "down" else 0), PEAK_BF16)
+            calls = MOE_LAYERS * (1 if name == "prefill" else COMPOSE_NEW - 1)
+            shape = f"{name} {product}: ({m}, {kk}) rows of {used} experts, W ({e}, {n}, {kk})"
+            rows.append(dict(shape=shape, calls=calls, max_abs_err=err, tolerance=tol, ms=ms,
+                             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, note="ms, plain_ms and library_ms card time "
+                             "(device_ms); library: torch.matmul a non-empty expert"))
+            log(f"moe_gemm {shape}: err {err:.3g} (tol {tol:.3g}); kernel {ms:.4f} ms "
+                f"({bound_ms / ms:.0%} of its bound), plain {plain_ms:.3f} ms, torch.matmul "
+                f"per expert {library_ms:.4f} ms (kernel / library {ms / library_ms:.2f}), "
+                f"bound {bound_ms:.4f} ms ({bound_by})")
+            del got, want
+        del x, hidden, rw
+    del gate_up, down
+    if failures:
+        raise AssertionError(f"the grouped expert GEMM and its plain version disagree: {failures}")
+    launches = compose_launches(device)
+    log(f"moe: phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(name="moe_gemm", route="cuda", source="bridgeqa_tpu_torch/csrc/moe_gemm.cu",
+                replaces="none: new in the port (the JAX package has no mixture of experts)",
+                rows=rows, per="one compose-bf16-b256 batch: 26 MoE layers of one prefill of "
+                "about 15360 tokens and 23 decode steps of 256 rows"), launches
+
+
+def compose_launches(device) -> dict:
+    """The launches of one composer batch: DeepSeek-V2-Lite whole, at its
+    published widths in bf16, on random weights (std 0.02, norm scales 1),
+    ``generate_greedy`` over ``COMPOSE_BATCH`` prompts of ``COMPOSE_PROMPT``
+    tokens, ``COMPOSE_NEW`` tokens a row (no EOS), counted from a reset. A
+    pass (the prefill, then each decode step, eager or replayed) launches
+    the grouped GEMM twice in every MoE layer."""
+    import gc
+
+    from bridgeqa_tpu_torch.models.deepseek_v2 import DeepseekV2Config, DeepseekV2ForCausalLM
+
+    torch.cuda.empty_cache()
+    cfg = DeepseekV2Config()
+    model = DeepseekV2ForCausalLM(cfg, device=device, dtype=torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(23)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() == 1:
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
+    rng = np.random.RandomState(23)
+    lens = rng.randint(COMPOSE_PROMPT[0], COMPOSE_PROMPT[1] + 1, COMPOSE_BATCH).tolist()
+    ids = torch.from_numpy(rng.randint(0, cfg.bos_token_id, (COMPOSE_BATCH, max(lens)))).to(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = model.generate_greedy(ids, lens, [COMPOSE_NEW] * COMPOSE_BATCH, eos=-1)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    want = 2 * sum(cfg.is_moe(n) for n in range(cfg.num_hidden_layers)) * COMPOSE_NEW
+    graphs = [s.graphs is not None for s in model._steps.values()]
+    peak = torch.cuda.max_memory_allocated(device)
+    log(f"compose batch: {COMPOSE_BATCH} prompts of {min(lens)}-{max(lens)} tokens, "
+        f"{COMPOSE_NEW} new tokens a row, {seconds:.2f} s (the first batch: warms and captures); "
+        f"decode graphs {graphs}; launches {launches}; peak {peak / 1e9:.1f} GB")
+    bad = []
+    if launches["moe_gemm"] != want:
+        bad.append(f"moe_gemm launched {launches['moe_gemm']} times, {want} expected")
+    if graphs != [True] or tuple(out.ids.shape) != (COMPOSE_BATCH, COMPOSE_NEW):
+        bad.append(f"decode graphs {graphs}, ids {tuple(out.ids.shape)}")
+    if not (0 <= int(out.ids.min()) and int(out.ids.max()) < cfg.vocab_size):
+        bad.append(f"ids out of the vocabulary: {int(out.ids.min())}-{int(out.ids.max())}")
+    del model, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"compose batch: {bad}")
+    return launches
+
+
 def head_rel_l2(got, want, heads: int) -> float:
     """The largest relative L2 error of one (image, head) slice of (B, N,
     H) outputs."""
@@ -1464,7 +1621,8 @@ def tiny_config():
 
 # the hand-written kernels, each counted by the program as ``kernel/<name>``
 KERNELS = ("fps", "ball_query_stripes", "scoring_gemm", "scoring_attention", "scoring_layernorm",
-           "vocab_loss", "vit_attention", "gather_rows", "ball_query_backward", "ball_query_exact")
+           "vocab_loss", "vit_attention", "gather_rows", "ball_query_backward", "ball_query_exact",
+           "moe_gemm")
 
 
 def reset_launches() -> None:
@@ -1486,6 +1644,8 @@ OFF_PATH = ("gather_rows",)
 BACKWARD_ONLY = ("ball_query_backward",)
 # kernels only the exact mode runs (grouping.FORCE_MODE = "exact")
 EXACT_ONLY = ("ball_query_exact",)
+# kernels only the declaration composer runs
+COMPOSE_ONLY = ("moe_gemm",)
 
 
 def phase_reference(device):
@@ -1521,7 +1681,7 @@ def phase_reference(device):
         torch.cuda.synchronize()
         launches = read_launches()
     idle = [k for k, n in launches.items()
-            if n == 0 and k not in OFF_PATH + BACKWARD_ONLY + EXACT_ONLY]
+            if n == 0 and k not in OFF_PATH + BACKWARD_ONLY + EXACT_ONLY + COMPOSE_ONLY]
     if idle:
         raise AssertionError(f"reference: kernels not launched on the card: {idle}")
     for key in ("sa1_inds", "sa2_inds", "fp2_inds"):
@@ -1588,7 +1748,8 @@ def expected_launches(cfg) -> dict:
     ball query per main-path shape; each scoring pass runs every decoder
     layer (``LAUNCHES_PER_LAYER`` launches each) and one vocabulary pass;
     the ViT runs every block (``LAUNCHES_PER_BLOCK``) and one more LayerNorm
-    (its final norm); no path runs the gather."""
+    (its final norm); no path runs the gather, and only the composer the
+    grouped expert GEMM."""
     from bridgeqa_tpu_torch.ops.scoring_layer import LAUNCHES_PER_LAYER
     from bridgeqa_tpu_torch.ops.vit_block import LAUNCHES_PER_BLOCK
 
@@ -1596,7 +1757,7 @@ def expected_launches(cfg) -> dict:
     counts = {"fps": len(FPS_SHAPES), "ball_query_stripes": len(BQ_SHAPES),
               **{k: n * layers * SCORING_PASSES for k, n in LAUNCHES_PER_LAYER.items()},
               "vocab_loss": SCORING_PASSES, "vit_attention": 0, "gather_rows": 0,
-              "ball_query_backward": 0, "ball_query_exact": 0}
+              "ball_query_backward": 0, "ball_query_exact": 0, "moe_gemm": 0}
     for k, n in LAUNCHES_PER_BLOCK.items():
         counts[k] += n * depth
     counts["scoring_layernorm"] += 1
@@ -2279,7 +2440,7 @@ def expected_generate_launches(cfg) -> dict:
     counts = {"fps": len(FPS_SHAPES), "ball_query_stripes": len(BQ_SHAPES),
               "scoring_gemm": 0, "scoring_attention": 0, "scoring_layernorm": 1,
               "vocab_loss": 0, "vit_attention": 0, "gather_rows": 0, "ball_query_backward": 0,
-              "ball_query_exact": 0}
+              "ball_query_exact": 0, "moe_gemm": 0}
     for k, n in LAUNCHES_PER_BLOCK.items():
         counts[k] += n * vit_depth(cfg)
     return counts
@@ -4881,6 +5042,8 @@ def main() -> int:
     kernels = phase_kernels(device) + phase_scoring_kernels(device, decoder_layers(cfg))
     kernels += phase_vit_kernels(device, {k["name"]: k for k in kernels}, vit_depth(cfg))
     kernels += phase_gather(device)
+    moe_record, compose_launches = phase_moe(device)
+    kernels.append(moe_record)
     report_ratios({k["name"]: k for k in kernels})
     wrapper_host_us(device)
     phase_decoder_pass(device)
@@ -4906,8 +5069,9 @@ def main() -> int:
     for k in kernels:
         name = k["name"]
         path = ("train" if name in BACKWARD_ONLY else "exact detector" if name in EXACT_ONLY
-                else "rank")
-        by_path = {"rank": launches[name], "generate": generate_launches[name],
+                else "compose" if name in COMPOSE_ONLY else "rank")
+        by_path = {"rank": launches[name], "compose": compose_launches[name],
+                   "generate": generate_launches[name],
                    "train": train_launches[name], "train loop": loop_launches[name],
                    "eval": eval_launches[name],
                    **{f"{p} per rank": n[name] for p, n in parallel_launches.items()},
